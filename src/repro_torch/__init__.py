@@ -1,0 +1,11 @@
+"""PyTorch + CUDA port of the EdgeRL reproduction (``repro``).
+
+Module paths mirror ``repro``: ``repro_torch.models.attention`` is the
+counterpart of ``repro.models.attention``. The port imports torch and
+numpy, never JAX and nothing of ``repro``. Its entry points run on the CUDA
+card unless the caller passes ``device="cpu"``; every TPU kernel on the
+ported path is a hand-written CUDA kernel (``repro_torch.kernels``).
+
+Ported so far: EdgeRL split serving (``SplitServingEngine``) of the dense
+qwen2-0.5b in its bf16, w8 and w4 versions.
+"""

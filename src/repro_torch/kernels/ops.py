@@ -1,0 +1,41 @@
+"""The models' entry to the kernels, dispatched by the tensor's device.
+
+A CUDA tensor goes to the hand-written kernel, always: a kernel that does
+not build or launch raises. A CPU tensor goes to the kernel's plain
+PyTorch version. There is no switch that turns the kernels off on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.quant.quantize import QTensor, quantize_act
+
+
+def quantized_dense(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """Dense projection against a quantized weight.
+
+    w8a8 leaves quantize the activations per row and run the int8 x int8
+    product; weight-only leaves (w8wo, packed w4) dequantize to f32 and use
+    the plain matmul, as the JAX package does (it has no kernel for them).
+    """
+    if w.act_bits == 8 and w.bits == 8:
+        xq, xs = quantize_act(x)
+        lead = x.shape[:-1]
+        args = (xq.reshape(-1, x.shape[-1]), w.q, xs.reshape(-1),
+                w.scale.reshape(-1))
+        out = quant_matmul(*args) if x.is_cuda else ref.quant_matmul_ref(*args)
+        return out.reshape(*lead, -1).to(x.dtype)
+    return x @ w.dequantize().to(x.dtype)
+
+
+def attention_bhsd(q, k, v, *, causal=True, window=None, logit_scale=None):
+    """(B,H,S,D) attention: the flash kernel on CUDA, its plain version on
+    the CPU."""
+    if q.is_cuda:
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               logit_scale=logit_scale)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   logit_scale=logit_scale)

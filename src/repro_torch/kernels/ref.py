@@ -1,0 +1,37 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+They run the same function as the CUDA kernels with ordinary tensor ops.
+The CPU path of the port uses them, the tests compare them with the JAX
+package, and ``chip_smoke.py`` holds each kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None,
+                        logit_scale=None):
+    """q: (B,H,Sq,D); k,v: (B,HK,Skv,D) -> (B,H,Sq,Dv)  [kernel layout].
+
+    GQA: query head h reads kv head h % HK (plain_attention's grouping)."""
+    # imported here: models -> kernels.ops -> the kernel wrappers -> this module
+    from repro_torch.models.attention_core import plain_attention
+
+    out = plain_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        q_positions=torch.arange(q.shape[2], device=q.device),
+        kv_positions=torch.arange(k.shape[2], device=k.device),
+        causal=causal, window=window, logit_scale=logit_scale)
+    return out.transpose(1, 2)
+
+
+def quant_matmul_ref(x_q, w_q, x_scale, w_scale):
+    """x_q (M,K) int8, w_q (K,N) int8, x_scale (M,), w_scale (N,) ->
+    f32 (M,N) = (x_q @ w_q) * x_scale[:,None] * w_scale[None,:].
+
+    The integer product is exact: every partial sum is an integer below
+    2**53, so a float64 matmul (which runs on CPU and CUDA alike) gives the
+    int32 accumulator of the JAX reference bit for bit."""
+    acc = (x_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.int32)
+    return (acc.to(torch.float32)
+            * x_scale.reshape(-1, 1) * w_scale.reshape(1, -1))

@@ -1,0 +1,33 @@
+"""Transformer blocks (port of ``repro.models.blocks``): the ``attn`` kind,
+pre-norm self-attention plus pre-norm MLP, each with a residual."""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import SelfAttention
+from repro_torch.models.layers import MLP, RMSNorm
+
+
+def _sub(p: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+class Block(nn.Module):
+    """``p`` holds one layer's tensors keyed as in the reference's block
+    plan: norm1/scale, attn/..., norm2/scale, mlp/..."""
+
+    def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                 window: Optional[int] = None):
+        super().__init__()
+        self.norm1 = RMSNorm(p["norm1/scale"])
+        self.attn = SelfAttention(cfg, _sub(p, "attn/"), window=window)
+        self.norm2 = RMSNorm(p["norm2/scale"])
+        self.mlp = MLP(p["mlp/w_gate"], p["mlp/w_up"], p["mlp/w_down"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))

@@ -1,0 +1,103 @@
+"""Shared primitive layers (port of ``repro.models.layers``): the dense
+projection, RMSNorm, the SwiGLU MLP and rotary embeddings."""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.quant.quantize import QTensor
+
+
+def dense(x: torch.Tensor, w: Union[torch.Tensor, QTensor]) -> torch.Tensor:
+    """``x @ w`` with w (in, out); a ``QTensor`` goes to
+    ``ops.quantized_dense``."""
+    if isinstance(w, QTensor):
+        return ops.quantized_dense(x, w)
+    return x @ w
+
+
+class Dense(nn.Module):
+    """A dense projection holding either a float weight (in, out) or a
+    ``QTensor`` (its codes and scales as buffers)."""
+
+    def __init__(self, w: Union[torch.Tensor, QTensor]):
+        super().__init__()
+        if isinstance(w, QTensor):
+            self.register_parameter("weight", None)
+            self.register_buffer("q", w.q)
+            self.register_buffer("scale", w.scale)
+            self.bits, self.act_bits = w.bits, w.act_bits
+        else:
+            self.weight = nn.Parameter(w, requires_grad=False)
+
+    @property
+    def w(self) -> Union[torch.Tensor, QTensor]:
+        if self.weight is not None:
+            return self.weight
+        return QTensor(self.q, self.scale, self.bits, self.act_bits)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.w)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def apply_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """RMSNorm in f32, cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps) * scale.to(torch.float32)
+    return y.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, scale: torch.Tensor):
+        super().__init__()
+        self.scale = nn.Parameter(scale, requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_norm(x, self.scale)
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """SwiGLU: w_down(silu(w_gate(x)) * w_up(x))."""
+
+    def __init__(self, w_gate, w_up, w_down):
+        super().__init__()
+        self.w_gate, self.w_up, self.w_down = Dense(w_gate), Dense(w_up), Dense(w_down)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+
+
+# --------------------------------------------------------------------------
+# positions
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Half-split rotary embedding. x: (..., S, H, D); positions: (S,)."""
+    half = x.shape[-1] // 2
+    inv = rope_freqs(x.shape[-1], theta, device=x.device)        # (half,)
+    ang = positions.to(torch.float32)[:, None] * inv[None]       # (S, half)
+    cos = torch.cos(ang)[..., None, :]                           # (S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,134 @@
+"""Parameter plan, init and weight exchange for the dense model (port of
+``repro.models.params`` and ``plan_model`` in ``repro.models.model``).
+
+The plan maps each leaf path of the JAX package's flattened parameters
+(``tok_embed``, ``final_norm/scale``, ``stacks/main/blk/attn/wq``, ...) to
+its shape and initializer; stacked leaves carry the layer on dim 0. Dense
+weights are (in, out).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.layers import Dense
+from repro_torch.models.model import DenseLM, stack_defs
+
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    shape: Tuple[int, ...]
+    init: str = "fan_in"             # fan_in | zeros | ones | normal
+    scale: Optional[float] = None    # stddev: required by "normal", overrides fan-in
+
+
+def _block_plan(cfg: ModelConfig) -> Dict[str, P]:
+    d, f, Dh = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    H, HK = cfg.n_heads, cfg.n_kv_heads
+    plan = {
+        "norm1/scale": P((d,), "ones"),
+        "attn/wq": P((d, H * Dh)),
+        "attn/wk": P((d, HK * Dh)),
+        "attn/wv": P((d, HK * Dh)),
+        "attn/wo": P((H * Dh, d)),
+        "norm2/scale": P((d,), "ones"),
+        "mlp/w_gate": P((d, f)),
+        "mlp/w_up": P((d, f)),
+        "mlp/w_down": P((f, d)),
+    }
+    if cfg.qkv_bias:
+        plan.update({"attn/bq": P((H * Dh,), "zeros"),
+                     "attn/bk": P((HK * Dh,), "zeros"),
+                     "attn/bv": P((HK * Dh,), "zeros")})
+    return plan
+
+
+def plan_model(cfg: ModelConfig) -> Dict[str, P]:
+    """{leaf path: P}, in the JAX package's (sorted) flattening order."""
+    plan = {"tok_embed": P((cfg.vocab_size, cfg.d_model), "normal", 0.01),
+            "final_norm/scale": P((cfg.d_model,), "ones")}
+    for s in stack_defs(cfg):
+        (sub,) = s.subs
+        for path, p in _block_plan(cfg).items():
+            plan[f"stacks/{s.name}/{sub.name}/{path}"] = dataclasses.replace(
+                p, shape=(s.length,) + p.shape)
+    return dict(sorted(plan.items()))
+
+
+def _init_leaf(p: P, generator: torch.Generator, dtype, device):
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=dtype, device=device)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=dtype, device=device)
+    if p.init == "normal":
+        std = p.scale
+    elif p.init == "fan_in":
+        # fan-in = second-to-last dim (the stacking dim is not counted)
+        fan_in = p.shape[-2] if len(p.shape) >= 2 else max(p.shape[-1], 1)
+        std = p.scale if p.scale is not None else fan_in ** -0.5
+    else:
+        raise ValueError(f"unknown init {p.init!r}")
+    x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * std).to(dtype)
+
+
+def init(cfg: ModelConfig, generator: torch.Generator,
+         device: DeviceLike = None) -> DenseLM:
+    """A model with the reference's init distributions (fan-in normal for
+    matrices, std 0.01 normal for ``tok_embed``, ones for norm scales,
+    zeros for biases), drawn from ``generator`` leaf by leaf in plan order.
+    ``generator`` must live on ``device``. torch draws other numbers than
+    JAX's threefry: weights cross between the packages through .npz files."""
+    dev = resolve_device(device)
+    flat = {path: _init_leaf(p, generator, cfg.pdtype, dev)
+            for path, p in plan_model(cfg).items()}
+    return DenseLM(cfg, flat)
+
+
+def load_jax_params(cfg: ModelConfig, flat: Mapping[str, np.ndarray],
+                    device: DeviceLike = None) -> DenseLM:
+    """Build the port's model from the JAX package's flattened parameters
+    (e.g. a ``repro.checkpointing.save_tree`` file read back with
+    ``repro_torch.checkpointing.load_tree``). Keys and shapes are checked
+    against the plan."""
+    dev = resolve_device(device)
+    plan = plan_model(cfg)
+    missing, extra = set(plan) - set(flat), set(flat) - set(plan)
+    if missing or extra:
+        raise ValueError(f"parameter mismatch: missing={sorted(missing)[:5]} "
+                         f"extra={sorted(extra)[:5]}")
+    tensors = {}
+    for path, p in plan.items():
+        arr = np.asarray(flat[path])
+        if arr.shape != p.shape:
+            raise ValueError(f"{path}: shape {arr.shape} != {p.shape}")
+        tensors[path] = torch.tensor(arr, dtype=cfg.pdtype, device=dev)
+    return DenseLM(cfg, tensors)
+
+
+def export_params(model: DenseLM) -> Dict[str, np.ndarray]:
+    """The reverse of ``load_jax_params``: the model's float parameters as
+    the JAX package's flat {leaf path: ndarray}, layers stacked on dim 0."""
+    cfg = model.cfg
+    flat = {"tok_embed": model.tok_embed, "final_norm/scale": model.final_norm.scale}
+    for s in stack_defs(cfg):
+        (sub,) = s.subs
+        blocks = model.stacks[s.name]
+        for path in _block_plan(cfg):
+            mod_path, leaf = path.rsplit("/", 1)
+            per_layer = []
+            for blk in blocks:
+                t = getattr(blk.get_submodule(mod_path), leaf)
+                if isinstance(t, Dense):
+                    t = t.w
+                if not isinstance(t, torch.Tensor):
+                    raise TypeError(f"{path} is quantized; export the float model")
+                per_layer.append(t)
+            flat[f"stacks/{s.name}/{sub.name}/{path}"] = torch.stack(per_layer)
+    return {k: v.detach().cpu().numpy() for k, v in sorted(flat.items())}

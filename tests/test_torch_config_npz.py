@@ -1,0 +1,146 @@
+"""repro_torch against repro: configuration, .npz interchange, import
+hygiene and device rules of the port's entry points (CPU)."""
+import ast
+import dataclasses
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+import repro_torch  # noqa: E402
+from repro.checkpointing import load_tree as jax_load_tree  # noqa: E402
+from repro.checkpointing import save_tree as jax_save_tree  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.models import init as jax_init  # noqa: E402
+from repro_torch.checkpointing import flatten, load_tree, save_tree  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import init, load_jax_params  # noqa: E402
+from repro_torch.serving import SplitServingEngine  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_qwen2_config_matches_reference(reduced):
+    ref, port = jax_get_config("qwen2-0.5b"), get_config("qwen2-0.5b")
+    if reduced:
+        ref, port = ref.reduced(), port.reduced()
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.resolved_head_dim == ref.resolved_head_dim
+    assert port.pdtype == torch.float32 and port.cdtype == torch.float32
+
+
+def test_npz_reference_file_loads_into_port(tmp_path):
+    cfg = jax_get_config("qwen2-0.5b").reduced()
+    params = jax_init(cfg, jax.random.key(0))
+    path = str(tmp_path / "ref.npz")
+    jax_save_tree(path, params, meta={"arch": cfg.name, "step": 3})
+    flat, meta = load_tree(path)
+    assert meta == {"arch": cfg.name, "step": 3}
+    want = {"/".join(str(p.key) for p in kp): np.asarray(leaf)
+            for kp, leaf in jax.tree_util.tree_flatten_with_path(params)[0]}
+    assert set(flat) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(flat[k], want[k])
+    model = load_jax_params(get_config("qwen2-0.5b").reduced(), flat, device="cpu")
+    assert model.tok_embed.shape == (cfg.vocab_size, cfg.d_model)
+
+
+def test_npz_port_file_loads_into_reference(tmp_path):
+    cfg = jax_get_config("qwen2-0.5b").reduced()
+    like = jax_init(cfg, jax.random.key(1))
+    r = np.random.default_rng(0)
+    tree = jax.tree.map(lambda a: r.normal(size=a.shape).astype(np.float32), like)
+    path = str(tmp_path / "port.npz")
+    save_tree(path, tree, meta={"from": "repro_torch"})
+    got, meta = jax_load_tree(path, like)
+    assert meta == {"from": "repro_torch"}
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    assert set(flatten(tree)) == set(load_tree(path)[0])
+
+
+def _port_sources():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_neither_jax_nor_reference():
+    bad = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{path.relative_to(ROOT)}:{node.lineno} imports {name}")
+    assert not bad, bad
+
+
+_IMPORT_EACH_FIRST = """
+import importlib, sys
+names = sys.argv[1:]
+for name in names:
+    for key in [k for k in sys.modules if k.split(".")[0] == "repro_torch"]:
+        del sys.modules[key]
+    importlib.import_module(name)
+from repro_torch.kernels import _build
+assert _build._LIBS == {}, _build._LIBS
+print(len(names))
+"""
+
+
+def test_every_module_imports_first_and_builds_nothing():
+    """Each module imports on its own, before any other module of the port
+    (no import cycle bites whatever a caller imports first), and importing
+    compiles and loads no kernel."""
+    names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                         "repro_torch."))
+    assert "repro_torch.kernels.flash_attention" in names
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_EACH_FIRST, *names],
+                         capture_output=True, text=True, env=env, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == [str(len(names))]
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen2-0.5b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init(cfg, torch.Generator().manual_seed(0))
+    model = init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    flat = {k: v.numpy() for k, v in
+            [("tok_embed", model.tok_embed.detach())]}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_jax_params(cfg, flat)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SplitServingEngine(cfg, model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SplitServingEngine(cfg, model, device="cuda")
+    eng = SplitServingEngine(cfg, model, device="cpu")
+    assert eng.device == torch.device("cpu")
+
+
+def test_unported_families_raise():
+    from repro_torch.models import stack_defs
+    cfg = get_config("qwen2-0.5b").reduced()
+    for kw in (dict(family="moe", moe=True), dict(family="ssm", ssm=True),
+               dict(family="hybrid", block_pattern=("rec", "attn")),
+               dict(family="vlm", cross_attn_every=2),
+               dict(family="audio", enc_dec=True), dict(use_mla=True),
+               dict(qk_norm=True)):
+        with pytest.raises(NotImplementedError):
+            stack_defs(cfg.with_overrides(**kw))

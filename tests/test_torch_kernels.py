@@ -1,0 +1,125 @@
+"""The flash attention kernel's plain version against repro's Pallas kernel
+(interpret mode) and its oracle (CPU), plus the rules every kernel wrapper
+keeps on the CPU. The CUDA kernels themselves run only on the card:
+``python3 chip_smoke.py`` holds them against these plain versions there."""
+import ctypes
+import re
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _qkv(B, H, HK, S, D, seed):
+    r = np.random.default_rng(seed)
+    return tuple(r.normal(size=shape).astype(np.float32)
+                 for shape in ((B, H, S, D), (B, HK, S, D), (B, HK, S, D)))
+
+
+@pytest.mark.parametrize("B,H,HK,S,D", [(2, 4, 2, 32, 64),     # GQA 4/2
+                                        (1, 14, 2, 40, 64)])   # 14/2, ragged S
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 16), (False, None)])
+def test_flash_attention_ref_matches_pallas_and_oracle(B, H, HK, S, D, causal, window):
+    q, k, v = _qkv(B, H, HK, S, D, seed=S + H)
+    got = fa.flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 causal=causal, window=window).numpy()
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want_kernel = np.asarray(jax_flash(jq, jk, jv, causal=causal, window=window,
+                                       interpret=True))
+    want_ref = np.asarray(jax_ref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                                      window=window))
+    np.testing.assert_allclose(got, want_kernel, **TOL)
+    np.testing.assert_allclose(got, want_ref, **TOL)
+
+
+def test_flash_attention_ref_reads_kv_head_h_mod_hk():
+    """Query head h reads kv head h % HK (the reference's (G, HK) grouping),
+    not h // G (torch's repeat_interleave / SDPA enable_gqa)."""
+    B, H, HK, S, D = 1, 4, 2, 16, 64
+    q, k, v = _qkv(B, H, HK, S, D, seed=5)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = fa.flash_attention_ref(tq, tk, tv, causal=True)
+    by_mod = fa.flash_attention_ref(tq, tk.repeat(1, H // HK, 1, 1),
+                                    tv.repeat(1, H // HK, 1, 1), causal=True)
+    by_div = fa.flash_attention_ref(tq, tk.repeat_interleave(H // HK, 1),
+                                    tv.repeat_interleave(H // HK, 1), causal=True)
+    torch.testing.assert_close(got, by_mod, **TOL)
+    assert (got - by_div).abs().max() > 0.1
+    want = np.asarray(jax_flash(*(jnp.asarray(a) for a in (q, k, v)), causal=True,
+                                interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_ops_dispatch_cpu_tensors_to_the_plain_versions():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 8, 64, seed=1))
+    before = fa.launches
+    out = ops.attention_bhsd(q, k, v, causal=True)
+    torch.testing.assert_close(out, fa.flash_attention_ref(q, k, v, causal=True))
+    assert fa.launches == before
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 8, 64, seed=2))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q, k, v)
+    assert fa.launches == 0
+
+
+def _c_signature(source: str, fn: str):
+    """ctypes types of an ``extern "C"`` function's parameters, read from
+    its CUDA source."""
+    m = re.search(rf'extern "C" int {fn}\(([^)]*)\)', source)
+    assert m, fn
+    types = []
+    for param in m.group(1).split(","):
+        if "long long*" in param.replace(" *", "*"):
+            types.append(ctypes.POINTER(ctypes.c_longlong))
+        elif "*" in param:
+            types.append(ctypes.c_void_p)
+        elif param.split()[0] == "float":
+            types.append(ctypes.c_float)
+        else:
+            assert param.split()[0] == "int", param
+            types.append(ctypes.c_int)
+    return types
+
+
+@pytest.mark.parametrize("module,name,fn", [
+    (fa, "flash_attention", "flash_attention_fwd"),
+    (qmm, "quant_matmul", "quant_matmul_s8")])
+def test_ctypes_signatures_match_the_c_entry_points(monkeypatch, module, name, fn):
+    lib = types.SimpleNamespace(**{fn: types.SimpleNamespace()})
+    monkeypatch.setattr(_build, "library", lambda n: lib if n == name else None)
+    module._entry.cache_clear()
+    try:
+        entry = module._entry()
+    finally:
+        module._entry.cache_clear()
+    source = (_build.SRC_DIR / f"{name}.cu").read_text()
+    assert entry.argtypes == _c_signature(source, fn)
+    assert entry.restype is ctypes.c_int
+
+
+def test_a_missing_compiler_raises_and_nothing_falls_back(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build(["quant_matmul"])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.library("flash_attention")
+    assert "flash_attention" not in _build._LIBS
+    with pytest.raises(KeyError):
+        _build.build(["no_such_kernel"])
