@@ -5,17 +5,27 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``.
 2. Kernel checks: hold each kernel against its plain PyTorch version on the
-   card (quant_matmul bit for bit; flash_attention within 2e-5 in f32 and
-   2e-2 in bf16, as the JAX package's kernel tests), including a GQA case
-   in which h % HK and h // G give different answers.
+   card (quant_matmul bit for bit; flash_attention and flash_decode within
+   2e-5 in f32 and 2e-2 in bf16, as the JAX package's kernel tests),
+   including GQA cases in which h % HK and h // G give different answers.
 3. Main path: full-width qwen2-0.5b (random weights from torch.Generator
    seed 0) served by ``SplitServingEngine``: 8 requests x 512 tokens for
    each version (bf16, w8, w4) at cuts 1, 12 and 24, with the kernels'
    launch counts read around the run (24 flash_attention launches per
    infer; 168 quant_matmul launches per w8 infer, 0 otherwise).
+3b. Decode serving: ``ServingEngine`` generates 64 tokens greedily for
+   8 x 512-token prompts (cache_len 576), 24 flash_attention launches per
+   prefill and 24 flash_decode launches per decode step; one more generate
+   on the w8 version (168 quant_matmul launches per prefill and per step);
+   then ``ContinuousBatchingServer`` (max_batch 8, cache_len 512) serves 16
+   requests of 64-256 prompt tokens and 16-48 new tokens, with 24
+   flash_decode launches per decode step; a same-prompt cohort gives the
+   engine's tokens.
 4. Split equals full: ``split_forward`` against ``forward_logits`` at cut 12.
 5. Card against CPU: the same port and weights with ``device="cpu"``, one
-   128-token request per version at cut 12.
+   128-token request per version at cut 12; then one 128-token request
+   decoded for 16 tokens on the card, with the CPU's prefill and
+   decode_step fed the card's tokens, logits compared step by step.
 6. Timing: each kernel at the main path's shapes beside its plain version,
    one PyTorch library call for the same function, and its bound.
 
@@ -49,6 +59,15 @@ BATCH, SEQ, CPU_SEQ = 8, 512, 128
 QMM_LAYER = ((896, 896), (896, 128), (896, 128), (896, 896),
              (896, 4864), (896, 4864), (4864, 896))
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# flash_decode: tests/test_kernels.py::test_flash_decode_sweep's cases
+# (B, H, HK, C, D, pos, window), then the decode path's shape
+FD_CASES = ((2, 4, 2, 128, 64, 50, None), (2, 4, 2, 128, 64, 127, None),
+            (1, 8, 1, 256, 64, 300, 128), (2, 2, 2, 200, 32, 450, 96),
+            (1, 4, 4, 64, 128, 10, None),
+            (8, 14, 2, 576, 64, 575, None), (8, 14, 2, 576, 64, 1000, 256))
+DEC_NEW, DEC_CACHE = 64, 576          # ServingEngine: new tokens, ring slots
+SRV_REQUESTS, SRV_BATCH, SRV_CACHE = 16, 8, 512
+CPU_NEW = 16
 # card vs CPU, f32 logits of order 1: sums run in other orders on the two
 # devices through 24 blocks, hence 1e-3 for bf16 and w4. In w8 such a
 # difference can also flip an int8 activation code (x / scale within
@@ -157,19 +176,59 @@ def phase_kernel_checks(dev):
     check(e_mod <= 2e-5 and e_div > 0.1,
           f"flash_attention GQA head map: |out - ref(h % HK)| = {e_mod:.3g}, "
           f"|out - ref(h // G)| = {e_div:.3g}")
+    check_flash_decode(dev, g)
     return qmm_err
+
+
+def check_flash_decode(dev, g):
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    for B, H, HK, C, D, pos, window in FD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
+            # the model's cache layer (B, C, HK, D), viewed as (B, HK, C, D)
+            k = torch.randn(B, C, HK, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+            v = torch.randn(B, C, HK, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+            out = fd.flash_decode(q, k, v, pos, window=window)
+            ref = fd.flash_decode_ref(q, k, v, pos, window=window)
+            torch.cuda.synchronize()
+            tol = FA_TOL[str(dtype).split(".")[1]]
+            err = (out.float() - ref.float()).abs().max().item()
+            check(out.dtype == dtype and torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+                  f"flash_decode {str(dtype)[6:]} B={B} H={H} HK={HK} C={C} D={D} pos={pos} "
+                  f"window={window}: max_abs_err={err:.3g} (tol {tol})")
+
+    # head mapping: kv head h % HK (the reference), not h // G
+    H, HK, C, D = 14, 2, 200, 64
+    q = torch.randn(2, H, D, generator=g, device=dev)
+    k = torch.randn(2, HK, C, D, generator=g, device=dev)
+    v = torch.randn(2, HK, C, D, generator=g, device=dev)
+    out = fd.flash_decode(q, k, v, 150)
+    ref = fd.flash_decode_ref(q, k, v, 150)
+    by_div = fd.flash_decode_ref(q, k.repeat_interleave(H // HK, 1),
+                                 v.repeat_interleave(H // HK, 1), 150)
+    torch.cuda.synchronize()
+    e_mod = (out - ref).abs().max().item()
+    e_div = (out - by_div).abs().max().item()
+    check(e_mod <= 2e-5 and e_div > 0.1,
+          f"flash_decode GQA head map: |out - ref(h % HK)| = {e_mod:.3g}, "
+          f"|out - ref(h // G)| = {e_div:.3g}")
 
 
 def _counts():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import quant_matmul as qmm
-    return {"flash_attention": fa.launches, "quant_matmul": qmm.launches}
+    return {"flash_attention": fa.launches, "flash_decode": fd.launches,
+            "quant_matmul": qmm.launches}
 
 
 def _reset_counts():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import quant_matmul as qmm
     fa.launches = 0
+    fd.launches = 0
     qmm.launches = 0
 
 
@@ -218,7 +277,8 @@ def phase_main_path(dev):
             want_bytes = link_w8 if version == "w8" else link_f32
             times[f"{version}@{cut[1]}"] = ms
             check(finite and shape_ok and act_bytes == want_bytes
-                  and delta == {"flash_attention": want_fa, "quant_matmul": want_qmm},
+                  and delta == {"flash_attention": want_fa, "flash_decode": 0,
+                                "quant_matmul": want_qmm},
                   f"infer {version} cut={cut[1]}: act_bytes={act_bytes} "
                   f"ms={[round(t, 3) for t in ms]} launches/infer={delta} "
                   f"logits {tuple(logits.shape)} finite={finite}")
@@ -230,6 +290,103 @@ def phase_main_path(dev):
           and launches["quant_matmul"] == reps * len(CUTS) * 7 * cfg.n_layers,
           "launch counts over the main path run")
     return cfg, model, eng, batch, launches, times
+
+
+def phase_decode_serving(cfg, model, batch):
+    import numpy as np
+    import torch
+    from repro_torch.models import prefill
+    from repro_torch.quant import build_version_params
+    from repro_torch.serving import (ContinuousBatchingServer, Request, ServeConfig,
+                                     ServingEngine)
+    print(f"== 3b. decode serving: full-width {cfg.name}, {BATCH} x {SEQ}-token prompts, "
+          f"{DEC_NEW} new tokens, cache_len {DEC_CACHE}")
+    L, V = cfg.n_layers, cfg.vocab_size
+    steps = DEC_NEW - 1                  # token 0 comes from the prefill
+    serve = ServeConfig(max_new_tokens=DEC_NEW, cache_len=DEC_CACHE)
+    eng = ServingEngine(cfg, model, serve)
+    w8 = ServingEngine(cfg, build_version_params(cfg, model, ("w8",))["w8"], serve)
+    eng.generate(batch)                  # warm-up
+    torch.cuda.synchronize()
+
+    def in_range(t):
+        return tuple(t.shape) == (BATCH, DEC_NEW) and 0 <= t.min().item() and t.max().item() < V
+
+    _reset_counts()
+    gen_ms = []
+    for _ in range(3):
+        before = _counts()
+        t0 = time.perf_counter()
+        toks = eng.generate(batch)
+        torch.cuda.synchronize()
+        gen_ms.append((time.perf_counter() - t0) * 1e3)
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        check(in_range(toks) and delta == {"flash_attention": L, "flash_decode": L * steps,
+                                           "quant_matmul": 0},
+              f"generate f32: {gen_ms[-1]:.1f} ms, launches {delta}")
+    before = _counts()
+    t0 = time.perf_counter()
+    toks8 = w8.generate(batch)
+    torch.cuda.synchronize()
+    w8_ms = (time.perf_counter() - t0) * 1e3
+    delta = {k: v - before[k] for k, v in _counts().items()}
+    check(in_range(toks8) and delta == {"flash_attention": L, "flash_decode": L * steps,
+                                        "quant_matmul": 7 * L * (1 + steps)},
+          f"generate w8: {w8_ms:.1f} ms, launches {delta}, "
+          f"{(toks8 == toks).float().mean().item():.3f} of its tokens equal f32's")
+
+    r = np.random.default_rng(5)
+    reqs = [Request(rid=i, tokens=r.integers(0, V, int(r.integers(64, 257))),
+                    max_new_tokens=int(r.integers(16, 49))) for i in range(SRV_REQUESTS)]
+    srv = ContinuousBatchingServer(cfg, model, max_batch=SRV_BATCH, cache_len=SRV_CACHE)
+    before = _counts()
+    t0 = time.perf_counter()
+    for q in reqs:
+        srv.submit(q)
+    done = srv.run()
+    torch.cuda.synchronize()
+    srv_s = time.perf_counter() - t0
+    delta = {k: v - before[k] for k, v in _counts().items()}
+    st = srv.stats
+    n_tok = sum(len(q.out) for q in done)
+    check(len(done) == SRV_REQUESTS and all(q.done and not q.truncated for q in done)
+          and all(len(q.out) == q.max_new_tokens for q in done)
+          and delta == {"flash_attention": L * st.prefills, "flash_decode": L * st.decode_steps,
+                        "quant_matmul": 0},
+          f"scheduler: {len(done)} requests, {n_tok} tokens in {srv_s:.2f} s "
+          f"({n_tok / srv_s:.1f} tokens/s), prefills {st.prefills}, decode steps "
+          f"{st.decode_steps}, wall steps {st.wall_steps}, reclaims {st.slot_reclaims}, "
+          f"launches {delta}")
+    print(f"  scheduler latency (wall steps): {json.dumps(st.latency_summary())}")
+    launches = _counts()
+
+    # timed apart from the counted run: prefill alone, and a same-prompt cohort
+    pre_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            prefill(cfg, model, batch, total_len=DEC_CACHE)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    prompts = batch["tokens"][:2, :128]
+    want = ServingEngine(cfg, model, ServeConfig(max_new_tokens=8, cache_len=SRV_CACHE)
+                         ).generate({"tokens": prompts}).tolist()
+    srv = ContinuousBatchingServer(cfg, model, max_batch=2, cache_len=SRV_CACHE)
+    for i in range(2):
+        srv.submit(Request(rid=i, tokens=prompts[i].cpu().numpy(), max_new_tokens=8))
+    got = [q.out for q in sorted(srv.run(), key=lambda q: q.rid)]
+    check(got == want, "scheduler cohort of 2 x 128-token prompts equals ServingEngine's tokens")
+
+    gen, pre = statistics.median(gen_ms), statistics.median(pre_ms)
+    timing = {"generate_ms": gen_ms, "prefill_ms": pre_ms, "per_token_ms": (gen - pre) / steps,
+              "w8_generate_ms": w8_ms, "scheduler_s": srv_s,
+              "scheduler_tokens_per_s": n_tok / srv_s}
+    print(f"  decode serving: generate {gen:.1f} ms, prefill {pre:.1f} ms (medians of 3), "
+          f"per token (generate - prefill) / {steps} = {timing['per_token_ms']:.3f} ms")
+    print(f"  decode path launches: {launches}")
+    check(launches["flash_decode"] == L * steps * 4 + L * st.decode_steps,
+          "flash_decode launch count over the decode path run")
+    return launches, timing
 
 
 def phase_split_equals_full(cfg, model, batch):
@@ -274,6 +431,38 @@ def phase_card_vs_cpu(cfg, model, eng, batch):
             what += f" (tol {CPU_TOL})"
         check(gb == cb and ok, what)
     print(f"  card vs CPU phase: {time.perf_counter() - t0:.1f} s")
+    return cpu_model
+
+
+def phase_decode_card_vs_cpu(cfg, model, cpu_model, batch):
+    import torch
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serving import ServeConfig, ServingEngine
+    print(f"== 5b. decode, card against CPU: 1 x {CPU_SEQ} tokens, {CPU_NEW} new, f32")
+    t0 = time.perf_counter()
+    one = batch["tokens"][:1, :CPU_SEQ]
+    total = CPU_SEQ + CPU_NEW
+    toks = ServingEngine(cfg, model, ServeConfig(max_new_tokens=CPU_NEW, cache_len=total)
+                         ).generate({"tokens": one}).cpu()
+
+    @torch.inference_mode()
+    def logits(m, device):
+        """The prefill's logits, then each decode step's, fed the card's tokens."""
+        lg, cache = prefill(cfg, m, {"tokens": one.to(device)}, total_len=total)
+        out = [lg]
+        for j in range(CPU_NEW - 1):
+            lg, cache = decode_step(cfg, m, cache, toks[:, j].to(device), CPU_SEQ + j)
+            out.append(lg)
+        return torch.stack(out, 1).cpu()        # (1, CPU_NEW, V)
+
+    gl, cl = logits(model, model.tok_embed.device), logits(cpu_model, "cpu")
+    errs = (gl - cl).abs().amax(dim=(0, 2)).tolist()
+    agree = int((cl.argmax(-1) == toks).sum())
+    check(torch.equal(gl.argmax(-1), toks) and max(errs) <= CPU_TOL,
+          f"decode logits step by step: max_abs_err {max(errs):.3g} (tol {CPU_TOL}), "
+          f"per step {[float(f'{e:.3g}') for e in errs]}; the CPU's greedy token equals "
+          f"the card's at {agree} of {CPU_NEW} steps")
+    print(f"  decode card vs CPU phase: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_timing(dev, qmm_err, launches):
@@ -325,6 +514,8 @@ def phase_timing(dev, qmm_err, launches):
     fa_ops = 4 * B * H * D * (S * (S + 1) // 2)     # QK^T and PV over visible pairs
     fa_bound = max(fa_bytes / PEAK_BYTES, fa_ops / PEAK_F32) * 1e3
 
+    fd_row = time_flash_decode(dev, g, launches)
+
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -342,12 +533,56 @@ def phase_timing(dev, qmm_err, launches):
          "bound_by": "bytes" if qmm_bytes / PEAK_BYTES > qmm_ops / PEAK_INT8 else "operations",
          "library_ms": qmm_lib,
          "shape": f"M={M}, the 7 (K,N) of one layer {list(QMM_LAYER)}, per layer"},
+        fd_row,
     ]
     for kern in kernels:
         print(f"  {kern['name']}: ms={kern['ms']:.4f} plain_ms={kern['plain_ms']:.4f} "
               f"library_ms={kern['library_ms']} bound_ms={kern['bound_ms']:.4f} "
               f"({kern['bound_by']}) [{kern['shape']}]")
     return kernels
+
+
+def time_flash_decode(dev, g, launches):
+    """flash_decode at the decode path's shape, over 24 caches in turn (one
+    per layer, 113 MB in all, more than the 50 MB L2), as the path reads
+    them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.attention import slot_positions
+    B, H, HK, C, D, L = BATCH, 14, 2, DEC_CACHE, 64, 24
+    pos = C - 1
+    q = torch.randn(B, H, D, generator=g, device=dev)
+    kv = [tuple(torch.randn(B, C, HK, D, generator=g, device=dev).transpose(1, 2)
+                for _ in range(2)) for _ in range(L)]
+    err = max((fd.flash_decode(q, k, v, pos) - fd.flash_decode_ref(q, k, v, pos)).abs().max().item()
+              for k, v in kv)
+    check(err <= FA_TOL["float32"], f"flash_decode at the path shape: max_abs_err={err:.3g}")
+
+    def per_layer(fn, args):
+        return lambda: [fn(*a) for a in args]
+
+    ms = cuda_ms(per_layer(lambda k, v: fd.flash_decode(q, k, v, pos), kv), 50) / L
+    plain = cuda_ms(per_layer(lambda k, v: fd.flash_decode_ref(q, k, v, pos), kv), 10) / L
+    # SDPA groups heads as h // G; k, v repeated to H heads read kv head h % HK
+    visible = slot_positions(pos, C, device=dev) >= 0
+    mask = visible.view(1, 1, 1, C)
+    rep = [(k.repeat(1, H // HK, 1, 1), v.repeat(1, H // HK, 1, 1)) for k, v in kv]
+    lib = cuda_ms(per_layer(lambda k, v: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask), rep), 50) / L
+    n_vis = int(visible.sum())
+    nbytes = 4 * (2 * B * HK * n_vis * D + 2 * B * H * D)
+    nops = 4 * B * H * n_vis * D          # q.k and p.v over the visible slots
+    return {"name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:98",
+            "launches": launches["flash_decode"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain,
+            "bound_ms": max(nbytes / PEAK_BYTES, nops / PEAK_F32) * 1e3,
+            "bound_by": "bytes" if nbytes / PEAK_BYTES > nops / PEAK_F32 else "operations",
+            "library_ms": lib,
+            "shape": f"f32 q ({B},{H},{D}) k/v ({B},{HK},{C},{D}) as (B,C,HK,D) views, "
+                     f"pos {pos}, per call, 24 caches in turn"}
 
 
 def main() -> int:
@@ -373,12 +608,18 @@ def main() -> int:
     smi = phase_build()
     qmm_err = phase_kernel_checks(dev)
     cfg, model, eng, batch, launches, times = phase_main_path(dev)
+    dec_launches, dec_timing = phase_decode_serving(cfg, model, batch)
     phase_split_equals_full(cfg, model, batch)
-    phase_card_vs_cpu(cfg, model, eng, batch)
-    kernels = phase_timing(dev, qmm_err, launches)
+    cpu_model = phase_card_vs_cpu(cfg, model, eng, batch)
+    phase_decode_card_vs_cpu(cfg, model, cpu_model, batch)
+    kernels = phase_timing(dev, qmm_err, {**launches, "flash_decode": dec_launches["flash_decode"]})
+    for kern in kernels:
+        if kern["name"] != "flash_decode":
+            kern["launches_decode_path"] = dec_launches[kern["name"]]
 
     print("per-infer ms (median of 3), 8 x 512 tokens: " + json.dumps(
         {k: statistics.median(v) for k, v in times.items()}))
+    print("decode serving: " + json.dumps(dec_timing))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -59,7 +59,7 @@ def _segments(cfg: ModelConfig, cut: Tuple[str, int]):
 def _run_stacks(model: M.DenseLM, x: torch.Tensor, segments) -> torch.Tensor:
     for sdef, lo, hi in segments:
         for blk in model.stacks[sdef.name][lo:hi]:
-            x = blk(x)
+            x, _ = blk(x)
     return x
 
 

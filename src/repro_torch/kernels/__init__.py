@@ -3,6 +3,7 @@ JAX package that the port's path runs, each beside its plain PyTorch
 version (ref.py) and reached through ops.py:
 
   flash_attention — online-softmax attention, GQA + causal + sliding window
+  flash_decode    — one-token GQA attention over a ring KV cache
   quant_matmul    — int8 x int8 -> int32 matmul with f32 rescale
 
 Sources live in csrc/; _build.py compiles them at first use.

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.quant.quantize import QTensor, quantize_act
 
@@ -39,3 +40,15 @@ def attention_bhsd(q, k, v, *, causal=True, window=None, logit_scale=None):
                                logit_scale=logit_scale)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    logit_scale=logit_scale)
+
+
+def decode_attention(q_bhd, k_cache, v_cache, pos, *, window=None,
+                     logit_scale=None):
+    """Single-token ring-cache attention. q: (B,H,Dh); caches (B,HK,C,Dh);
+    pos: host int. The flash decode kernel on CUDA, its plain version on
+    the CPU."""
+    if q_bhd.is_cuda:
+        return flash_decode(q_bhd, k_cache, v_cache, pos, window=window,
+                            logit_scale=logit_scale)
+    return ref.flash_decode_ref(q_bhd, k_cache, v_cache, pos, window=window,
+                                logit_scale=logit_scale)

@@ -14,7 +14,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None,
     """q: (B,H,Sq,D); k,v: (B,HK,Skv,D) -> (B,H,Sq,Dv)  [kernel layout].
 
     GQA: query head h reads kv head h % HK (plain_attention's grouping)."""
-    # imported here: models -> kernels.ops -> the kernel wrappers -> this module
+    # imported here (and in flash_decode_ref): models -> kernels.ops -> the
+    # kernel wrappers -> this module
     from repro_torch.models.attention_core import plain_attention
 
     out = plain_attention(
@@ -23,6 +24,24 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None,
         kv_positions=torch.arange(k.shape[2], device=k.device),
         causal=causal, window=window, logit_scale=logit_scale)
     return out.transpose(1, 2)
+
+
+def flash_decode_ref(q, k, v, pos, *, window=None, logit_scale=None):
+    """q: (B,H,Dh); k,v: (B,HK,C,Dh) ring caches; pos: int -> (B,H,Dv).
+
+    One query at position ``pos`` over the ring: slot s holds position
+    ``slot_positions(pos, C)[s]``, empty (negative) slots and slots outside
+    the window are masked. The current token must already be written at
+    slot ``pos % C``. GQA: query head h reads kv head h % HK."""
+    from repro_torch.models.attention import slot_positions
+    from repro_torch.models.attention_core import plain_attention
+
+    out = plain_attention(
+        q[:, None], k.transpose(1, 2), v.transpose(1, 2),
+        q_positions=torch.tensor([pos], device=q.device),
+        kv_positions=slot_positions(pos, k.shape[2], device=k.device),
+        causal=True, window=window, logit_scale=logit_scale)
+    return out[:, 0]
 
 
 def quant_matmul_ref(x_q, w_q, x_scale, w_scale):

@@ -1,7 +1,10 @@
 """Dense transformer models in PyTorch (port of ``repro.models``)."""
-from repro_torch.models.model import DenseLM, forward_logits, stack_defs
+from repro_torch.models.model import (DenseLM, cache_axes, decode_step,
+                                      forward_logits, init_cache, prefill,
+                                      stack_defs)
 from repro_torch.models.params import (export_params, init, load_jax_params,
                                        plan_model)
 
-__all__ = ["DenseLM", "forward_logits", "stack_defs", "export_params", "init",
+__all__ = ["DenseLM", "cache_axes", "decode_step", "forward_logits",
+           "init_cache", "prefill", "stack_defs", "export_params", "init",
            "load_jax_params", "plan_model"]

@@ -1,15 +1,58 @@
-"""GQA self-attention (port of ``repro.models.attention``, the dense
-``mode="train"`` path: whole sequences, no cache)."""
+"""GQA self-attention (port of ``repro.models.attention``, the dense path):
+whole sequences (train), prompt plus ring cache (prefill), and one token
+against the ring cache (decode).
+
+Cache layout: {"k", "v"}: (B, C, HK, Dh) ring buffers indexed by
+``pos % C``, so sliding-window decode works with C == window. Slot validity
+is recovered positionally: slot s holds absolute position
+``pos - ((pos - s) mod C)`` (negative => empty). Decode writes the ring in
+place, where the reference returns a new buffer.
+"""
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention_core as ac
 from repro_torch.models.layers import Dense, apply_rope
+
+MODES = ("train", "prefill", "decode")
+
+
+# --------------------------------------------------------------------------
+# ring-buffer cache helpers
+# --------------------------------------------------------------------------
+
+def slot_positions(pos: int, cache_len: int, device=None) -> torch.Tensor:
+    """Absolute position held by each ring slot after ``pos+1`` tokens
+    (current token at ``pos`` already written). Negative => empty slot."""
+    s = torch.arange(cache_len, device=device)
+    return pos - torch.remainder(pos - s, cache_len)
+
+
+def ring_write_step(buf: torch.Tensor, val: torch.Tensor, pos: int) -> torch.Tensor:
+    """Write one timestep val (B, ...) at slot pos % C of buf (B, C, ...),
+    in place; returns buf."""
+    buf[:, pos % buf.shape[1]] = val
+    return buf
+
+
+def ring_from_prefill(seq_vals: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """Build a ring buffer from prefill values (B, S, ...): keep the last
+    ``cache_len`` positions, placed at their ``p % cache_len`` slots. A new
+    tensor in every case."""
+    S = seq_vals.shape[1]
+    if S <= cache_len:
+        pad = [0, 0] * (seq_vals.dim() - 2) + [0, cache_len - S]
+        return F.pad(seq_vals, pad)
+    last = seq_vals[:, S - cache_len:]            # positions S-C .. S-1
+    # position p sits at slot p % C; last[0] is position S-C
+    return torch.roll(last, (S - cache_len) % cache_len, dims=1)
 
 
 class SelfAttention(nn.Module):
@@ -33,7 +76,18 @@ class SelfAttention(nn.Module):
         else:
             self.bq = self.bk = self.bv = None
 
-    def forward(self, x: torch.Tensor, pos0: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos0: int = 0, mode: str = "train",
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_len: Optional[int] = None):
+        """Returns (out, new_cache); new_cache is None in train mode.
+
+        prefill: attention over the whole prompt, and rings of ``cache_len``
+        slots (default S) built from its k and v. decode (S == 1): k and v
+        are written in place at slot ``pos0 % C`` of ``cache``, which is
+        returned, then the query attends over the ring. ``pos0`` is a host
+        int."""
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r} not in {MODES}")
         B, S, _ = x.shape
         H, HK, Dh = self.n_heads, self.n_kv_heads, self.head_dim
         q, k, v = self.wq(x), self.wk(x), self.wv(x)
@@ -43,7 +97,21 @@ class SelfAttention(nn.Module):
         positions = pos0 + torch.arange(S, device=x.device)
         q = apply_rope(q, positions, self.rope_theta)
         k = apply_rope(k, positions, self.rope_theta)
-        out = ac.attention(q, k, v, q_positions=positions,
-                           kv_positions=positions, causal=True,
-                           window=self.window)
-        return self.wo(out.reshape(B, S, H * Dh))
+
+        new_cache = None
+        if mode == "decode":
+            kc = ring_write_step(cache["k"], k[:, 0], pos0)
+            vc = ring_write_step(cache["v"], v[:, 0], pos0)
+            new_cache = {"k": kc, "v": vc}
+            out = ops.decode_attention(q[:, 0], kc.transpose(1, 2),
+                                       vc.transpose(1, 2), pos0,
+                                       window=self.window)[:, None]
+        else:
+            out = ac.attention(q, k, v, q_positions=positions,
+                               kv_positions=positions, causal=True,
+                               window=self.window)
+            if mode == "prefill":
+                C = cache_len if cache_len is not None else S
+                new_cache = {"k": ring_from_prefill(k, C),
+                             "v": ring_from_prefill(v, C)}
+        return self.wo(out.reshape(B, S, H * Dh)), new_cache

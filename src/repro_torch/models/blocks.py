@@ -28,6 +28,11 @@ class Block(nn.Module):
         self.norm2 = RMSNorm(p["norm2/scale"])
         self.mlp = MLP(p["mlp/w_gate"], p["mlp/w_up"], p["mlp/w_down"])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor, *, pos0: int = 0, mode: str = "train",
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_len: Optional[int] = None):
+        """Returns (x, new_cache); see ``SelfAttention.forward``."""
+        h, new_cache = self.attn(self.norm1(x), pos0=pos0, mode=mode,
+                                 cache=cache, cache_len=cache_len)
+        x = x + h
+        return x + self.mlp(self.norm2(x)), new_cache

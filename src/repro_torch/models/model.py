@@ -6,6 +6,10 @@ built from a flat mapping of tensors in the JAX package's layout — leaf
 paths ``tok_embed``, ``final_norm/scale``, ``stacks/main/blk/attn/wq``, ...,
 stacked leaves with the layer on dim 0 — so one constructor serves both
 ``params.init`` and ``params.load_jax_params``.
+
+Serving runs ``prefill`` (the prompt, building one ring KV cache per
+layer) and then ``decode_step`` per token. The cache tree mirrors the
+reference's: {stack: {sub: {"k", "v": (layers, B, C, HK, Dh)}}}.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.blocks import Block
 from repro_torch.models.layers import RMSNorm
 
@@ -92,14 +97,93 @@ class DenseLM(nn.Module):
         leaves this einsum to XLA)."""
         return h @ self.tok_embed.to(h.dtype).T
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed(tokens)
+    def _trunk(self, x: torch.Tensor, *, mode: str, pos0: int = 0,
+               caches=None, total_len: Optional[int] = None):
+        """Every block in order, then the final norm. Returns (h, caches):
+        None in train mode, the rings built in prefill, the (in place
+        updated) ``caches`` in decode."""
+        new_caches = {"train": None, "prefill": {}, "decode": caches}[mode]
         for s in stack_defs(self.cfg):
-            for blk in self.stacks[s.name]:
-                x = blk(x)
-        return self.head(self.final_norm(x))
+            (sub,) = s.subs
+            window = _sub_window(self.cfg, sub)
+            clen = None
+            if mode == "prefill" and total_len is not None:
+                clen = min(total_len, window) if window else total_len
+            stack_cache = None if caches is None else caches[s.name][sub.name]
+            layers = []
+            for i, blk in enumerate(self.stacks[s.name]):
+                c = None if stack_cache is None else {n: t[i] for n, t in stack_cache.items()}
+                x, nc = blk(x, pos0=pos0, mode=mode, cache=c, cache_len=clen)
+                layers.append(nc)
+            if mode == "prefill":
+                new_caches[s.name] = {sub.name: {
+                    n: torch.stack([c[n] for c in layers]) for n in ("k", "v")}}
+        return self.final_norm(x), new_caches
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.head(self._trunk(self.embed(tokens), mode="train")[0])
+
+    def prefill(self, tokens: torch.Tensor, total_len: Optional[int] = None):
+        """tokens (B, S) -> (logits of the last position (B, V), caches).
+        Each stack's rings hold ``min(total_len, window)`` slots (or
+        ``total_len``, default S) for the decode steps that follow."""
+        total = total_len if total_len is not None else tokens.shape[1]
+        h, caches = self._trunk(self.embed(tokens), mode="prefill",
+                                total_len=total)
+        return self.head(h[:, -1]), caches
+
+    def decode_step(self, caches, token: torch.Tensor, pos: int):
+        """token (B,) at position ``pos`` (a host int: the number of tokens
+        already cached) -> (logits (B, V), caches). The rings of ``caches``
+        are written in place, and the same tree is returned: a caller that
+        wants to keep the cache it passed clones it first."""
+        pos = int(pos)
+        h, caches = self._trunk(self.embed(token[:, None]), mode="decode",
+                                pos0=pos, caches=caches)
+        return self.head(h[:, 0]), caches
 
 
 def forward_logits(cfg: ModelConfig, model: DenseLM, batch) -> torch.Tensor:
     """Full-sequence logits. batch: {"tokens": (B, S) int}."""
     return model(batch["tokens"])
+
+
+def prefill(cfg: ModelConfig, model: DenseLM, batch, total_len: Optional[int] = None):
+    """batch: {"tokens": (B, S) int} -> (last-position logits (B, V), caches);
+    see ``DenseLM.prefill``."""
+    return model.prefill(batch["tokens"], total_len)
+
+
+def decode_step(cfg: ModelConfig, model: DenseLM, caches, token, pos):
+    """token: (B,) int; pos: host int (tokens already cached). Writes the
+    rings of ``caches`` in place; see ``DenseLM.decode_step``."""
+    return model.decode_step(caches, token, pos)
+
+
+# --------------------------------------------------------------------------
+# cache trees: {stack: {sub: {"k", "v": (layers, B, C, HK, Dh)}}}
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, B: int, seq_len: int, dtype=None,
+               device: DeviceLike = None):
+    """Zero rings (every slot empty) for ``seq_len`` positions, windowed
+    stacks capped at their window."""
+    dev = resolve_device(device)
+    dtype = dtype if dtype is not None else cfg.cdtype
+    Dh, HK = cfg.resolved_head_dim, cfg.n_kv_heads
+    caches = {}
+    for s in stack_defs(cfg):
+        (sub,) = s.subs
+        window = _sub_window(cfg, sub)
+        C = min(window, seq_len) if window else seq_len
+        caches[s.name] = {sub.name: {
+            n: torch.zeros((s.length, B, C, HK, Dh), dtype=dtype, device=dev)
+            for n in ("k", "v")}}
+    return caches
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axis names of every cache leaf, in ``init_cache``'s tree."""
+    axes = ("layers", "batch", "kv_cache_seq", "kv_heads", None)
+    return {s.name: {sub.name: {"k": axes, "v": axes} for sub in s.subs}
+            for s in stack_defs(cfg)}

@@ -1,22 +1,87 @@
-"""EdgeRL split serving (port of ``SplitServingEngine`` in
-``repro.serving.engine``).
+"""Batched serving (port of ``repro.serving.engine``).
 
-An EdgeRL controller decision (version j, cut l) routes each request
-batch: the chosen version's head runs on the device side, the cut
-activation crosses the link (int8 codes + f32 row scales when the version
-quantizes activations), the matching tail finishes the logits.
+``ServingEngine`` is the plain path: prefill builds the ring KV caches,
+then one decode step per token, greedy or sampled with temperature.
+
+``SplitServingEngine`` is EdgeRL split serving: a controller decision
+(version j, cut l) routes each request batch: the chosen version's head
+runs on the device side, the cut activation crosses the link (int8 codes +
+f32 row scales when the version quantizes activations), the matching tail
+finishes the logits.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import partition
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import model as M
 from repro_torch.models.model import DenseLM
 from repro_torch.quant import build_version_params, get_version, quantize_act
+
+
+def check_model_device(model: DenseLM, device: torch.device) -> None:
+    """Raise unless every parameter of ``model`` lies on ``device``."""
+    where = {p.device for p in model.parameters()}
+    if where != {device}:
+        raise ValueError(f"model lies on {sorted(map(str, where))}, "
+                         f"the engine on {device}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0    # 0 => greedy
+    cache_len: Optional[int] = None
+
+
+class ServingEngine:
+    """Prefill + token-by-token decode over ring KV caches. ``model`` must
+    already live on ``device`` (the CUDA card unless ``device`` names
+    another)."""
+
+    def __init__(self, cfg: ModelConfig, model: DenseLM,
+                 serve: ServeConfig = ServeConfig(), device: DeviceLike = None):
+        self.device = resolve_device(device)
+        check_model_device(model, self.device)
+        self.cfg = cfg
+        self.model = model
+        self.serve = serve
+
+    @torch.inference_mode()
+    def generate(self, batch: Dict,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """batch: {"tokens": (B, S) ints} -> (B, max_new_tokens) int64 on
+        the engine's device.
+
+        Token 0 is the argmax of the prefill logits, as in the reference;
+        each later token comes from one decode step, so N tokens take N - 1
+        steps (the reference's scan runs N and drops the last token). With
+        ``temperature > 0`` the tokens after the first are drawn from
+        softmax(logits / temperature) with ``generator`` (on the engine's
+        device); torch's draws are not ``jax.random.categorical``'s, so
+        sampled tokens differ from the reference's while greedy ones agree."""
+        serve = self.serve
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        S = tokens.shape[1]
+        total = serve.cache_len if serve.cache_len is not None else S + serve.max_new_tokens
+        logits, cache = M.prefill(self.cfg, self.model, {"tokens": tokens},
+                                  total_len=total)
+        tok = torch.argmax(logits, dim=-1)
+        out = [tok]
+        for pos in range(S, S + serve.max_new_tokens - 1):
+            logits, cache = M.decode_step(self.cfg, self.model, cache, tok, pos)
+            if serve.temperature > 0:
+                probs = torch.softmax(logits.float() / serve.temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            else:
+                tok = torch.argmax(logits, dim=-1)
+            out.append(tok)
+        return torch.stack(out, dim=1)
 
 
 class SplitServingEngine:
@@ -27,10 +92,7 @@ class SplitServingEngine:
     def __init__(self, cfg: ModelConfig, model: DenseLM,
                  versions: Sequence[str] = ("bf16",), device: DeviceLike = None):
         self.device = resolve_device(device)
-        where = {p.device for p in model.parameters()}
-        if where != {self.device}:
-            raise ValueError(f"model lies on {sorted(map(str, where))}, "
-                             f"the engine on {self.device}")
+        check_model_device(model, self.device)
         self.cfg = cfg
         self.model = model
         self.versions = tuple(versions)

@@ -23,7 +23,9 @@ from repro.models import init as jax_init  # noqa: E402
 from repro_torch.checkpointing import flatten, load_tree, save_tree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import init, load_jax_params  # noqa: E402
-from repro_torch.serving import SplitServingEngine  # noqa: E402
+from repro_torch.models import init_cache  # noqa: E402
+from repro_torch.serving import (ContinuousBatchingServer, ServingEngine,  # noqa: E402
+                                 SplitServingEngine)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -108,7 +110,9 @@ def test_every_module_imports_first_and_builds_nothing():
     compiles and loads no kernel."""
     names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                          "repro_torch."))
-    assert "repro_torch.kernels.flash_attention" in names
+    for name in ("kernels.flash_attention", "kernels.flash_decode",
+                 "serving.scheduler", "sim.metrics", "launch.serve"):
+        assert f"repro_torch.{name}" in names
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _IMPORT_EACH_FIRST, *names],
                          capture_output=True, text=True, env=env, timeout=240)
@@ -132,6 +136,15 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
         SplitServingEngine(cfg, model, device="cuda")
     eng = SplitServingEngine(cfg, model, device="cpu")
     assert eng.device == torch.device("cpu")
+    for entry in (ServingEngine, ContinuousBatchingServer):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(cfg, model)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(cfg, model, device="cuda")
+        assert entry(cfg, model, device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 1, 8)
+    assert init_cache(cfg, 1, 8, device="cpu")["main"]["blk"]["k"].device.type == "cpu"
 
 
 def test_unported_families_raise():
@@ -144,3 +157,27 @@ def test_unported_families_raise():
                dict(qk_norm=True)):
         with pytest.raises(NotImplementedError):
             stack_defs(cfg.with_overrides(**kw))
+
+
+def test_decode_profile_runs_chip_smokes_decode_shape():
+    """The profile explains chip_smoke.py's decode path, so it takes its shape."""
+    from repro_torch.launch import profile_decode
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    smoke = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0], (ast.Name, ast.Tuple)):
+            names = node.targets[0].elts if isinstance(node.targets[0], ast.Tuple) else node.targets
+            values = node.value.elts if isinstance(node.value, ast.Tuple) else [node.value]
+            for n, v in zip(names, values):
+                if isinstance(n, ast.Name) and isinstance(v, ast.Constant):
+                    smoke[n.id] = v.value
+    for name in ("BATCH", "SEQ", "DEC_CACHE"):
+        assert getattr(profile_decode, name) == smoke[name], name
+
+
+def test_decode_profile_idle_share_refuses_device_time_beyond_the_wall():
+    from repro_torch.launch.profile_decode import _idle_share
+    assert _idle_share(8.0, 32.0) == 0.75
+    assert _idle_share(32.0, 32.0) == 0.0
+    with pytest.raises(ValueError, match="exceeds the wall time"):
+        _idle_share(156.4, 87.1)

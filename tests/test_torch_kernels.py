@@ -17,6 +17,7 @@ from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -77,6 +78,31 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
     assert fa.launches == 0
 
 
+def test_flash_decode_kernel_refuses_what_it_does_not_take():
+    def qkv(B=1, H=4, HK=2, C=16, D=64, dtype=torch.float32, kdtype=None):
+        return (torch.zeros(B, H, D, dtype=dtype),
+                torch.zeros(B, HK, C, D, dtype=kdtype or dtype),
+                torch.zeros(B, HK, C, D, dtype=kdtype or dtype))
+    with pytest.raises(ValueError, match="CUDA"):
+        fd.flash_decode(*qkv(), 5)
+    with pytest.raises(TypeError, match="dtypes"):
+        fd.flash_decode(*qkv(kdtype=torch.bfloat16), 5)
+    with pytest.raises(TypeError, match="dtypes"):
+        fd.flash_decode(*qkv(dtype=torch.float16), 5)
+    with pytest.raises(ValueError, match="head dim"):
+        fd.flash_decode(*qkv(D=96), 5)
+    with pytest.raises(ValueError, match="vs k/v"):
+        fd.flash_decode(*qkv(H=6, HK=4), 5)
+    q, k, v = qkv()
+    with pytest.raises(ValueError, match="contiguous"):
+        fd.flash_decode(q, torch.zeros(1, 2, 16, 128)[..., ::2], v, 5)
+    with pytest.raises(ValueError, match="pos"):
+        fd.flash_decode(q, k, v, -1)
+    with pytest.raises(ValueError, match="window"):
+        fd.flash_decode(q, k, v, 5, window=0)
+    assert fd.launches == 0
+
+
 def _c_signature(source: str, fn: str):
     """ctypes types of an ``extern "C"`` function's parameters, read from
     its CUDA source."""
@@ -98,6 +124,7 @@ def _c_signature(source: str, fn: str):
 
 @pytest.mark.parametrize("module,name,fn", [
     (fa, "flash_attention", "flash_attention_fwd"),
+    (fd, "flash_decode", "flash_decode_fwd"),
     (qmm, "quant_matmul", "quant_matmul_s8")])
 def test_ctypes_signatures_match_the_c_entry_points(monkeypatch, module, name, fn):
     lib = types.SimpleNamespace(**{fn: types.SimpleNamespace()})

@@ -99,8 +99,9 @@ def test_self_attention_matches_reference(shared, window):
                             window=window)
     attn = SelfAttention(cfg, {k: torch.tensor(np.asarray(v)) for k, v in p.items()},
                          window=window)
-    np.testing.assert_allclose(attn(torch.from_numpy(x)).numpy(), np.asarray(want),
-                               **LAYER_TOL)
+    got, cache = attn(torch.from_numpy(x))
+    assert cache is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
 
 
 def test_forward_logits_matches_reference(shared):
