@@ -5,9 +5,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``.
 2. Kernel checks: hold each kernel against its plain PyTorch version on the
-   card (quant_matmul bit for bit; flash_attention and flash_decode within
-   2e-5 in f32 and 2e-2 in bf16, as the JAX package's kernel tests),
-   including GQA cases in which h % HK and h // G give different answers.
+   card (quant_matmul bit for bit, also at falcon-mamba's head shape;
+   flash_attention and flash_decode within 2e-5 in f32 and 2e-2 in bf16,
+   mamba_scan within 1e-4 in f32 on y and h_final, as the JAX package's
+   kernel tests), including GQA cases in which h % HK and h // G give
+   different answers, and ragged scan lengths.
 3. Main path: full-width qwen2-0.5b (random weights from torch.Generator
    seed 0) served by ``SplitServingEngine``: 8 requests x 512 tokens for
    each version (bf16, w8, w4) at cuts 1, 12 and 24, with the kernels'
@@ -26,8 +28,21 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    128-token request per version at cut 12; then one 128-token request
    decoded for 16 tokens on the card, with the CPU's prefill and
    decode_step fed the card's tokens, logits compared step by step.
-6. Timing: each kernel at the main path's shapes beside its plain version,
-   one PyTorch library call for the same function, and its bound.
+6. The second model, full-width full-depth falcon-mamba-7b (Mamba-1,
+   7,272,665,088 parameters, f32, random weights from torch.Generator seed
+   0): ``SplitServingEngine`` for bf16/w8/w4 at cuts 1, 32 and 64 on 2 x
+   512 tokens (64 mamba_scan launches per infer, one quant_matmul per w8
+   infer: the untied lm_head), split equals full at cut 32; then
+   ``ServingEngine.generate`` of 32 tokens (64 mamba_scan launches in the
+   prefill, none in the decode steps), teacher-forced ``decode_step``
+   logits against the card's ``forward_logits``, and
+   ``ContinuousBatchingServer`` with 4 requests of 64-200 prompt tokens
+   (ragged left-padded prefills through the kernel); card against CPU at
+   full width and depth 2 (split logits per version at cut 1, then 8
+   decode steps). The model is freed when these phases end.
+7. Timing: each kernel at the main path's shapes beside its plain version,
+   one PyTorch library call for the same function where there is one, and
+   its bound.
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -36,6 +51,7 @@ every phase passed. Any failure exits non-zero.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -80,6 +96,20 @@ CPU_NEW = 16
 # 0.53x the mean.) A kernel or wiring fault gives errors well above it.
 CPU_TOL = 1e-3
 W8_GAP_MAX, W8_GAP_MEAN = 1.0, 0.75
+# falcon-mamba-7b: split serving and decode shapes, cuts, expected size
+FM_ARCH, FM_PARAMS = "falcon-mamba-7b", 7_272_665_088
+FM_BATCH, FM_SEQ, FM_NEW, FM_TF_STEPS = 2, 512, 32, 8
+FM_CUTS = (("main", 1), ("main", 32), ("main", 64))
+FM_SRV_REQUESTS, FM_SRV_CACHE = 4, 256
+FM_CPU_LAYERS, FM_CPU_STEPS = 2, 8
+# decode against forward on the card: the same f32 function through the
+# kernel's scan (prefill) and the plain one-step recurrence (decode)
+FM_DECODE_TOL = 1e-3
+# mamba_scan: tests/test_kernels.py::test_mamba_scan_sweep's cases and
+# tolerance (B, S, DI, N), a ragged one, then the path's shape
+MS_CASES = ((1, 128, 128, 8), (2, 256, 256, 16), (1, 384, 128, 4),
+            (2, 200, 384, 16), (2, 512, 8192, 16))
+MS_TOL = 1e-4
 
 failures = []
 
@@ -177,7 +207,80 @@ def phase_kernel_checks(dev):
           f"flash_attention GQA head map: |out - ref(h % HK)| = {e_mod:.3g}, "
           f"|out - ref(h // G)| = {e_div:.3g}")
     check_flash_decode(dev, g)
-    return qmm_err
+    qmm_err = max(qmm_err, check_head_quant_matmul(dev, g))
+    ms_err = check_mamba_scan(dev, g)
+    return qmm_err, ms_err
+
+
+def check_head_quant_matmul(dev, g):
+    """quant_matmul at falcon-mamba's w8 head: (B*S, d) x (d, V)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import quant_matmul as qmm
+    cfg = get_config(FM_ARCH)
+    M, K, N = FM_BATCH * FM_SEQ, cfg.d_model, cfg.vocab_size
+    xq = torch.randint(-128, 128, (M, K), dtype=torch.int8, generator=g, device=dev)
+    wq = torch.randint(-128, 128, (K, N), dtype=torch.int8, generator=g, device=dev)
+    xs = torch.rand(M, generator=g, device=dev) * 0.05 + 1e-4
+    ws = torch.rand(N, generator=g, device=dev) * 0.05 + 1e-4
+    out = qmm.quant_matmul(xq, wq, xs, ws)
+    ref = qmm.quant_matmul_ref(xq, wq, xs, ws)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    check(torch.equal(out, ref), f"quant_matmul M={M} K={K} N={N} ({FM_ARCH} head): "
+                                 f"bit-exact, max_abs_err={err}")
+    return err
+
+
+def _scan_inputs(B, S, DI, N, g, dev, falcon_a=False):
+    """u, dt in the model's range (softplus around -4.6: 0.001-0.1), Bm and
+    Cm as slices of one (B, S, R + 2N) projection, as the mixer passes
+    them, and A = -exp(normal) or, for the path, falcon-mamba's -(1..N)."""
+    import torch
+    R = 16
+    u = torch.randn(B, S, DI, generator=g, device=dev)
+    dt = torch.rand(B, S, DI, generator=g, device=dev) * 0.099 + 0.001
+    xdbc = torch.randn(B, S, R + 2 * N, generator=g, device=dev)
+    if falcon_a:
+        A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(DI, N).contiguous()
+    else:
+        A = -torch.exp(torch.randn(DI, N, generator=g, device=dev))
+    return u, dt, xdbc[..., R:R + N], xdbc[..., R + N:], A
+
+
+def check_mamba_scan(dev, g):
+    """mamba_scan against its plain version; returns the path shape's error."""
+    import torch
+    from repro_torch.kernels import mamba_scan as ms
+    err = 0.0
+    for B, S, DI, N in MS_CASES:
+        path = (B, S, DI, N) == MS_CASES[-1]
+        u, dt, Bm, Cm, A = _scan_inputs(B, S, DI, N, g, dev, falcon_a=path)
+        y, h = ms.mamba_scan(u, dt, Bm, Cm, A)
+        yr, hr = ms.mamba_scan_ref(u, dt, Bm, Cm, A)
+        torch.cuda.synchronize()
+        ey, eh = (y - yr).abs().max().item(), (h - hr).abs().max().item()
+        if path:
+            err = max(ey, eh)
+        check(y.dtype == u.dtype and h.dtype == torch.float32
+              and torch.allclose(y, yr, rtol=MS_TOL, atol=MS_TOL)
+              and torch.allclose(h, hr, rtol=MS_TOL, atol=MS_TOL),
+              f"mamba_scan f32 B={B} S={S} DI={DI} N={N}{' (path)' if path else ''}: "
+              f"max_abs_err y {ey:.3g}, h_final {eh:.3g} (tol {MS_TOL}; max |y| "
+              f"{yr.abs().max().item():.3g})")
+    # a bf16 u: both versions read the same bf16 values and round y to bf16
+    u, dt, Bm, Cm, A = _scan_inputs(2, 200, 384, 16, g, dev)
+    u = u.bfloat16()
+    y, h = ms.mamba_scan(u, dt, Bm, Cm, A)
+    yr, hr = ms.mamba_scan_ref(u, dt, Bm, Cm, A)
+    torch.cuda.synchronize()
+    tol = FA_TOL["bfloat16"]
+    ey = (y.float() - yr.float()).abs().max().item()
+    check(y.dtype == torch.bfloat16 and torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol)
+          and torch.allclose(h, hr, rtol=MS_TOL, atol=MS_TOL),
+          f"mamba_scan bf16 u B=2 S=200 DI=384 N=16: max_abs_err y {ey:.3g} (tol {tol}), "
+          f"h_final {(h - hr).abs().max().item():.3g}")
+    return err
 
 
 def check_flash_decode(dev, g):
@@ -215,21 +318,27 @@ def check_flash_decode(dev, g):
           f"|out - ref(h // G)| = {e_div:.3g}")
 
 
-def _counts():
+def _kernel_modules():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import quant_matmul as qmm
-    return {"flash_attention": fa.launches, "flash_decode": fd.launches,
-            "quant_matmul": qmm.launches}
+    return {"flash_attention": fa, "flash_decode": fd, "mamba_scan": ms,
+            "quant_matmul": qmm}
+
+
+def _counts():
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
 
 
 def _reset_counts():
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import quant_matmul as qmm
-    fa.launches = 0
-    fd.launches = 0
-    qmm.launches = 0
+    for mod in _kernel_modules().values():
+        mod.launches = 0
+
+
+def _launches(**nonzero):
+    """The expected launch counts: every kernel 0 unless named."""
+    return {name: nonzero.get(name, 0) for name in _kernel_modules()}
 
 
 def phase_main_path(dev):
@@ -277,8 +386,7 @@ def phase_main_path(dev):
             want_bytes = link_w8 if version == "w8" else link_f32
             times[f"{version}@{cut[1]}"] = ms
             check(finite and shape_ok and act_bytes == want_bytes
-                  and delta == {"flash_attention": want_fa, "flash_decode": 0,
-                                "quant_matmul": want_qmm},
+                  and delta == _launches(flash_attention=want_fa, quant_matmul=want_qmm),
                   f"infer {version} cut={cut[1]}: act_bytes={act_bytes} "
                   f"ms={[round(t, 3) for t in ms]} launches/infer={delta} "
                   f"logits {tuple(logits.shape)} finite={finite}")
@@ -321,8 +429,7 @@ def phase_decode_serving(cfg, model, batch):
         torch.cuda.synchronize()
         gen_ms.append((time.perf_counter() - t0) * 1e3)
         delta = {k: v - before[k] for k, v in _counts().items()}
-        check(in_range(toks) and delta == {"flash_attention": L, "flash_decode": L * steps,
-                                           "quant_matmul": 0},
+        check(in_range(toks) and delta == _launches(flash_attention=L, flash_decode=L * steps),
               f"generate f32: {gen_ms[-1]:.1f} ms, launches {delta}")
     before = _counts()
     t0 = time.perf_counter()
@@ -330,8 +437,8 @@ def phase_decode_serving(cfg, model, batch):
     torch.cuda.synchronize()
     w8_ms = (time.perf_counter() - t0) * 1e3
     delta = {k: v - before[k] for k, v in _counts().items()}
-    check(in_range(toks8) and delta == {"flash_attention": L, "flash_decode": L * steps,
-                                        "quant_matmul": 7 * L * (1 + steps)},
+    check(in_range(toks8) and delta == _launches(flash_attention=L, flash_decode=L * steps,
+                                                 quant_matmul=7 * L * (1 + steps)),
           f"generate w8: {w8_ms:.1f} ms, launches {delta}, "
           f"{(toks8 == toks).float().mean().item():.3f} of its tokens equal f32's")
 
@@ -351,8 +458,8 @@ def phase_decode_serving(cfg, model, batch):
     n_tok = sum(len(q.out) for q in done)
     check(len(done) == SRV_REQUESTS and all(q.done and not q.truncated for q in done)
           and all(len(q.out) == q.max_new_tokens for q in done)
-          and delta == {"flash_attention": L * st.prefills, "flash_decode": L * st.decode_steps,
-                        "quant_matmul": 0},
+          and delta == _launches(flash_attention=L * st.prefills,
+                                 flash_decode=L * st.decode_steps),
           f"scheduler: {len(done)} requests, {n_tok} tokens in {srv_s:.2f} s "
           f"({n_tok / srv_s:.1f} tokens/s), prefills {st.prefills}, decode steps "
           f"{st.decode_steps}, wall steps {st.wall_steps}, reclaims {st.slot_reclaims}, "
@@ -402,19 +509,14 @@ def phase_split_equals_full(cfg, model, batch):
           f"split vs full: max_abs_err={err:.3g} (tol 2e-4)")
 
 
-def phase_card_vs_cpu(cfg, model, eng, batch):
+def compare_split_card_cpu(eng, cpu_eng, one, cut):
+    """One request through every version at ``cut``, on the card and on the
+    CPU: bf16 and w4 within CPU_TOL, w8 within its own quantization error."""
     import torch
-    from repro_torch.models import export_params, load_jax_params
-    from repro_torch.serving import SplitServingEngine
-    print(f"== 5. card against CPU: 1 x {CPU_SEQ} tokens per version, cut 12")
-    t0 = time.perf_counter()
-    cpu_model = load_jax_params(cfg, export_params(model), device="cpu")
-    cpu_eng = SplitServingEngine(cfg, cpu_model, versions=VERSIONS, device="cpu")
-    one = {"tokens": batch["tokens"][:1, :CPU_SEQ]}
     cpu_logits = {}
     for version in VERSIONS:
-        gl, gb = eng.infer(one, ("main", 12), version)
-        cl, cb = cpu_eng.infer({"tokens": one["tokens"].cpu()}, ("main", 12), version)
+        gl, gb = eng.infer(one, cut, version)
+        cl, cb = cpu_eng.infer({"tokens": one["tokens"].cpu()}, cut, version)
         cpu_logits[version] = cl
         diff = (gl.cpu() - cl).abs()
         err, mean = diff.max().item(), diff.mean().item()
@@ -430,30 +532,40 @@ def phase_card_vs_cpu(cfg, model, eng, batch):
             ok = torch.allclose(gl.cpu(), cl, rtol=CPU_TOL, atol=CPU_TOL)
             what += f" (tol {CPU_TOL})"
         check(gb == cb and ok, what)
+
+
+def phase_card_vs_cpu(cfg, model, eng, batch):
+    from repro_torch.models import export_params, load_jax_params
+    from repro_torch.serving import SplitServingEngine
+    print(f"== 5. card against CPU: 1 x {CPU_SEQ} tokens per version, cut 12")
+    t0 = time.perf_counter()
+    cpu_model = load_jax_params(cfg, export_params(model), device="cpu")
+    cpu_eng = SplitServingEngine(cfg, cpu_model, versions=VERSIONS, device="cpu")
+    compare_split_card_cpu(eng, cpu_eng, {"tokens": batch["tokens"][:1, :CPU_SEQ]}, ("main", 12))
     print(f"  card vs CPU phase: {time.perf_counter() - t0:.1f} s")
     return cpu_model
 
 
-def phase_decode_card_vs_cpu(cfg, model, cpu_model, batch):
+def compare_decode_card_cpu(cfg, model, cpu_model, one, n_new):
+    """``n_new`` greedy tokens of the prompt ``one`` (1, S) on the card; then
+    the prefill's logits and each decode step's, fed the card's tokens, on
+    both devices, held within CPU_TOL step by step."""
     import torch
     from repro_torch.models import decode_step, prefill
     from repro_torch.serving import ServeConfig, ServingEngine
-    print(f"== 5b. decode, card against CPU: 1 x {CPU_SEQ} tokens, {CPU_NEW} new, f32")
-    t0 = time.perf_counter()
-    one = batch["tokens"][:1, :CPU_SEQ]
-    total = CPU_SEQ + CPU_NEW
-    toks = ServingEngine(cfg, model, ServeConfig(max_new_tokens=CPU_NEW, cache_len=total)
+    S = one.shape[1]
+    total = S + n_new
+    toks = ServingEngine(cfg, model, ServeConfig(max_new_tokens=n_new, cache_len=total)
                          ).generate({"tokens": one}).cpu()
 
     @torch.inference_mode()
     def logits(m, device):
-        """The prefill's logits, then each decode step's, fed the card's tokens."""
         lg, cache = prefill(cfg, m, {"tokens": one.to(device)}, total_len=total)
         out = [lg]
-        for j in range(CPU_NEW - 1):
-            lg, cache = decode_step(cfg, m, cache, toks[:, j].to(device), CPU_SEQ + j)
+        for j in range(n_new - 1):
+            lg, cache = decode_step(cfg, m, cache, toks[:, j].to(device), S + j)
             out.append(lg)
-        return torch.stack(out, 1).cpu()        # (1, CPU_NEW, V)
+        return torch.stack(out, 1).cpu()        # (1, n_new, V)
 
     gl, cl = logits(model, model.tok_embed.device), logits(cpu_model, "cpu")
     errs = (gl - cl).abs().amax(dim=(0, 2)).tolist()
@@ -461,16 +573,201 @@ def phase_decode_card_vs_cpu(cfg, model, cpu_model, batch):
     check(torch.equal(gl.argmax(-1), toks) and max(errs) <= CPU_TOL,
           f"decode logits step by step: max_abs_err {max(errs):.3g} (tol {CPU_TOL}), "
           f"per step {[float(f'{e:.3g}') for e in errs]}; the CPU's greedy token equals "
-          f"the card's at {agree} of {CPU_NEW} steps")
+          f"the card's at {agree} of {n_new} steps")
+
+
+def phase_decode_card_vs_cpu(cfg, model, cpu_model, batch):
+    print(f"== 5b. decode, card against CPU: 1 x {CPU_SEQ} tokens, {CPU_NEW} new, f32")
+    t0 = time.perf_counter()
+    compare_decode_card_cpu(cfg, model, cpu_model, batch["tokens"][:1, :CPU_SEQ], CPU_NEW)
     print(f"  decode card vs CPU phase: {time.perf_counter() - t0:.1f} s")
 
 
-def phase_timing(dev, qmm_err, launches):
+def _median_ms(fn, reps):
+    """Median host ms of ``fn()`` up to ``torch.cuda.synchronize()``, and
+    its last result."""
+    import torch
+    ms, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, out
+
+
+def phase_fm_split(dev):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.partition import cut_activation_bytes, split_forward
+    from repro_torch.models import forward_logits, init
+    from repro_torch.serving import SplitServingEngine
+    print(f"== 6. {FM_ARCH}: full width and depth through SplitServingEngine, "
+          f"{FM_BATCH} x {FM_SEQ} tokens")
+    cfg = get_config(FM_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == FM_PARAMS,
+          f"init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
+          f"{cfg.d_inner}, N {cfg.ssm_state}, dt_rank {cfg.resolved_dt_rank}, vocab "
+          f"{cfg.vocab_size}, {n_params} params (want {FM_PARAMS}), "
+          f"{time.perf_counter() - t0:.2f} s")
+    eng = SplitServingEngine(cfg, model, versions=VERSIONS)
+    tokens = torch.randint(0, cfg.vocab_size, (FM_BATCH, FM_SEQ), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    batch = {"tokens": tokens}
+    for version in VERSIONS:          # build each version's model, warm up
+        eng.infer(batch, FM_CUTS[1], version)
+    torch.cuda.synchronize()
+
+    reps, L = 3, cfg.n_layers
+    link = cut_activation_bytes(cfg, (FM_BATCH, FM_SEQ))
+    link_w8 = FM_BATCH * FM_SEQ * cfg.d_model + FM_BATCH * FM_SEQ * 4
+    times = {}
+    _reset_counts()
+    for version in VERSIONS:
+        for cut in FM_CUTS:
+            before = _counts()
+            ms, (logits, act_bytes) = _median_ms(lambda: eng.infer(batch, cut, version), reps)
+            delta = {k: v - before[k] for k, v in _counts().items()}
+            want = _launches(mamba_scan=L * reps,
+                             quant_matmul=reps if version == "w8" else 0)
+            finite = bool(torch.isfinite(logits).all())
+            shape_ok = tuple(logits.shape) == (FM_BATCH, FM_SEQ, cfg.vocab_size)
+            want_bytes = link_w8 if version == "w8" else link
+            times[f"{version}@{cut[1]}"] = ms
+            check(finite and shape_ok and act_bytes == want_bytes and delta == want,
+                  f"infer {version} cut={cut[1]}: act_bytes={act_bytes} (want {want_bytes}) "
+                  f"ms={[round(t, 3) for t in ms]} launches over {reps} infers={delta} "
+                  f"logits {tuple(logits.shape)} finite={finite}")
+            del logits
+    launches = _counts()
+    n_infer = reps * len(VERSIONS) * len(FM_CUTS)
+    print(f"{FM_ARCH} split path: {n_infer} infers, launches {launches}")
+    check(launches == _launches(mamba_scan=n_infer * L, quant_matmul=reps * len(FM_CUTS)),
+          f"launch counts over the {FM_ARCH} split path run")
+
+    with torch.inference_mode():
+        full = forward_logits(cfg, model, batch)
+        split = split_forward(cfg, model, batch, FM_CUTS[1])
+    err = (full - split).abs().max().item()
+    check(torch.allclose(split, full, rtol=2e-4, atol=2e-4),
+          f"{FM_ARCH} split vs full at cut {FM_CUTS[1][1]}: max_abs_err={err:.3g} (tol 2e-4)")
+    del full, split
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  peak device memory after the split path: {peak / 2**30:.2f} GiB ({peak} bytes)")
+    return cfg, model, eng, batch, launches, times, peak
+
+
+def phase_fm_decode(cfg, model, batch):
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, forward_logits, prefill
+    from repro_torch.serving import (ContinuousBatchingServer, Request, ServeConfig,
+                                     ServingEngine)
+    print(f"== 6b. {FM_ARCH} decode: {FM_BATCH} x {FM_SEQ}-token prompts, {FM_NEW} new tokens")
+    L, V = cfg.n_layers, cfg.vocab_size
+    steps = FM_NEW - 1
+    eng = ServingEngine(cfg, model, ServeConfig(max_new_tokens=FM_NEW))
+    eng.generate(batch)                  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    gen_ms = []
+    for _ in range(2):
+        before = _counts()
+        ms, toks = _median_ms(lambda: eng.generate(batch), 1)
+        gen_ms += ms
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        in_range = 0 <= toks.min().item() and toks.max().item() < V
+        check(tuple(toks.shape) == (FM_BATCH, FM_NEW) and in_range
+              and delta == _launches(mamba_scan=L),
+              f"generate f32: {ms[0]:.1f} ms, launches {delta} ({L} mamba_scan in the "
+              f"prefill, none in the {steps} decode steps)")
+
+    # teacher-forced decode against the forward pass that ran the kernel
+    full_toks = torch.cat([batch["tokens"], toks[:, :FM_TF_STEPS]], dim=1)
+    with torch.inference_mode():
+        want = forward_logits(cfg, model, {"tokens": full_toks})
+        lg, cache = prefill(cfg, model, batch)
+        errs = [(lg - want[:, FM_SEQ - 1]).abs().max().item()]
+        for j in range(FM_TF_STEPS):
+            lg, cache = decode_step(cfg, model, cache, toks[:, j], FM_SEQ + j)
+            errs.append((lg - want[:, FM_SEQ + j]).abs().max().item())
+    del want, cache
+    check(max(errs) <= FM_DECODE_TOL,
+          f"prefill + {FM_TF_STEPS} teacher-forced decode steps against forward_logits on "
+          f"the card: max_abs_err {max(errs):.3g} (tol {FM_DECODE_TOL}), per step "
+          f"{[float(f'{e:.3g}') for e in errs]}")
+
+    r = np.random.default_rng(5)
+    reqs = [Request(rid=i, tokens=r.integers(0, V, int(r.integers(64, 201))),
+                    max_new_tokens=int(r.integers(8, 17))) for i in range(FM_SRV_REQUESTS)]
+    srv = ContinuousBatchingServer(cfg, model, max_batch=FM_SRV_REQUESTS,
+                                   cache_len=FM_SRV_CACHE)
+    before = _counts()
+    t0 = time.perf_counter()
+    for q in reqs:
+        srv.submit(q)
+    done = srv.run()
+    torch.cuda.synchronize()
+    srv_s = time.perf_counter() - t0
+    delta = {k: v - before[k] for k, v in _counts().items()}
+    st = srv.stats
+    n_tok = sum(len(q.out) for q in done)
+    check(len(done) == FM_SRV_REQUESTS and all(q.done and not q.truncated for q in done)
+          and all(len(q.out) == q.max_new_tokens for q in done)
+          and delta == _launches(mamba_scan=L * st.prefills),
+          f"scheduler: {len(done)} requests (prompts {[len(q.tokens) for q in reqs]}), "
+          f"{n_tok} tokens in {srv_s:.2f} s ({n_tok / srv_s:.1f} tokens/s), prefills "
+          f"{st.prefills}, decode steps {st.decode_steps}, wall steps {st.wall_steps}, "
+          f"launches {delta}")
+    launches = _counts()
+
+    pre_ms, _ = _median_ms(lambda: torch.inference_mode()(prefill)(cfg, model, batch), 3)
+    gen, pre = statistics.median(gen_ms), statistics.median(pre_ms)
+    timing = {"generate_ms": gen_ms, "prefill_ms": pre_ms, "per_token_ms": (gen - pre) / steps,
+              "scheduler_s": srv_s, "scheduler_tokens_per_s": n_tok / srv_s}
+    print(f"  {FM_ARCH} decode: generate {gen:.1f} ms, prefill {pre:.1f} ms, per token "
+          f"(generate - prefill) / {steps} = {timing['per_token_ms']:.3f} ms")
+    return launches, timing
+
+
+def phase_fm_card_vs_cpu(dev, cfg, model, batch):
+    """Full width at depth FM_CPU_LAYERS: the card model's embedding, head,
+    final norm and first layers, on both devices."""
+    import copy
+    from torch import nn
+    from repro_torch.models import export_params, load_jax_params
+    from repro_torch.serving import SplitServingEngine
+    small = cfg.with_overrides(n_layers=FM_CPU_LAYERS)
+    print(f"== 6c. {FM_ARCH} card against CPU: full width, {FM_CPU_LAYERS} layers, 1 x "
+          f"{CPU_SEQ} tokens per version at cut 1, then {FM_CPU_STEPS} decode steps")
+    t0 = time.perf_counter()
+    head = copy.copy(model)              # shares every tensor of the card model
+    head._modules = dict(model._modules)
+    head.stacks = nn.ModuleDict({"main": model.stacks["main"][:FM_CPU_LAYERS]})
+    head.cfg = small
+    flat = export_params(head)
+    del head
+    card, cpu = load_jax_params(small, flat, device=dev), load_jax_params(small, flat, device="cpu")
+    del flat
+    one = {"tokens": batch["tokens"][:1, :CPU_SEQ]}
+    compare_split_card_cpu(SplitServingEngine(small, card, versions=VERSIONS),
+                           SplitServingEngine(small, cpu, versions=VERSIONS, device="cpu"),
+                           one, ("main", 1))
+    compare_decode_card_cpu(small, card, cpu, one["tokens"], FM_CPU_STEPS + 1)
+    print(f"  {FM_ARCH} card vs CPU phase: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_timing(dev, qmm_err, ms_err, launches):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_matmul as qmm
-    print("== 6. kernel timing at the main path's shapes (CUDA events)")
+    print("== 7. kernel timing at the main path's shapes (CUDA events)")
     g = torch.Generator(device=dev).manual_seed(3)
     M = BATCH * SEQ
     ops = [(torch.randint(-127, 128, (M, K), dtype=torch.int8, generator=g, device=dev),
@@ -495,6 +792,7 @@ def phase_timing(dev, qmm_err, launches):
     qmm_bytes = sum(M * K + K * N + 4 * M + 4 * N + 4 * M * N for K, N in QMM_LAYER)
     qmm_ops = sum(2 * M * K * N for K, N in QMM_LAYER)
     qmm_bound = max(qmm_bytes / PEAK_BYTES, qmm_ops / PEAK_INT8) * 1e3
+    head = time_head_quant_matmul(dev, g)
 
     B, H, HK, S, D = BATCH, 14, 2, SEQ, 64
     # the model's layout: (B, S, H, D) projections viewed as (B, H, S, D)
@@ -532,14 +830,62 @@ def phase_timing(dev, qmm_err, launches):
          "ms": qmm_ms, "plain_ms": qmm_plain, "bound_ms": qmm_bound,
          "bound_by": "bytes" if qmm_bytes / PEAK_BYTES > qmm_ops / PEAK_INT8 else "operations",
          "library_ms": qmm_lib,
-         "shape": f"M={M}, the 7 (K,N) of one layer {list(QMM_LAYER)}, per layer"},
+         "shape": f"M={M}, the 7 (K,N) of one layer {list(QMM_LAYER)}, per layer",
+         **head},
         fd_row,
+        time_mamba_scan(dev, g, ms_err, launches),
     ]
     for kern in kernels:
         print(f"  {kern['name']}: ms={kern['ms']:.4f} plain_ms={kern['plain_ms']:.4f} "
               f"library_ms={kern['library_ms']} bound_ms={kern['bound_ms']:.4f} "
               f"({kern['bound_by']}) [{kern['shape']}]")
     return kernels
+
+
+def time_head_quant_matmul(dev, g):
+    """quant_matmul at falcon-mamba's w8 head, (B*S, d) x (d, V), per call."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import quant_matmul as qmm
+    cfg = get_config(FM_ARCH)
+    M, K, N = FM_BATCH * FM_SEQ, cfg.d_model, cfg.vocab_size
+    args = (torch.randint(-127, 128, (M, K), dtype=torch.int8, generator=g, device=dev),
+            torch.randint(-127, 128, (K, N), dtype=torch.int8, generator=g, device=dev),
+            torch.rand(M, generator=g, device=dev) * 0.01,
+            torch.rand(N, generator=g, device=dev) * 0.01)
+    ms = cuda_ms(lambda: qmm.quant_matmul(*args), 20)
+    nbytes = M * K + K * N + 4 * M + 4 * N + 4 * M * N
+    nops = 2 * M * K * N
+    return {"head_shape": f"M={M} K={K} N={N} ({FM_ARCH} w8 lm_head), per call",
+            "head_ms": ms,
+            "head_bound_ms": max(nbytes / PEAK_BYTES, nops / PEAK_INT8) * 1e3,
+            "head_bound_by": "bytes" if nbytes / PEAK_BYTES > nops / PEAK_INT8 else "operations"}
+
+
+def time_mamba_scan(dev, g, err, launches):
+    """mamba_scan at falcon-mamba's path shape, per call (one layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan as ms
+    cfg = get_config(FM_ARCH)
+    B, S, DI, N = FM_BATCH, FM_SEQ, cfg.d_inner, cfg.ssm_state
+    args = _scan_inputs(B, S, DI, N, g, dev, falcon_a=True)
+    kernel = cuda_ms(lambda: ms.mamba_scan(*args), 20)
+    plain = cuda_ms(lambda: ms.mamba_scan_ref(*args), 1, warmup=1)
+    # each input read once (u, dt, Bm, Cm, A), y and h_final written once;
+    # per (b, t, d, n): dt*A, exp, dA*h, + (dt*u)*B, h*C, the sum over n
+    # (7), and dt*u per (b, t, d), all f32 (the exp counted at the f32 rate)
+    nbytes = 4 * (3 * B * S * DI + 2 * B * S * N + DI * N + B * DI * N)
+    nops = B * S * DI * (7 * N + 1)
+    return {"name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan.py:69",
+            "launches": launches["mamba_scan"], "max_abs_err": err,
+            "ms": kernel, "plain_ms": plain,
+            "bound_ms": max(nbytes / PEAK_BYTES, nops / PEAK_F32) * 1e3,
+            "bound_by": "bytes" if nbytes / PEAK_BYTES > nops / PEAK_F32 else "operations",
+            "library_ms": None,
+            "shape": f"f32 u, dt ({B},{S},{DI}), Bm, Cm ({B},{S},{N}) slices of a "
+                     f"({B},{S},{16 + 2 * N}) tensor, A ({DI},{N}), per call (one layer)"}
 
 
 def time_flash_decode(dev, g, launches):
@@ -606,20 +952,36 @@ def main() -> int:
     t_start = time.perf_counter()
 
     smi = phase_build()
-    qmm_err = phase_kernel_checks(dev)
+    qmm_err, ms_err = phase_kernel_checks(dev)
     cfg, model, eng, batch, launches, times = phase_main_path(dev)
     dec_launches, dec_timing = phase_decode_serving(cfg, model, batch)
     phase_split_equals_full(cfg, model, batch)
     cpu_model = phase_card_vs_cpu(cfg, model, eng, batch)
     phase_decode_card_vs_cpu(cfg, model, cpu_model, batch)
-    kernels = phase_timing(dev, qmm_err, {**launches, "flash_decode": dec_launches["flash_decode"]})
-    for kern in kernels:
-        if kern["name"] != "flash_decode":
-            kern["launches_decode_path"] = dec_launches[kern["name"]]
+    del cpu_model, eng, model
 
-    print("per-infer ms (median of 3), 8 x 512 tokens: " + json.dumps(
+    fm_cfg, fm_model, fm_eng, fm_batch, fm_launches, fm_times, fm_peak = phase_fm_split(dev)
+    fm_dec_launches, fm_dec_timing = phase_fm_decode(fm_cfg, fm_model, fm_batch)
+    phase_fm_card_vs_cpu(dev, fm_cfg, fm_model, fm_batch)
+    del fm_model, fm_eng                 # free the 29 GB before the timing phase
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels = phase_timing(dev, qmm_err, ms_err, {
+        **launches, "flash_decode": dec_launches["flash_decode"],
+        "mamba_scan": fm_launches["mamba_scan"]})
+    paths = {f"{cfg.name} split": launches, f"{cfg.name} decode": dec_launches,
+             f"{FM_ARCH} split": fm_launches, f"{FM_ARCH} decode": fm_dec_launches}
+    for kern in kernels:
+        kern["launches_by_path"] = {p: n[kern["name"]] for p, n in paths.items()}
+
+    print(f"{cfg.name} per-infer ms (median of 3), {BATCH} x {SEQ} tokens: " + json.dumps(
         {k: statistics.median(v) for k, v in times.items()}))
-    print("decode serving: " + json.dumps(dec_timing))
+    print(f"{cfg.name} decode serving: " + json.dumps(dec_timing))
+    print(f"{FM_ARCH} per-infer ms (median of 3), {FM_BATCH} x {FM_SEQ} tokens: " + json.dumps(
+        {k: statistics.median(v) for k, v in fm_times.items()}))
+    print(f"{FM_ARCH} decode serving: " + json.dumps(fm_dec_timing))
+    print(f"{FM_ARCH} peak device memory: {fm_peak} bytes")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,8 @@
 
 The same ``ModelConfig`` dataclass with every field of the reference, so a
 configuration compares field by field across the two packages. ``pdtype``
-and ``cdtype`` return torch dtypes. Only the dense family runs in the port
-so far (``repro_torch.models.model.stack_defs`` raises for the others).
+and ``cdtype`` return torch dtypes. The dense and ssm families run in the
+port so far (``repro_torch.models.model.stack_defs`` raises for the others).
 """
 from __future__ import annotations
 
@@ -110,8 +110,18 @@ class ModelConfig:
         return self.d_model // self.n_heads
 
     @property
+    def resolved_dt_rank(self) -> int:
+        if self.dt_rank is not None:
+            return self.dt_rank
+        return -(-self.d_model // 16)
+
+    @property
     def resolved_lru_width(self) -> int:
         return self.lru_width if self.lru_width is not None else self.d_model
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     @property
     def pdtype(self) -> torch.dtype:

@@ -56,20 +56,20 @@ def _segments(cfg: ModelConfig, cut: Tuple[str, int]):
     return heads, tails
 
 
-def _run_stacks(model: M.DenseLM, x: torch.Tensor, segments) -> torch.Tensor:
+def _run_stacks(model: M.CausalLM, x: torch.Tensor, segments) -> torch.Tensor:
     for sdef, lo, hi in segments:
         for blk in model.stacks[sdef.name][lo:hi]:
             x, _ = blk(x)
     return x
 
 
-def run_head(cfg: ModelConfig, model: M.DenseLM, batch, cut: Tuple[str, int]):
+def run_head(cfg: ModelConfig, model: M.CausalLM, batch, cut: Tuple[str, int]):
     """Device side: embed + head blocks. Returns the cut activation."""
     heads, _ = _segments(cfg, cut)
     return _run_stacks(model, model.embed(batch["tokens"]), heads)
 
 
-def run_tail(cfg: ModelConfig, model: M.DenseLM, x: torch.Tensor, batch,
+def run_tail(cfg: ModelConfig, model: M.CausalLM, x: torch.Tensor, batch,
              cut: Tuple[str, int]):
     """Server side: tail blocks + final norm + logits."""
     _, tails = _segments(cfg, cut)
@@ -77,7 +77,7 @@ def run_tail(cfg: ModelConfig, model: M.DenseLM, x: torch.Tensor, batch,
     return model.head(model.final_norm(x))
 
 
-def split_forward(cfg: ModelConfig, model: M.DenseLM, batch,
+def split_forward(cfg: ModelConfig, model: M.CausalLM, batch,
                   cut: Tuple[str, int]):
     """Full split execution; equals forward_logits(cfg, model, batch)."""
     return run_tail(cfg, model, run_head(cfg, model, batch, cut), batch, cut)

@@ -11,6 +11,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.quant.quantize import QTensor, quantize_act
 
@@ -52,3 +53,17 @@ def decode_attention(q_bhd, k_cache, v_cache, pos, *, window=None,
                             logit_scale=logit_scale)
     return ref.flash_decode_ref(q_bhd, k_cache, v_cache, pos, window=window,
                                 logit_scale=logit_scale)
+
+
+def mamba_scan_full(u, dt, Bm, Cm, a_log, d_skip):
+    """Selective scan with the D-skip. u, dt: (B, S, DI); Bm, Cm: (B, S, N);
+    a_log: (DI, N); d_skip: (DI,). u is scanned in f32, as the reference
+    casts it: the scan kernel on CUDA, its plain version on the CPU. Returns
+    (y + u * d_skip in u's dtype, h_final (B, DI, N) f32)."""
+    A = -torch.exp(a_log.to(torch.float32))
+    uf = u.to(torch.float32)
+    if uf.is_cuda:
+        y, h = mamba_scan(uf, dt, Bm, Cm, A)
+    else:
+        y, h = ref.mamba_scan_ref(uf, dt, Bm, Cm, A)
+    return (y + uf * d_skip).to(u.dtype), h

@@ -54,3 +54,23 @@ def quant_matmul_ref(x_q, w_q, x_scale, w_scale):
     acc = (x_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.int32)
     return (acc.to(torch.float32)
             * x_scale.reshape(-1, 1) * w_scale.reshape(1, -1))
+
+
+def mamba_scan_ref(u, dt, Bm, Cm, A, h0=None):
+    """Mamba-1 selective scan, the plain sequential recurrence.
+
+    u, dt: (B, S, DI); Bm, Cm: (B, S, N); A: (DI, N) (= -exp(a_log)); h0:
+    an optional (B, DI, N) start state (default zero). Per step, in f32:
+    h <- exp(dt * A) * h + (dt * u) (x) B, then y_t = sum_n h * C_t. No
+    D-skip (``ops.mamba_scan_full`` adds it). Returns (y (B, S, DI) in u's
+    dtype, h_final (B, DI, N) f32)."""
+    B, S, DI = u.shape
+    uf, dtf = u.to(torch.float32), dt.to(torch.float32)
+    h = (torch.zeros((B, DI, A.shape[1]), dtype=torch.float32, device=u.device)
+         if h0 is None else h0.to(torch.float32))
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, t, :, None] * A)                   # (B, DI, N)
+        h = dA * h + (dtf[:, t] * uf[:, t])[..., None] * Bm[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
+    return torch.stack(ys, dim=1).to(u.dtype), h

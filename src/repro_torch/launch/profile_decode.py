@@ -1,9 +1,11 @@
 """Where the time of a decode step goes: the PyTorch/CUDA port on one card.
 
-Full-width qwen2-0.5b (random weights, ``torch.Generator`` seed 0) at the
-shape of ``chip_smoke.py``'s decode phase: ``BATCH`` prompts of ``SEQ``
-tokens prefilled into rings of ``DEC_CACHE`` slots, then ``STEPS`` decode
-steps under ``torch.profiler`` (CPU and CUDA activities). Prints, per step:
+Each model at full width (random weights, ``torch.Generator`` seed 0) at
+the shape of ``chip_smoke.py``'s decode phase for it: qwen2-0.5b with
+``BATCH`` prompts of ``SEQ`` tokens prefilled into rings of ``DEC_CACHE``
+slots, falcon-mamba-7b with ``FM_BATCH`` prompts of ``FM_SEQ`` tokens; then
+``STEPS`` decode steps under ``torch.profiler`` (CPU and CUDA activities),
+one model after the other. Prints, per step:
 host wall time (host clock to ``synchronize()``), device busy time (the
 sum of kernel and copy times; one stream, so they do not overlap), the
 idle share of the profiled and of the unprofiled step, kernel launches,
@@ -20,8 +22,9 @@ import subprocess
 import sys
 import time
 
-# chip_smoke.py's decode shape (a test holds them equal), and the steps timed
-BATCH, SEQ, DEC_CACHE = 8, 512, 576
+# chip_smoke.py's decode shapes (a test holds them equal), and the steps timed
+BATCH, SEQ, DEC_CACHE = 8, 512, 576        # qwen2-0.5b
+FM_BATCH, FM_SEQ = 2, 512                  # falcon-mamba-7b
 STEPS = 8
 
 
@@ -64,29 +67,22 @@ def _summary(prof, n: int, wall_ms: float, label: str, top: int = 12) -> dict:
     return out
 
 
-def main() -> int:
+def profile_model(arch: str, batch: int, seq: int, cache_len, dev) -> dict:
+    """Profile ``STEPS`` decode steps and one prefill of ``arch``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    if not torch.cuda.is_available():
-        print("profile_decode: no CUDA device is available", file=sys.stderr)
-        return 1
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
     from repro_torch.models import decode_step, init, prefill
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", torch.cuda.current_device())
-    _build.build()
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(arch)
     model = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device=dev,
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(2))
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     with torch.inference_mode():
         def run_prefill():
-            return prefill(cfg, model, {"tokens": tokens}, total_len=DEC_CACHE)
+            return prefill(cfg, model, {"tokens": tokens}, total_len=cache_len)
 
         def run_steps(cache, tok, pos, n):
             for i in range(n):
@@ -96,42 +92,63 @@ def main() -> int:
 
         logits, cache = run_prefill()                      # warm-up
         tok = torch.argmax(logits, dim=-1)
-        cache, tok = run_steps(cache, tok, SEQ, 3)
+        cache, tok = run_steps(cache, tok, seq, 3)
         torch.cuda.synchronize()
 
         # unprofiled host clock, for the profiler's own cost
         plain = []
         for i in range(STEPS):
             t0 = time.perf_counter()
-            cache, tok = run_steps(cache, tok, SEQ + 3 + i, 1)
+            cache, tok = run_steps(cache, tok, seq + 3 + i, 1)
             torch.cuda.synchronize()
             plain.append((time.perf_counter() - t0) * 1e3)
-        pos = SEQ + 3 + STEPS
+        pos = seq + 3 + STEPS
 
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             run_steps(cache, tok, pos, STEPS)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / STEPS
-        dec = _summary(prof, STEPS, wall, f"decode step (B={BATCH}, pos ~{pos})")
+        dec = _summary(prof, STEPS, wall, f"{arch} decode step (B={batch}, pos ~{pos})")
 
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             run_prefill()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        pre = _summary(prof, 1, wall, f"prefill ({BATCH} x {SEQ})")
+        pre = _summary(prof, 1, wall, f"{arch} prefill ({batch} x {seq})")
 
     median = statistics.median(plain)
     idle = _idle_share(dec["device_busy_ms"], median)
-    print(f"decode step without the profiler: median {median:.3f} ms of "
+    print(f"{arch} decode step without the profiler: median {median:.3f} ms of "
           f"{[round(t, 3) for t in plain]}; idle {idle:.1%} of it at the profiled busy time")
+    return {"decode": dec, "prefill": pre, "decode_unprofiled_ms": plain,
+            "decode_unprofiled_idle_share": idle}
+
+
+def main() -> int:
+    import gc
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_decode: no CUDA device is available", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.build()
+    out = {}
+    for arch, batch, seq, cache_len in (("qwen2-0.5b", BATCH, SEQ, DEC_CACHE),
+                                        ("falcon-mamba-7b", FM_BATCH, FM_SEQ, None)):
+        out[arch] = profile_model(arch, batch, seq, cache_len, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi)
-    print(json.dumps({"decode": dec, "prefill": pre, "decode_unprofiled_ms": plain,
-                      "decode_unprofiled_idle_share": idle,
-                      "card": smi}))
+    print(json.dumps({**out, "card": smi}))
     return 0
 
 

@@ -1,5 +1,7 @@
-"""Transformer blocks (port of ``repro.models.blocks``): the ``attn`` kind,
-pre-norm self-attention plus pre-norm MLP, each with a residual."""
+"""Blocks (port of ``repro.models.blocks``): the ``attn`` kind, pre-norm
+self-attention plus pre-norm MLP, each with a residual, and the ``ssm``
+kind, a pre-norm Mamba mixer with a residual. Every kind has the same
+``forward(x, *, pos0, mode, cache, cache_len) -> (x, new_cache)``."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -10,6 +12,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import SelfAttention
 from repro_torch.models.layers import MLP, RMSNorm
+from repro_torch.models.ssm import SSMMixer
 
 
 def _sub(p: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
@@ -36,3 +39,31 @@ class Block(nn.Module):
                                  cache=cache, cache_len=cache_len)
         x = x + h
         return x + self.mlp(self.norm2(x)), new_cache
+
+
+class SSMBlock(nn.Module):
+    """``x + mixer(norm(x))``. ``p`` holds one layer's tensors keyed as in
+    the reference's block plan: norm/scale, ssm/..."""
+
+    def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.norm = RMSNorm(p["norm/scale"])
+        self.ssm = SSMMixer(cfg, _sub(p, "ssm/"))
+
+    def forward(self, x: torch.Tensor, *, pos0: int = 0, mode: str = "train",
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_len: Optional[int] = None):
+        """Returns (x, new_cache); see ``SSMMixer.forward``. ``pos0`` and
+        ``cache_len`` do not apply to a recurrent state."""
+        h, new_cache = self.ssm(self.norm(x), mode=mode, cache=cache)
+        return x + h, new_cache
+
+
+def build_block(cfg: ModelConfig, kind: str, p: Dict[str, torch.Tensor],
+                window: Optional[int] = None) -> nn.Module:
+    """The block of one layer of ``kind`` from its tensors ``p``."""
+    if kind == "attn":
+        return Block(cfg, p, window=window)
+    if kind == "ssm":
+        return SSMBlock(cfg, p)
+    raise ValueError(f"unknown block kind {kind!r}")

@@ -1,5 +1,6 @@
 """Shared primitive layers (port of ``repro.models.layers``): the dense
-projection, RMSNorm, the SwiGLU MLP and rotary embeddings."""
+projection, RMSNorm, the SwiGLU MLP, rotary embeddings and the causal
+depthwise convolution of the Mamba mixer."""
 from __future__ import annotations
 
 from typing import Union
@@ -101,3 +102,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x2 = x[..., half:].to(torch.float32)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# causal depthwise conv (mamba), as shifted adds in the reference's order
+# --------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
+    """x: (B, S, C); w: (K, C) depthwise causal kernel; returns (B, S, C).
+
+    Written as the reference's shifted adds, not ``F.conv1d``, so the sums
+    run in the same order."""
+    K, S = w.shape[0], x.shape[1]
+    y = x * w[K - 1]
+    for i in range(1, K):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :S]
+        y = y + shifted * w[K - 1 - i]
+    if b is not None:
+        y = y + b
+    return y
+
+
+def causal_conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor,
+                       w: torch.Tensor, b=None):
+    """One decode step. x_t: (B, C); conv_state: (B, K-1, C) holding the
+    previous K-1 inputs (oldest first). Returns (y_t, new_conv_state), both
+    new tensors."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)        # (B, K, C)
+    y = torch.einsum("bkc,kc->bc", window.to(torch.float32),
+                     w.to(torch.float32)).to(x_t.dtype)
+    if b is not None:
+        y = y + b
+    return y, window[:, 1:]

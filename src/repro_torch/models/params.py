@@ -1,10 +1,12 @@
-"""Parameter plan, init and weight exchange for the dense model (port of
-``repro.models.params`` and ``plan_model`` in ``repro.models.model``).
+"""Parameter plan, init and weight exchange for the dense and ssm models
+(port of ``repro.models.params`` and ``plan_model`` in
+``repro.models.model``).
 
 The plan maps each leaf path of the JAX package's flattened parameters
-(``tok_embed``, ``final_norm/scale``, ``stacks/main/blk/attn/wq``, ...) to
-its shape and initializer; stacked leaves carry the layer on dim 0. Dense
-weights are (in, out).
+(``tok_embed``, ``final_norm/scale``, ``stacks/main/blk/attn/wq``,
+``stacks/main/blk/ssm/a_log``, ...) to its shape, initializer and, where it
+is fixed whatever ``param_dtype`` is, its dtype; stacked leaves carry the
+layer on dim 0. Dense weights are (in, out).
 """
 from __future__ import annotations
 
@@ -14,20 +16,42 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import Dense
-from repro_torch.models.model import DenseLM, stack_defs
+from repro_torch.models.model import CausalLM, stack_defs
 
 
 @dataclasses.dataclass(frozen=True)
 class P:
     shape: Tuple[int, ...]
-    init: str = "fan_in"             # fan_in | zeros | ones | normal
+    init: str = "fan_in"             # fan_in | zeros | ones | normal | constant | s4d_real
     scale: Optional[float] = None    # stddev: required by "normal", overrides fan-in
+    value: float = 0.0               # the fill of "constant"
+    dtype: Optional[str] = None      # overrides cfg.param_dtype
+
+
+def _ssm_block_plan(cfg: ModelConfig) -> Dict[str, P]:
+    """Mamba-1 mixer leaves with the reference's inits (``plan_ssm``)."""
+    d, di = cfg.d_model, cfg.d_inner
+    n, r, k = cfg.ssm_state, cfg.resolved_dt_rank, cfg.ssm_conv
+    return {
+        "norm/scale": P((d,), "ones"),
+        "ssm/in_proj": P((d, 2 * di)),
+        "ssm/conv_w": P((k, di), "normal", 0.1),
+        "ssm/conv_b": P((di,), "zeros"),
+        "ssm/x_proj": P((di, r + 2 * n)),
+        "ssm/dt_proj": P((r, di), scale=r ** -0.5),
+        "ssm/dt_bias": P((di,), "constant", value=-4.6),
+        "ssm/a_log": P((di, n), "s4d_real", dtype="float32"),
+        "ssm/d_skip": P((di,), "ones", dtype="float32"),
+        "ssm/out_proj": P((di, d)),
+    }
 
 
 def _block_plan(cfg: ModelConfig) -> Dict[str, P]:
+    if cfg.ssm:
+        return _ssm_block_plan(cfg)
     d, f, Dh = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
     H, HK = cfg.n_heads, cfg.n_kv_heads
     plan = {
@@ -52,6 +76,8 @@ def plan_model(cfg: ModelConfig) -> Dict[str, P]:
     """{leaf path: P}, in the JAX package's (sorted) flattening order."""
     plan = {"tok_embed": P((cfg.vocab_size, cfg.d_model), "normal", 0.01),
             "final_norm/scale": P((cfg.d_model,), "ones")}
+    if not cfg.tie_embeddings:
+        plan["lm_head"] = P((cfg.d_model, cfg.vocab_size))
     for s in stack_defs(cfg):
         (sub,) = s.subs
         for path, p in _block_plan(cfg).items():
@@ -60,11 +86,21 @@ def plan_model(cfg: ModelConfig) -> Dict[str, P]:
     return dict(sorted(plan.items()))
 
 
+def _leaf_dtype(cfg: ModelConfig, p: P) -> torch.dtype:
+    return torch_dtype(p.dtype) if p.dtype else cfg.pdtype
+
+
 def _init_leaf(p: P, generator: torch.Generator, dtype, device):
     if p.init == "zeros":
         return torch.zeros(p.shape, dtype=dtype, device=device)
     if p.init == "ones":
         return torch.ones(p.shape, dtype=dtype, device=device)
+    if p.init == "constant":
+        return torch.full(p.shape, p.value, dtype=dtype, device=device)
+    if p.init == "s4d_real":
+        # A_n = -(n + 1): log(1..N) along the last (state) dim
+        a = torch.arange(1, p.shape[-1] + 1, dtype=torch.float32, device=device)
+        return torch.log(a).expand(p.shape).to(dtype).contiguous()
     if p.init == "normal":
         std = p.scale
     elif p.init == "fan_in":
@@ -75,24 +111,25 @@ def _init_leaf(p: P, generator: torch.Generator, dtype, device):
         raise ValueError(f"unknown init {p.init!r}")
     x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                     device=device)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def init(cfg: ModelConfig, generator: torch.Generator,
-         device: DeviceLike = None) -> DenseLM:
+         device: DeviceLike = None) -> CausalLM:
     """A model with the reference's init distributions (fan-in normal for
     matrices, std 0.01 normal for ``tok_embed``, ones for norm scales,
-    zeros for biases), drawn from ``generator`` leaf by leaf in plan order.
+    zeros for biases; the ssm leaves as ``_ssm_block_plan`` says), drawn
+    from ``generator`` leaf by leaf in plan order.
     ``generator`` must live on ``device``. torch draws other numbers than
     JAX's threefry: weights cross between the packages through .npz files."""
     dev = resolve_device(device)
-    flat = {path: _init_leaf(p, generator, cfg.pdtype, dev)
+    flat = {path: _init_leaf(p, generator, _leaf_dtype(cfg, p), dev)
             for path, p in plan_model(cfg).items()}
-    return DenseLM(cfg, flat)
+    return CausalLM(cfg, flat)
 
 
 def load_jax_params(cfg: ModelConfig, flat: Mapping[str, np.ndarray],
-                    device: DeviceLike = None) -> DenseLM:
+                    device: DeviceLike = None) -> CausalLM:
     """Build the port's model from the JAX package's flattened parameters
     (e.g. a ``repro.checkpointing.save_tree`` file read back with
     ``repro_torch.checkpointing.load_tree``). Keys and shapes are checked
@@ -108,15 +145,19 @@ def load_jax_params(cfg: ModelConfig, flat: Mapping[str, np.ndarray],
         arr = np.asarray(flat[path])
         if arr.shape != p.shape:
             raise ValueError(f"{path}: shape {arr.shape} != {p.shape}")
-        tensors[path] = torch.tensor(arr, dtype=cfg.pdtype, device=dev)
-    return DenseLM(cfg, tensors)
+        tensors[path] = torch.tensor(arr, dtype=_leaf_dtype(cfg, p), device=dev)
+    return CausalLM(cfg, tensors)
 
 
-def export_params(model: DenseLM) -> Dict[str, np.ndarray]:
+def export_params(model: CausalLM) -> Dict[str, np.ndarray]:
     """The reverse of ``load_jax_params``: the model's float parameters as
     the JAX package's flat {leaf path: ndarray}, layers stacked on dim 0."""
     cfg = model.cfg
     flat = {"tok_embed": model.tok_embed, "final_norm/scale": model.final_norm.scale}
+    if model.lm_head is not None:
+        flat["lm_head"] = model.lm_head.w
+        if not isinstance(flat["lm_head"], torch.Tensor):
+            raise TypeError("lm_head is quantized; export the float model")
     for s in stack_defs(cfg):
         (sub,) = s.subs
         blocks = model.stacks[s.name]

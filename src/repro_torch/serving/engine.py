@@ -1,7 +1,8 @@
 """Batched serving (port of ``repro.serving.engine``).
 
-``ServingEngine`` is the plain path: prefill builds the ring KV caches,
-then one decode step per token, greedy or sampled with temperature.
+``ServingEngine`` is the plain path: prefill builds the caches (attention
+rings, or Mamba conv and scan states), then one decode step per token,
+greedy or sampled with temperature.
 
 ``SplitServingEngine`` is EdgeRL split serving: a controller decision
 (version j, cut l) routes each request batch: the chosen version's head
@@ -20,11 +21,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import partition
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as M
-from repro_torch.models.model import DenseLM
+from repro_torch.models.model import CausalLM
 from repro_torch.quant import build_version_params, get_version, quantize_act
 
 
-def check_model_device(model: DenseLM, device: torch.device) -> None:
+def check_model_device(model: CausalLM, device: torch.device) -> None:
     """Raise unless every parameter of ``model`` lies on ``device``."""
     where = {p.device for p in model.parameters()}
     if where != {device}:
@@ -40,11 +41,11 @@ class ServeConfig:
 
 
 class ServingEngine:
-    """Prefill + token-by-token decode over ring KV caches. ``model`` must
-    already live on ``device`` (the CUDA card unless ``device`` names
+    """Prefill + token-by-token decode over the model's caches. ``model``
+    must already live on ``device`` (the CUDA card unless ``device`` names
     another)."""
 
-    def __init__(self, cfg: ModelConfig, model: DenseLM,
+    def __init__(self, cfg: ModelConfig, model: CausalLM,
                  serve: ServeConfig = ServeConfig(), device: DeviceLike = None):
         self.device = resolve_device(device)
         check_model_device(model, self.device)
@@ -89,7 +90,7 @@ class SplitServingEngine:
     built on its first ``infer``. ``model`` must already live on
     ``device`` (the CUDA card unless ``device`` names another)."""
 
-    def __init__(self, cfg: ModelConfig, model: DenseLM,
+    def __init__(self, cfg: ModelConfig, model: CausalLM,
                  versions: Sequence[str] = ("bf16",), device: DeviceLike = None):
         self.device = resolve_device(device)
         check_model_device(model, self.device)
@@ -98,9 +99,9 @@ class SplitServingEngine:
         self.versions = tuple(versions)
         for v in self.versions:
             get_version(v)           # validate names up front
-        self._vmodels: Dict[str, DenseLM] = {}
+        self._vmodels: Dict[str, CausalLM] = {}
 
-    def _model_for(self, version: str) -> DenseLM:
+    def _model_for(self, version: str) -> CausalLM:
         if version not in self.versions:
             raise KeyError(f"version {version!r} not enabled; have "
                            f"{sorted(self.versions)}")

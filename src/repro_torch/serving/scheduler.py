@@ -90,7 +90,7 @@ class ContinuousBatchingServer:
     ``model`` must already live on ``device`` (the CUDA card unless
     ``device`` names another)."""
 
-    def __init__(self, cfg: ModelConfig, model: M.DenseLM, *, max_batch: int = 4,
+    def __init__(self, cfg: ModelConfig, model: M.CausalLM, *, max_batch: int = 4,
                  cache_len: int = 256, device: DeviceLike = None):
         self.device = resolve_device(device)
         check_model_device(model, self.device)

@@ -1,7 +1,8 @@
 """The flash attention kernel's plain version against repro's Pallas kernel
 (interpret mode) and its oracle (CPU), plus the rules every kernel wrapper
-keeps on the CPU. The CUDA kernels themselves run only on the card:
-``python3 chip_smoke.py`` holds them against these plain versions there."""
+(flash_attention, flash_decode, mamba_scan, quant_matmul) keeps on the CPU.
+The CUDA kernels themselves run only on the card: ``python3 chip_smoke.py``
+holds them against these plain versions there."""
 import ctypes
 import re
 import types
@@ -18,6 +19,7 @@ from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: 
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -103,6 +105,48 @@ def test_flash_decode_kernel_refuses_what_it_does_not_take():
     assert fd.launches == 0
 
 
+def _scan_args(B=2, S=5, DI=6, N=4, seed=3):
+    r = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(a.astype(np.float32)) for a in (
+        r.normal(size=(B, S, DI)), r.uniform(0.001, 0.1, size=(B, S, DI)),
+        r.normal(size=(B, S, N)), r.normal(size=(B, S, N)), r.normal(size=(DI, N))))
+
+
+def test_ops_mamba_scan_full_dispatches_cpu_tensors_to_the_plain_version():
+    u, dt, Bm, Cm, a_log = _scan_args()
+    d_skip = torch.linspace(0.5, 1.5, u.shape[-1])
+    before = ms.launches
+    for uu in (u, u.to(torch.bfloat16)):
+        y, h = ops.mamba_scan_full(uu, dt, Bm, Cm, a_log, d_skip)
+        want_y, want_h = ms.mamba_scan_ref(uu.float(), dt, Bm, Cm, -torch.exp(a_log))
+        assert y.dtype == uu.dtype and h.dtype == torch.float32
+        torch.testing.assert_close(y, (want_y + uu.float() * d_skip).to(uu.dtype))
+        torch.testing.assert_close(h, want_h)
+    assert ms.launches == before
+
+
+def test_mamba_scan_kernel_refuses_what_it_does_not_take():
+    u, dt, Bm, Cm, A = _scan_args()
+    with pytest.raises(ValueError, match="CUDA"):
+        ms.mamba_scan(u, dt, Bm, Cm, A)
+    with pytest.raises(TypeError, match="u is"):
+        ms.mamba_scan(u.half(), dt, Bm, Cm, A)
+    with pytest.raises(TypeError, match="float32"):
+        ms.mamba_scan(u, dt, Bm.to(torch.bfloat16), Cm, A)
+    with pytest.raises(ValueError, match="shapes"):
+        ms.mamba_scan(u, dt[:, :4], Bm, Cm, A)
+    with pytest.raises(ValueError, match="shapes"):
+        ms.mamba_scan(u, dt, Bm, Cm, A[:5])
+    big = _scan_args(N=33)
+    with pytest.raises(ValueError, match="state size"):
+        ms.mamba_scan(*big)
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.mamba_scan(u.transpose(0, 1).contiguous().transpose(0, 1), dt, Bm, Cm, A)
+    with pytest.raises(ValueError, match="state dim"):
+        ms.mamba_scan(u, dt, Bm, torch.zeros(2, 5, 8)[..., ::2], A)
+    assert ms.launches == 0
+
+
 def _c_signature(source: str, fn: str):
     """ctypes types of an ``extern "C"`` function's parameters, read from
     its CUDA source."""
@@ -125,6 +169,7 @@ def _c_signature(source: str, fn: str):
 @pytest.mark.parametrize("module,name,fn", [
     (fa, "flash_attention", "flash_attention_fwd"),
     (fd, "flash_decode", "flash_decode_fwd"),
+    (ms, "mamba_scan", "mamba_scan_fwd"),
     (qmm, "quant_matmul", "quant_matmul_s8")])
 def test_ctypes_signatures_match_the_c_entry_points(monkeypatch, module, name, fn):
     lib = types.SimpleNamespace(**{fn: types.SimpleNamespace()})
