@@ -7,9 +7,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 2. Kernel checks: hold each kernel against its plain PyTorch version on the
    card (quant_matmul bit for bit, also at falcon-mamba's head shape;
    flash_attention and flash_decode within 2e-5 in f32 and 2e-2 in bf16,
-   mamba_scan within 1e-4 in f32 on y and h_final, as the JAX package's
-   kernel tests), including GQA cases in which h % HK and h // G give
-   different answers, and ragged scan lengths.
+   mamba_scan and rglru_scan within 1e-4 in f32 on y and the last state,
+   as the JAX package's kernel tests), including GQA cases in which h % HK
+   and h // G give different answers, MQA at head_dim 256 with a window of
+   2048 over 2304 positions and over a wrapped ring, and ragged scan
+   lengths.
 3. Main path: full-width qwen2-0.5b (random weights from torch.Generator
    seed 0) served by ``SplitServingEngine``: 8 requests x 512 tokens for
    each version (bf16, w8, w4) at cuts 1, 12 and 24, with the kernels'
@@ -40,9 +42,29 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (ragged left-padded prefills through the kernel); card against CPU at
    full width and depth 2 (split logits per version at cut 1, then 8
    decode steps). The model is freed when these phases end.
+8. The third model, full-width full-depth recurrentgemma-2b (Griffin
+   hybrid: 26 layers as 8 (rec, rec, attn) periods plus a 2-layer rec
+   tail, MQA with head_dim 256 and a local window of 2048, GeGLU;
+   2,894,574,080 parameters, f32, random weights from torch.Generator seed
+   0): ``SplitServingEngine`` for bf16/w8/w4 at cuts ('period', 1),
+   ('period', 4) and ('tail', 2) on 4 x 512 tokens (18 rglru_scan and 8
+   flash_attention launches per infer, 110 quant_matmul per w8 infer),
+   split equals full at ('period', 4), peak memory.
+8b. Its decode: ``ServingEngine.generate`` of 32 tokens for 2 x 2304-token
+   prompts, past the window (the prefill's flash_attention masks keys older
+   than 2048, the rings of 2048 slots wrap; 18 rglru_scan and 8
+   flash_attention launches in the prefill, 8 flash_decode and no
+   rglru_scan per decode step), teacher-forced ``decode_step`` logits
+   against the card's ``forward_logits``, and ``ContinuousBatchingServer``
+   with 8 requests of 64-256 prompt tokens (ragged cohorts through the
+   kernel).
+8c. Card against CPU at full width and depth 5 (one period and the tail):
+   split logits per version at ('period', 1), then 8 decode steps. The
+   model is freed when these phases end.
 7. Timing: each kernel at the main path's shapes beside its plain version,
    one PyTorch library call for the same function where there is one, and
-   its bound.
+   its bound; flash_attention and flash_decode also at recurrentgemma's
+   head_dim 256.
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -76,11 +98,15 @@ QMM_LAYER = ((896, 896), (896, 128), (896, 128), (896, 896),
              (896, 4864), (896, 4864), (4864, 896))
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # flash_decode: tests/test_kernels.py::test_flash_decode_sweep's cases
-# (B, H, HK, C, D, pos, window), then the decode path's shape
+# (B, H, HK, C, D, pos, window), then the qwen2 decode path's shape, then
+# head_dim 256: recurrentgemma's MQA over full 2048-slot rings (wrapped at
+# pos 3000) and a GQA case where h % HK and h // G differ
 FD_CASES = ((2, 4, 2, 128, 64, 50, None), (2, 4, 2, 128, 64, 127, None),
             (1, 8, 1, 256, 64, 300, 128), (2, 2, 2, 200, 32, 450, 96),
             (1, 4, 4, 64, 128, 10, None),
-            (8, 14, 2, 576, 64, 575, None), (8, 14, 2, 576, 64, 1000, 256))
+            (8, 14, 2, 576, 64, 575, None), (8, 14, 2, 576, 64, 1000, 256),
+            (2, 10, 1, 2048, 256, 2047, 2048), (2, 10, 1, 2048, 256, 3000, 2048),
+            (1, 4, 2, 64, 256, 100, None))
 DEC_NEW, DEC_CACHE = 64, 576          # ServingEngine: new tokens, ring slots
 SRV_REQUESTS, SRV_BATCH, SRV_CACHE = 16, 8, 512
 CPU_NEW = 16
@@ -110,6 +136,26 @@ FM_DECODE_TOL = 1e-3
 MS_CASES = ((1, 128, 128, 8), (2, 256, 256, 16), (1, 384, 128, 4),
             (2, 200, 384, 16), (2, 512, 8192, 16))
 MS_TOL = 1e-4
+# recurrentgemma-2b: split serving and decode shapes, cuts, expected size
+RG_ARCH, RG_PARAMS = "recurrentgemma-2b", 2_894_574_080
+RG_SPLIT_BATCH, RG_SPLIT_SEQ = 4, 512
+RG_CUTS = (("period", 1), ("period", 4), ("tail", 2))
+RG_BATCH, RG_SEQ, RG_NEW, RG_TF_STEPS = 2, 2304, 32, 8   # prompts past the 2048 window
+RG_SRV_REQUESTS, RG_SRV_BATCH, RG_SRV_CACHE = 8, 4, 512
+RG_CPU_LAYERS, RG_CPU_STEPS = 5, 8
+RG_DECODE_TOL = 1e-3
+# per infer or prefill: 2 rec layers of each of 8 periods + the 2-layer
+# tail; 8 attention layers; w8: 26 MLPs x 3 + 8 attentions x 4 projections
+RG_SCANS, RG_ATTN, RG_QMM = 18, 8, 110
+# rglru_scan: tests/test_kernels.py::test_rglru_scan_sweep's cases and
+# tolerance (B, S, W), a ragged one, then the split path's shape
+RS_CASES = ((1, 128, 256), (2, 256, 512), (1, 384, 128), (2, 200, 320), (4, 512, 2560))
+RS_TOL = 1e-4
+# flash_attention at head_dim 256 (B, H, HK, S, window), causal: MQA
+# plain, windowed, the decode prompt's 2304 positions under the 2048
+# window; a GQA case where h % HK and h // G differ
+FA256_CASES = ((2, 10, 1, 40, None), (2, 10, 1, 256, 64), (2, 10, 1, 2304, 2048),
+               (2, 4, 2, 100, None))
 
 failures = []
 
@@ -209,7 +255,59 @@ def phase_kernel_checks(dev):
     check_flash_decode(dev, g)
     qmm_err = max(qmm_err, check_head_quant_matmul(dev, g))
     ms_err = check_mamba_scan(dev, g)
-    return qmm_err, ms_err
+    check_flash_attention_256(dev, g)
+    rs_err = check_rglru_scan(dev, g)
+    return qmm_err, ms_err, rs_err
+
+
+def check_flash_attention_256(dev, g):
+    """flash_attention at recurrentgemma's head_dim 256."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    D = 256
+    for B, H, HK, S, window in FA256_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            # the model's layout: (B, S, H, D) projections viewed as (B, H, S, D)
+            q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+            k = torch.randn(B, S, HK, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+            v = torch.randn(B, S, HK, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+            out = fa.flash_attention(q, k, v, causal=True, window=window)
+            ref = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            tol = FA_TOL[str(dtype).split(".")[1]]
+            err = (out.float() - ref.float()).abs().max().item()
+            check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+                  f"flash_attention {str(dtype)[6:]} B={B} H={H} HK={HK} S={S} D={D} "
+                  f"causal=True window={window}: max_abs_err={err:.3g} (tol {tol})")
+
+
+def _rglru_inputs(B, S, W, g, dev):
+    """a on U[0.7, 0.999] and gx standard normal, as the JAX kernel sweep."""
+    import torch
+    return (torch.rand(B, S, W, generator=g, device=dev) * 0.299 + 0.7,
+            torch.randn(B, S, W, generator=g, device=dev))
+
+
+def check_rglru_scan(dev, g):
+    """rglru_scan against its plain version; returns the path shape's error."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rs
+    err = 0.0
+    for B, S, W in RS_CASES:
+        path = (B, S, W) == RS_CASES[-1]
+        a, gx = _rglru_inputs(B, S, W, g, dev)
+        y, h = rs.rglru_scan(a, gx)
+        yr, hr = rs.rglru_scan_ref(a, gx)
+        torch.cuda.synchronize()
+        ey, eh = (y - yr).abs().max().item(), (h - hr).abs().max().item()
+        if path:
+            err = max(ey, eh)
+        check(y.dtype == h.dtype == torch.float32
+              and torch.allclose(y, yr, rtol=RS_TOL, atol=RS_TOL)
+              and torch.allclose(h, hr, rtol=RS_TOL, atol=RS_TOL),
+              f"rglru_scan f32 B={B} S={S} W={W}{' (path)' if path else ''}: max_abs_err "
+              f"h_seq {ey:.3g}, h_last {eh:.3g} (tol {RS_TOL}; max |h| {yr.abs().max().item():.3g})")
+    return err
 
 
 def check_head_quant_matmul(dev, g):
@@ -323,8 +421,9 @@ def _kernel_modules():
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.kernels import rglru_scan as rs
     return {"flash_attention": fa, "flash_decode": fd, "mamba_scan": ms,
-            "quant_matmul": qmm}
+            "quant_matmul": qmm, "rglru_scan": rs}
 
 
 def _counts():
@@ -570,7 +669,7 @@ def compare_decode_card_cpu(cfg, model, cpu_model, one, n_new):
     gl, cl = logits(model, model.tok_embed.device), logits(cpu_model, "cpu")
     errs = (gl - cl).abs().amax(dim=(0, 2)).tolist()
     agree = int((cl.argmax(-1) == toks).sum())
-    check(torch.equal(gl.argmax(-1), toks) and max(errs) <= CPU_TOL,
+    check(torch.equal(gl.argmax(-1), toks) and max(errs) <= CPU_TOL and agree == n_new,
           f"decode logits step by step: max_abs_err {max(errs):.3g} (tol {CPU_TOL}), "
           f"per step {[float(f'{e:.3g}') for e in errs]}; the CPU's greedy token equals "
           f"the card's at {agree} of {n_new} steps")
@@ -762,10 +861,187 @@ def phase_fm_card_vs_cpu(dev, cfg, model, batch):
     print(f"  {FM_ARCH} card vs CPU phase: {time.perf_counter() - t0:.1f} s")
 
 
-def phase_timing(dev, qmm_err, ms_err, launches):
+def phase_rg_split(dev):
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.configs import get_config
+    from repro_torch.core.partition import cut_activation_bytes, split_forward
+    from repro_torch.models import forward_logits, init
+    from repro_torch.serving import SplitServingEngine
+    print(f"== 8. {RG_ARCH}: full width and depth through SplitServingEngine, "
+          f"{RG_SPLIT_BATCH} x {RG_SPLIT_SEQ} tokens")
+    cfg = get_config(RG_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == RG_PARAMS,
+          f"init {cfg.name}: {cfg.n_layers} layers {cfg.block_pattern}, d_model {cfg.d_model}, "
+          f"lru_width {cfg.resolved_lru_width}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, window {cfg.local_window}, d_ff {cfg.d_ff} {cfg.mlp_act}, "
+          f"vocab {cfg.vocab_size}, {n_params} params (want {RG_PARAMS}), "
+          f"{time.perf_counter() - t0:.2f} s")
+    eng = SplitServingEngine(cfg, model, versions=VERSIONS)
+    tokens = torch.randint(0, cfg.vocab_size, (RG_SPLIT_BATCH, RG_SPLIT_SEQ), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    batch = {"tokens": tokens}
+    for version in VERSIONS:          # build each version's model, warm up
+        eng.infer(batch, RG_CUTS[1], version)
+    torch.cuda.synchronize()
+
+    reps = 3
+    link = cut_activation_bytes(cfg, (RG_SPLIT_BATCH, RG_SPLIT_SEQ))
+    link_w8 = RG_SPLIT_BATCH * RG_SPLIT_SEQ * (cfg.d_model + 4)
+    times = {}
+    _reset_counts()
+    for version in VERSIONS:
+        qmm = RG_QMM if version == "w8" else 0
+        for cut in RG_CUTS:
+            before = _counts()
+            ms, (logits, act_bytes) = _median_ms(lambda: eng.infer(batch, cut, version), reps)
+            delta = {k: v - before[k] for k, v in _counts().items()}
+            want = _launches(rglru_scan=RG_SCANS * reps, flash_attention=RG_ATTN * reps,
+                             quant_matmul=qmm * reps)
+            finite = bool(torch.isfinite(logits).all())
+            shape_ok = tuple(logits.shape) == (RG_SPLIT_BATCH, RG_SPLIT_SEQ, cfg.vocab_size)
+            want_bytes = link_w8 if version == "w8" else link
+            times[f"{version}@{cut[0]}{cut[1]}"] = ms
+            check(finite and shape_ok and act_bytes == want_bytes and delta == want,
+                  f"infer {version} cut={cut}: act_bytes={act_bytes} (want {want_bytes}) "
+                  f"ms={[round(t, 3) for t in ms]} launches over {reps} infers={delta} "
+                  f"logits {tuple(logits.shape)} finite={finite}")
+            del logits
+    launches = _counts()
+    n_infer = reps * len(VERSIONS) * len(RG_CUTS)
+    print(f"{RG_ARCH} split path: {n_infer} infers, launches {launches}")
+    check(launches == _launches(rglru_scan=n_infer * RG_SCANS, flash_attention=n_infer * RG_ATTN,
+                                quant_matmul=reps * len(RG_CUTS) * RG_QMM),
+          f"launch counts over the {RG_ARCH} split path run")
+
+    with torch.inference_mode():
+        full = forward_logits(cfg, model, batch)
+        split = split_forward(cfg, model, batch, RG_CUTS[1])
+    err = (full - split).abs().max().item()
+    check(torch.allclose(split, full, rtol=2e-4, atol=2e-4),
+          f"{RG_ARCH} split vs full at cut {RG_CUTS[1]}: max_abs_err={err:.3g} (tol 2e-4)")
+    del full, split
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  peak device memory after the split path: {peak / 2**30:.2f} GiB ({peak} bytes)")
+    return cfg, model, eng, launches, times, peak
+
+
+def phase_rg_decode(dev, cfg, model):
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, forward_logits, prefill
+    from repro_torch.serving import (ContinuousBatchingServer, Request, ServeConfig,
+                                     ServingEngine)
+    print(f"== 8b. {RG_ARCH} decode: {RG_BATCH} x {RG_SEQ}-token prompts (past the "
+          f"{cfg.local_window}-token window), {RG_NEW} new tokens")
+    V = cfg.vocab_size
+    steps = RG_NEW - 1
+    batch = {"tokens": torch.randint(0, V, (RG_BATCH, RG_SEQ), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(4))}
+    eng = ServingEngine(cfg, model, ServeConfig(max_new_tokens=RG_NEW))
+    eng.generate(batch)                  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    gen_ms = []
+    for _ in range(2):
+        before = _counts()
+        ms, toks = _median_ms(lambda: eng.generate(batch), 1)
+        gen_ms += ms
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        in_range = 0 <= toks.min().item() and toks.max().item() < V
+        check(tuple(toks.shape) == (RG_BATCH, RG_NEW) and in_range
+              and delta == _launches(rglru_scan=RG_SCANS, flash_attention=RG_ATTN,
+                                     flash_decode=RG_ATTN * steps),
+              f"generate f32: {ms[0]:.1f} ms, launches {delta} ({RG_SCANS} rglru_scan and "
+              f"{RG_ATTN} flash_attention in the prefill, {RG_ATTN} flash_decode and no "
+              f"rglru_scan in each of the {steps} decode steps)")
+
+    # teacher-forced decode against the forward pass that ran the kernels
+    full_toks = torch.cat([batch["tokens"], toks[:, :RG_TF_STEPS]], dim=1)
+    with torch.inference_mode():
+        want = forward_logits(cfg, model, {"tokens": full_toks})
+        lg, cache = prefill(cfg, model, batch)
+        ring = tuple(cache["period"]["s2"]["k"].shape)
+        errs = [(lg - want[:, RG_SEQ - 1]).abs().max().item()]
+        for j in range(RG_TF_STEPS):
+            lg, cache = decode_step(cfg, model, cache, toks[:, j], RG_SEQ + j)
+            errs.append((lg - want[:, RG_SEQ + j]).abs().max().item())
+    del want, cache
+    check(max(errs) <= RG_DECODE_TOL and ring[2] == cfg.local_window,
+          f"prefill + {RG_TF_STEPS} teacher-forced decode steps against forward_logits on "
+          f"the card: max_abs_err {max(errs):.3g} (tol {RG_DECODE_TOL}), per step "
+          f"{[float(f'{e:.3g}') for e in errs]}; rings {ring}")
+
+    r = np.random.default_rng(5)
+    reqs = [Request(rid=i, tokens=r.integers(0, V, int(r.integers(64, 257))),
+                    max_new_tokens=int(r.integers(16, 49))) for i in range(RG_SRV_REQUESTS)]
+    srv = ContinuousBatchingServer(cfg, model, max_batch=RG_SRV_BATCH, cache_len=RG_SRV_CACHE)
+    before = _counts()
+    t0 = time.perf_counter()
+    for q in reqs:
+        srv.submit(q)
+    done = srv.run()
+    torch.cuda.synchronize()
+    srv_s = time.perf_counter() - t0
+    delta = {k: v - before[k] for k, v in _counts().items()}
+    st = srv.stats
+    n_tok = sum(len(q.out) for q in done)
+    check(len(done) == RG_SRV_REQUESTS and all(q.done and not q.truncated for q in done)
+          and all(len(q.out) == q.max_new_tokens for q in done)
+          and delta == _launches(rglru_scan=RG_SCANS * st.prefills,
+                                 flash_attention=RG_ATTN * st.prefills,
+                                 flash_decode=RG_ATTN * st.decode_steps),
+          f"scheduler: {len(done)} requests (prompts {[len(q.tokens) for q in reqs]}), "
+          f"{n_tok} tokens in {srv_s:.2f} s ({n_tok / srv_s:.1f} tokens/s), prefills "
+          f"{st.prefills}, decode steps {st.decode_steps}, wall steps {st.wall_steps}, "
+          f"reclaims {st.slot_reclaims}, launches {delta}")
+    launches = _counts()
+
+    pre_ms, _ = _median_ms(lambda: torch.inference_mode()(prefill)(cfg, model, batch), 3)
+    gen, pre = statistics.median(gen_ms), statistics.median(pre_ms)
+    timing = {"generate_ms": gen_ms, "prefill_ms": pre_ms, "per_token_ms": (gen - pre) / steps,
+              "scheduler_s": srv_s, "scheduler_tokens_per_s": n_tok / srv_s}
+    print(f"  {RG_ARCH} decode: generate {gen:.1f} ms, prefill {pre:.1f} ms, per token "
+          f"(generate - prefill) / {steps} = {timing['per_token_ms']:.3f} ms")
+    return batch, launches, timing
+
+
+def phase_rg_card_vs_cpu(dev, cfg, model, batch):
+    """Full width at depth RG_CPU_LAYERS (the first period and the tail):
+    the card model's embedding, final norm and those steps, on both
+    devices."""
+    import copy
+    from torch import nn
+    from repro_torch.models import export_params, load_jax_params
+    from repro_torch.serving import SplitServingEngine
+    small = cfg.with_overrides(n_layers=RG_CPU_LAYERS)
+    cut = ("period", 1)
+    print(f"== 8c. {RG_ARCH} card against CPU: full width, {RG_CPU_LAYERS} layers, 1 x "
+          f"{CPU_SEQ} tokens per version at cut {cut}, then {RG_CPU_STEPS} decode steps")
+    t0 = time.perf_counter()
+    head = copy.copy(model)              # shares every tensor of the card model
+    head._modules = dict(model._modules)
+    head.stacks = nn.ModuleDict({"period": model.stacks["period"][:1],
+                                 "tail": model.stacks["tail"]})
+    head.cfg = small
+    flat = export_params(head)
+    del head
+    card, cpu = load_jax_params(small, flat, device=dev), load_jax_params(small, flat, device="cpu")
+    del flat
+    one = {"tokens": batch["tokens"][:1, :CPU_SEQ]}
+    compare_split_card_cpu(SplitServingEngine(small, card, versions=VERSIONS),
+                           SplitServingEngine(small, cpu, versions=VERSIONS, device="cpu"),
+                           one, cut)
+    compare_decode_card_cpu(small, card, cpu, one["tokens"], RG_CPU_STEPS + 1)
+    print(f"  {RG_ARCH} card vs CPU phase: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
+    import torch
     from repro_torch.kernels import quant_matmul as qmm
     print("== 7. kernel timing at the main path's shapes (CUDA events)")
     g = torch.Generator(device=dev).manual_seed(3)
@@ -789,57 +1065,150 @@ def phase_timing(dev, qmm_err, ms_err, launches):
     except RuntimeError as e:   # torch._int_mm refuses some shapes on some builds
         print(f"  torch._int_mm unavailable: {e}")
         qmm_lib = None
-    qmm_bytes = sum(M * K + K * N + 4 * M + 4 * N + 4 * M * N for K, N in QMM_LAYER)
-    qmm_ops = sum(2 * M * K * N for K, N in QMM_LAYER)
-    qmm_bound = max(qmm_bytes / PEAK_BYTES, qmm_ops / PEAK_INT8) * 1e3
+    qmm_bound, qmm_by = _bound(
+        sum(M * K + K * N + 4 * M + 4 * N + 4 * M * N for K, N in QMM_LAYER),
+        sum(2 * M * K * N for K, N in QMM_LAYER), PEAK_INT8)
     head = time_head_quant_matmul(dev, g)
 
-    B, H, HK, S, D = BATCH, 14, 2, SEQ, 64
-    # the model's layout: (B, S, H, D) projections viewed as (B, H, S, D)
-    q = torch.randn(B, S, H, D, generator=g, device=dev).transpose(1, 2)
-    k = torch.randn(B, S, HK, D, generator=g, device=dev).transpose(1, 2)
-    v = torch.randn(B, S, HK, D, generator=g, device=dev).transpose(1, 2)
-    out = fa.flash_attention(q, k, v, causal=True)
-    fa_err = (out - fa.flash_attention_ref(q, k, v, causal=True)).abs().max().item()
-    check(fa_err <= FA_TOL["float32"], f"flash_attention at the path shape: max_abs_err={fa_err:.3g}")
-    fa_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 50)
-    fa_plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True), 10)
-    # SDPA groups heads as h // G; expanding k, v to H heads as h % HK
-    # makes it compute the same function
-    kr, vr = k.repeat(1, H // HK, 1, 1), v.repeat(1, H // HK, 1, 1)
-    fa_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True), 50)
-    fa_bytes = 4 * (2 * B * H * S * D + 2 * B * HK * S * D)
-    fa_ops = 4 * B * H * D * (S * (S + 1) // 2)     # QK^T and PV over visible pairs
-    fa_bound = max(fa_bytes / PEAK_BYTES, fa_ops / PEAK_F32) * 1e3
-
-    fd_row = time_flash_decode(dev, g, launches)
+    fa_row = time_attention(dev, g, BATCH, 14, 2, SEQ, 64, None, "")
+    # recurrentgemma's split path: S <= its 2048 window, so the window masks
+    # nothing and SDPA's causal mask computes the same function
+    fa_row.update(_d256(time_attention(dev, g, RG_SPLIT_BATCH, 10, 1, RG_SPLIT_SEQ, 256, 2048,
+                                       f" ({RG_ARCH} split path)")))
+    fd_row = time_decode(dev, g, BATCH, 14, 2, DEC_CACHE, 64, 24, DEC_CACHE - 1, None, "")
+    # recurrentgemma's decode path: full 2048-slot rings, wrapped
+    fd_row.update(_d256(time_decode(dev, g, RG_BATCH, 10, 1, 2048, 256, RG_ATTN, RG_SEQ + 100,
+                                    2048, f" ({RG_ARCH} decode path)")))
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:103",
-         "launches": launches["flash_attention"], "max_abs_err": fa_err,
-         "ms": fa_ms, "plain_ms": fa_plain, "bound_ms": fa_bound,
-         "bound_by": "bytes" if fa_bytes / PEAK_BYTES > fa_ops / PEAK_F32 else "operations",
-         "library_ms": fa_lib,
-         "shape": f"f32 q ({B},{H},{S},{D}) k/v ({B},{HK},{S},{D}) causal, per call"},
+         "launches": launches["flash_attention"], **fa_row},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:78",
          "launches": launches["quant_matmul"], "max_abs_err": qmm_err,
-         "ms": qmm_ms, "plain_ms": qmm_plain, "bound_ms": qmm_bound,
-         "bound_by": "bytes" if qmm_bytes / PEAK_BYTES > qmm_ops / PEAK_INT8 else "operations",
+         "ms": qmm_ms, "plain_ms": qmm_plain, "bound_ms": qmm_bound, "bound_by": qmm_by,
          "library_ms": qmm_lib,
          "shape": f"M={M}, the 7 (K,N) of one layer {list(QMM_LAYER)}, per layer",
          **head},
-        fd_row,
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode.py:98",
+         "launches": launches["flash_decode"], **fd_row},
         time_mamba_scan(dev, g, ms_err, launches),
+        time_rglru_scan(dev, g, rs_err, launches),
     ]
     for kern in kernels:
         print(f"  {kern['name']}: ms={kern['ms']:.4f} plain_ms={kern['plain_ms']:.4f} "
               f"library_ms={kern['library_ms']} bound_ms={kern['bound_ms']:.4f} "
               f"({kern['bound_by']}) [{kern['shape']}]")
+        if "d256_ms" in kern:
+            print(f"  {kern['name']} at head_dim 256: ms={kern['d256_ms']:.4f} "
+                  f"plain_ms={kern['d256_plain_ms']:.4f} library_ms={kern['d256_library_ms']:.4f} "
+                  f"bound_ms={kern['d256_bound_ms']:.4f} ({kern['d256_bound_by']}) "
+                  f"[{kern['d256_shape']}]")
     return kernels
+
+
+def _bound(nbytes, nops, peak_ops=PEAK_F32):
+    """(bound ms, what bounds it) for ``nbytes`` moved and ``nops`` done."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, nops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
+def _d256(row):
+    """A timing row's keys under the ``d256_`` prefix (head_dim 256)."""
+    return {f"d256_{k}": v for k, v in row.items()}
+
+
+def time_attention(dev, g, B, H, HK, S, D, window, path):
+    """flash_attention per call (one layer), f32, causal, q and k/v as views
+    of the model's (B, S, H, D) projections: its time, error, plain and
+    SDPA time and bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn(B, S, H, D, generator=g, device=dev).transpose(1, 2)
+    k = torch.randn(B, S, HK, D, generator=g, device=dev).transpose(1, 2)
+    v = torch.randn(B, S, HK, D, generator=g, device=dev).transpose(1, 2)
+    err = (fa.flash_attention(q, k, v, causal=True, window=window)
+           - fa.flash_attention_ref(q, k, v, causal=True, window=window)).abs().max().item()
+    check(err <= FA_TOL["float32"],
+          f"flash_attention at D={D}, the path shape{path}: max_abs_err={err:.3g}")
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=window), 50)
+    plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True, window=window), 10)
+    # SDPA groups heads as h // G; expanding k, v to H heads as h % HK
+    # makes it compute the same function
+    kr, vr = k.repeat(1, H // HK, 1, 1), v.repeat(1, H // HK, 1, 1)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True), 50)
+    # QK^T and PV over the visible pairs
+    bound, by = _bound(4 * (2 * B * H * S * D + 2 * B * HK * S * D),
+                       4 * B * H * D * (S * (S + 1) // 2))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib,
+            "shape": f"f32 q ({B},{H},{S},{D}) k/v ({B},{HK},{S},{D}) causal, window {window}, "
+                     f"per call{path}"}
+
+
+def time_decode(dev, g, B, H, HK, C, D, L, pos, window, path):
+    """flash_decode per call at a decode path's shape, over L caches in turn
+    (one per attention layer; more bytes than the 50 MB L2 holds), as the
+    path reads them: its time, error, plain and SDPA time and bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.attention import slot_positions
+    q = torch.randn(B, H, D, generator=g, device=dev)
+    kv = [tuple(torch.randn(B, C, HK, D, generator=g, device=dev).transpose(1, 2)
+                for _ in range(2)) for _ in range(L)]
+    err = max((fd.flash_decode(q, k, v, pos, window=window)
+               - fd.flash_decode_ref(q, k, v, pos, window=window)).abs().max().item()
+              for k, v in kv)
+    check(err <= FA_TOL["float32"],
+          f"flash_decode at D={D}, the path shape{path}: max_abs_err={err:.3g}")
+
+    def per_layer(fn, args):
+        return lambda: [fn(*a) for a in args]
+
+    ms = cuda_ms(per_layer(lambda k, v: fd.flash_decode(q, k, v, pos, window=window), kv),
+                 50) / L
+    plain = cuda_ms(per_layer(lambda k, v: fd.flash_decode_ref(q, k, v, pos, window=window),
+                              kv), 10) / L
+    # SDPA groups heads as h // G; k, v repeated to H heads read kv head h % HK
+    held = slot_positions(pos, C, device=dev)
+    visible = (held >= 0) & ((pos - held < window) if window else True)
+    mask = visible.view(1, 1, 1, C)
+    rep = [(k.repeat(1, H // HK, 1, 1), v.repeat(1, H // HK, 1, 1)) for k, v in kv]
+    lib = cuda_ms(per_layer(lambda k, v: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask), rep), 50) / L
+    n_vis = int(visible.sum())
+    # q.k and p.v over the visible slots
+    bound, by = _bound(4 * (2 * B * HK * n_vis * D + 2 * B * H * D), 4 * B * H * n_vis * D)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib,
+            "shape": f"f32 q ({B},{H},{D}) k/v ({B},{HK},{C},{D}) as (B,C,HK,D) views, "
+                     f"pos {pos}, window {window}, per call, {L} caches in turn{path}"}
+
+
+def time_rglru_scan(dev, g, err, launches):
+    """rglru_scan at recurrentgemma's split path shape, per call (one rec
+    layer)."""
+    from repro_torch.kernels import rglru_scan as rs
+    B, S, W = RS_CASES[-1]
+    a, gx = _rglru_inputs(B, S, W, g, dev)
+    kernel = cuda_ms(lambda: rs.rglru_scan(a, gx), 50)
+    plain = cuda_ms(lambda: rs.rglru_scan_ref(a, gx), 10)
+    # a and gx read once, h_seq and h_last written once; one FMA per (b, t, w)
+    bound, by = _bound(4 * (3 * B * S * W + B * W), 2 * B * S * W)
+    return {"name": "rglru_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru_scan.py:53",
+            "launches": launches["rglru_scan"], "max_abs_err": err,
+            "ms": kernel, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
+            "shape": f"f32 a, gx ({B},{S},{W}), per call (one rec layer)"}
 
 
 def time_head_quant_matmul(dev, g):
@@ -854,12 +1223,9 @@ def time_head_quant_matmul(dev, g):
             torch.rand(M, generator=g, device=dev) * 0.01,
             torch.rand(N, generator=g, device=dev) * 0.01)
     ms = cuda_ms(lambda: qmm.quant_matmul(*args), 20)
-    nbytes = M * K + K * N + 4 * M + 4 * N + 4 * M * N
-    nops = 2 * M * K * N
+    bound, by = _bound(M * K + K * N + 4 * M + 4 * N + 4 * M * N, 2 * M * K * N, PEAK_INT8)
     return {"head_shape": f"M={M} K={K} N={N} ({FM_ARCH} w8 lm_head), per call",
-            "head_ms": ms,
-            "head_bound_ms": max(nbytes / PEAK_BYTES, nops / PEAK_INT8) * 1e3,
-            "head_bound_by": "bytes" if nbytes / PEAK_BYTES > nops / PEAK_INT8 else "operations"}
+            "head_ms": ms, "head_bound_ms": bound, "head_bound_by": by}
 
 
 def time_mamba_scan(dev, g, err, launches):
@@ -874,61 +1240,16 @@ def time_mamba_scan(dev, g, err, launches):
     # each input read once (u, dt, Bm, Cm, A), y and h_final written once;
     # per (b, t, d, n): dt*A, exp, dA*h, + (dt*u)*B, h*C, the sum over n
     # (7), and dt*u per (b, t, d), all f32 (the exp counted at the f32 rate)
-    nbytes = 4 * (3 * B * S * DI + 2 * B * S * N + DI * N + B * DI * N)
-    nops = B * S * DI * (7 * N + 1)
+    bound, by = _bound(4 * (3 * B * S * DI + 2 * B * S * N + DI * N + B * DI * N),
+                       B * S * DI * (7 * N + 1))
     return {"name": "mamba_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
             "replaces": "src/repro/kernels/mamba_scan.py:69",
             "launches": launches["mamba_scan"], "max_abs_err": err,
-            "ms": kernel, "plain_ms": plain,
-            "bound_ms": max(nbytes / PEAK_BYTES, nops / PEAK_F32) * 1e3,
-            "bound_by": "bytes" if nbytes / PEAK_BYTES > nops / PEAK_F32 else "operations",
+            "ms": kernel, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
             "shape": f"f32 u, dt ({B},{S},{DI}), Bm, Cm ({B},{S},{N}) slices of a "
                      f"({B},{S},{16 + 2 * N}) tensor, A ({DI},{N}), per call (one layer)"}
-
-
-def time_flash_decode(dev, g, launches):
-    """flash_decode at the decode path's shape, over 24 caches in turn (one
-    per layer, 113 MB in all, more than the 50 MB L2), as the path reads
-    them."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_decode as fd
-    from repro_torch.models.attention import slot_positions
-    B, H, HK, C, D, L = BATCH, 14, 2, DEC_CACHE, 64, 24
-    pos = C - 1
-    q = torch.randn(B, H, D, generator=g, device=dev)
-    kv = [tuple(torch.randn(B, C, HK, D, generator=g, device=dev).transpose(1, 2)
-                for _ in range(2)) for _ in range(L)]
-    err = max((fd.flash_decode(q, k, v, pos) - fd.flash_decode_ref(q, k, v, pos)).abs().max().item()
-              for k, v in kv)
-    check(err <= FA_TOL["float32"], f"flash_decode at the path shape: max_abs_err={err:.3g}")
-
-    def per_layer(fn, args):
-        return lambda: [fn(*a) for a in args]
-
-    ms = cuda_ms(per_layer(lambda k, v: fd.flash_decode(q, k, v, pos), kv), 50) / L
-    plain = cuda_ms(per_layer(lambda k, v: fd.flash_decode_ref(q, k, v, pos), kv), 10) / L
-    # SDPA groups heads as h // G; k, v repeated to H heads read kv head h % HK
-    visible = slot_positions(pos, C, device=dev) >= 0
-    mask = visible.view(1, 1, 1, C)
-    rep = [(k.repeat(1, H // HK, 1, 1), v.repeat(1, H // HK, 1, 1)) for k, v in kv]
-    lib = cuda_ms(per_layer(lambda k, v: F.scaled_dot_product_attention(
-        q[:, :, None], k, v, attn_mask=mask), rep), 50) / L
-    n_vis = int(visible.sum())
-    nbytes = 4 * (2 * B * HK * n_vis * D + 2 * B * H * D)
-    nops = 4 * B * H * n_vis * D          # q.k and p.v over the visible slots
-    return {"name": "flash_decode", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
-            "replaces": "src/repro/kernels/flash_decode.py:98",
-            "launches": launches["flash_decode"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain,
-            "bound_ms": max(nbytes / PEAK_BYTES, nops / PEAK_F32) * 1e3,
-            "bound_by": "bytes" if nbytes / PEAK_BYTES > nops / PEAK_F32 else "operations",
-            "library_ms": lib,
-            "shape": f"f32 q ({B},{H},{D}) k/v ({B},{HK},{C},{D}) as (B,C,HK,D) views, "
-                     f"pos {pos}, per call, 24 caches in turn"}
 
 
 def main() -> int:
@@ -952,7 +1273,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     smi = phase_build()
-    qmm_err, ms_err = phase_kernel_checks(dev)
+    qmm_err, ms_err, rs_err = phase_kernel_checks(dev)
     cfg, model, eng, batch, launches, times = phase_main_path(dev)
     dec_launches, dec_timing = phase_decode_serving(cfg, model, batch)
     phase_split_equals_full(cfg, model, batch)
@@ -963,15 +1284,24 @@ def main() -> int:
     fm_cfg, fm_model, fm_eng, fm_batch, fm_launches, fm_times, fm_peak = phase_fm_split(dev)
     fm_dec_launches, fm_dec_timing = phase_fm_decode(fm_cfg, fm_model, fm_batch)
     phase_fm_card_vs_cpu(dev, fm_cfg, fm_model, fm_batch)
-    del fm_model, fm_eng                 # free the 29 GB before the timing phase
+    del fm_model, fm_eng                 # free the 29 GB before the next model
     gc.collect()
     torch.cuda.empty_cache()
 
-    kernels = phase_timing(dev, qmm_err, ms_err, {
+    rg_cfg, rg_model, rg_eng, rg_launches, rg_times, rg_peak = phase_rg_split(dev)
+    del rg_eng
+    rg_batch, rg_dec_launches, rg_dec_timing = phase_rg_decode(dev, rg_cfg, rg_model)
+    phase_rg_card_vs_cpu(dev, rg_cfg, rg_model, rg_batch)
+    del rg_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels = phase_timing(dev, qmm_err, ms_err, rs_err, {
         **launches, "flash_decode": dec_launches["flash_decode"],
-        "mamba_scan": fm_launches["mamba_scan"]})
+        "mamba_scan": fm_launches["mamba_scan"], "rglru_scan": rg_launches["rglru_scan"]})
     paths = {f"{cfg.name} split": launches, f"{cfg.name} decode": dec_launches,
-             f"{FM_ARCH} split": fm_launches, f"{FM_ARCH} decode": fm_dec_launches}
+             f"{FM_ARCH} split": fm_launches, f"{FM_ARCH} decode": fm_dec_launches,
+             f"{RG_ARCH} split": rg_launches, f"{RG_ARCH} decode": rg_dec_launches}
     for kern in kernels:
         kern["launches_by_path"] = {p: n[kern["name"]] for p, n in paths.items()}
 
@@ -982,6 +1312,10 @@ def main() -> int:
         {k: statistics.median(v) for k, v in fm_times.items()}))
     print(f"{FM_ARCH} decode serving: " + json.dumps(fm_dec_timing))
     print(f"{FM_ARCH} peak device memory: {fm_peak} bytes")
+    print(f"{RG_ARCH} per-infer ms (median of 3), {RG_SPLIT_BATCH} x {RG_SPLIT_SEQ} tokens: "
+          + json.dumps({k: statistics.median(v) for k, v in rg_times.items()}))
+    print(f"{RG_ARCH} decode serving: " + json.dumps(rg_dec_timing))
+    print(f"{RG_ARCH} peak device memory: {rg_peak} bytes")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 
 The device runs the embedding and the blocks before the cut (the head),
 the cut activation crosses the link, the server runs the rest (the tail).
-A cut ``(stack_name, i)`` sits between block i-1 and block i of that
-stack; head and tail run ``blocks[lo:hi]`` of each stack's ModuleList.
+A cut ``(stack_name, i)`` sits between step i-1 and step i of that stack (a
+step is one superblock: recurrentgemma's (rec, rec, attn) period, or one
+block); head and tail run ``steps[lo:hi]`` of each stack's ModuleList.
 ``split_forward`` == tail(head(x)) equals the full forward.
 """
 from __future__ import annotations
@@ -18,7 +19,9 @@ from repro_torch.models import model as M
 
 
 def cut_for_layer(cfg: ModelConfig, layer_idx: int) -> Tuple[str, int]:
-    """Map a global block index to the nearest legal cut (stack, index)."""
+    """Map a global block index to the nearest legal cut (stack, index):
+    a stack whose step covers several blocks rounds to the closest step
+    boundary."""
     remaining = int(layer_idx)
     defs = M.stack_defs(cfg)
     for si, s in enumerate(defs):
@@ -58,8 +61,8 @@ def _segments(cfg: ModelConfig, cut: Tuple[str, int]):
 
 def _run_stacks(model: M.CausalLM, x: torch.Tensor, segments) -> torch.Tensor:
     for sdef, lo, hi in segments:
-        for blk in model.stacks[sdef.name][lo:hi]:
-            x, _ = blk(x)
+        for step in model.stacks[sdef.name][lo:hi]:
+            x, _ = step(x)
     return x
 
 

@@ -6,6 +6,7 @@ version (ref.py) and reached through ops.py:
   flash_decode    — one-token GQA attention over a ring KV cache
   quant_matmul    — int8 x int8 -> int32 matmul with f32 rescale
   mamba_scan      — Mamba-1 selective scan, state in f32
+  rglru_scan      — the RG-LRU diagonal linear recurrence, in f32
 
 Sources live in csrc/; _build.py compiles them at first use.
 """

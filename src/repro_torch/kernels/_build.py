@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("flash_attention", "flash_decode", "mamba_scan", "quant_matmul")
+KERNELS = ("flash_attention", "flash_decode", "mamba_scan", "quant_matmul", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

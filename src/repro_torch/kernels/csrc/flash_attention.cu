@@ -23,6 +23,11 @@
 // Key tiles that lie wholly above the diagonal (causal) or wholly outside
 // the window are skipped. Skipping is exact: every query row sees its own
 // key, so a row's first visible tile flushes what masked tiles added.
+// Head dims 64, 128 and 256. At D = 256 (recurrentgemma-2b: H=10, HK=1,
+// a local window of 2048) the tiles take 4 * (64*257 + 64*257 + 64*256 +
+// 64*65) = 213,760 bytes of shared memory, under the 232,448 a block may opt
+// into, so one block runs per SM, and each thread holds 4 x 16 output
+// accumulators in registers.
 // Later work: bf16/fp16 through the tensor cores (mma/wgmma), a deeper
 // pipeline with cp.async or TMA.
 #include <cuda_bf16.h>
@@ -216,6 +221,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                      scale, s);
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window,
+                                      scale, s);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window, scale, s);
+  if (dtype == 1 && D == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window,
                                       scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,7 +21,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 __all__ = ["flash_attention", "flash_attention_ref", "launches"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 launches = 0   # kernel launches since the count was last set to 0
 

@@ -23,7 +23,7 @@ from repro_torch.kernels.ref import flash_decode_ref
 __all__ = ["flash_decode", "flash_decode_ref", "launches"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _INT32_MAX = 2 ** 31 - 1
 
 launches = 0   # kernel launches since the count was last set to 0

@@ -13,6 +13,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.quant.quantize import QTensor, quantize_act
 
 
@@ -67,3 +68,12 @@ def mamba_scan_full(u, dt, Bm, Cm, a_log, d_skip):
     else:
         y, h = ref.mamba_scan_ref(uf, dt, Bm, Cm, A)
     return (y + uf * d_skip).to(u.dtype), h
+
+
+def rglru_scan_full(a, gx):
+    """Diagonal recurrence h_t = a_t * h_{t-1} + gx_t from h = 0. a, gx:
+    (B, S, W) f32. The scan kernel on CUDA, its plain version on the CPU.
+    Returns (h_seq (B, S, W) f32, h_last (B, W) f32)."""
+    if a.is_cuda:
+        return rglru_scan(a, gx)
+    return ref.rglru_scan_ref(a, gx)

@@ -74,3 +74,20 @@ def mamba_scan_ref(u, dt, Bm, Cm, A, h0=None):
         h = dA * h + (dtf[:, t] * uf[:, t])[..., None] * Bm[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
     return torch.stack(ys, dim=1).to(u.dtype), h
+
+
+def rglru_scan_ref(a, gx, h0=None):
+    """Diagonal linear recurrence h_t = a_t * h_{t-1} + gx_t.
+
+    a, gx: (B, S, W) f32; h0: an optional (B, W) start state (default zero),
+    folded into the first step as the reference does. Returns (h_seq, h_last).
+    An associative scan, as the reference's: log2(S) rounds of the combine
+    (a1, b1), (a2, b2) -> (a2 * a1, a2 * b1 + b2) over doubling offsets."""
+    if h0 is not None:
+        gx = torch.cat([gx[:, :1] + a[:, :1] * h0[:, None], gx[:, 1:]], dim=1)
+    S, off = a.shape[1], 1
+    while off < S:
+        gx = torch.cat([gx[:, :off], a[:, off:] * gx[:, :-off] + gx[:, off:]], dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return gx, gx[:, -1]

@@ -3,9 +3,11 @@
 Each model at full width (random weights, ``torch.Generator`` seed 0) at
 the shape of ``chip_smoke.py``'s decode phase for it: qwen2-0.5b with
 ``BATCH`` prompts of ``SEQ`` tokens prefilled into rings of ``DEC_CACHE``
-slots, falcon-mamba-7b with ``FM_BATCH`` prompts of ``FM_SEQ`` tokens; then
-``STEPS`` decode steps under ``torch.profiler`` (CPU and CUDA activities),
-one model after the other. Prints, per step:
+slots, falcon-mamba-7b with ``FM_BATCH`` prompts of ``FM_SEQ`` tokens,
+recurrentgemma-2b with ``RG_BATCH`` prompts of ``RG_SEQ`` tokens (past its
+2048-token local window, so the rings are full and wrap); then ``STEPS``
+decode steps under ``torch.profiler`` (CPU and CUDA activities), one model
+after the other. Prints, per step:
 host wall time (host clock to ``synchronize()``), device busy time (the
 sum of kernel and copy times; one stream, so they do not overlap), the
 idle share of the profiled and of the unprofiled step, kernel launches,
@@ -25,6 +27,7 @@ import time
 # chip_smoke.py's decode shapes (a test holds them equal), and the steps timed
 BATCH, SEQ, DEC_CACHE = 8, 512, 576        # qwen2-0.5b
 FM_BATCH, FM_SEQ = 2, 512                  # falcon-mamba-7b
+RG_BATCH, RG_SEQ = 2, 2304                 # recurrentgemma-2b
 STEPS = 8
 
 
@@ -141,7 +144,8 @@ def main() -> int:
     _build.build()
     out = {}
     for arch, batch, seq, cache_len in (("qwen2-0.5b", BATCH, SEQ, DEC_CACHE),
-                                        ("falcon-mamba-7b", FM_BATCH, FM_SEQ, None)):
+                                        ("falcon-mamba-7b", FM_BATCH, FM_SEQ, None),
+                                        ("recurrentgemma-2b", RG_BATCH, RG_SEQ, None)):
         out[arch] = profile_model(arch, batch, seq, cache_len, dev)
         gc.collect()
         torch.cuda.empty_cache()

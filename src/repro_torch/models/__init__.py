@@ -1,5 +1,5 @@
-"""Dense transformer and Mamba-1 SSM models in PyTorch (port of
-``repro.models``)."""
+"""Dense transformer, Mamba-1 SSM and Griffin hybrid models in PyTorch
+(port of ``repro.models``)."""
 from repro_torch.models.model import (CausalLM, DenseLM, cache_axes,
                                       decode_step, forward_logits, init_cache,
                                       prefill, stack_defs)

@@ -1,6 +1,7 @@
 """Blocks (port of ``repro.models.blocks``): the ``attn`` kind, pre-norm
-self-attention plus pre-norm MLP, each with a residual, and the ``ssm``
-kind, a pre-norm Mamba mixer with a residual. Every kind has the same
+self-attention plus pre-norm MLP, each with a residual; the ``ssm`` kind, a
+pre-norm Mamba mixer with a residual; the ``rec`` kind, a pre-norm RG-LRU
+mixer plus pre-norm MLP, each with a residual. Every kind has the same
 ``forward(x, *, pos0, mode, cache, cache_len) -> (x, new_cache)``."""
 from __future__ import annotations
 
@@ -12,11 +13,16 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import SelfAttention
 from repro_torch.models.layers import MLP, RMSNorm
+from repro_torch.models.rglru import RecMixer
 from repro_torch.models.ssm import SSMMixer
 
 
 def _sub(p: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
     return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+def _mlp(cfg: ModelConfig, p: Dict[str, torch.Tensor]) -> MLP:
+    return MLP(p["mlp/w_gate"], p["mlp/w_up"], p["mlp/w_down"], act=cfg.mlp_act)
 
 
 class Block(nn.Module):
@@ -29,7 +35,7 @@ class Block(nn.Module):
         self.norm1 = RMSNorm(p["norm1/scale"])
         self.attn = SelfAttention(cfg, _sub(p, "attn/"), window=window)
         self.norm2 = RMSNorm(p["norm2/scale"])
-        self.mlp = MLP(p["mlp/w_gate"], p["mlp/w_up"], p["mlp/w_down"])
+        self.mlp = _mlp(cfg, p)
 
     def forward(self, x: torch.Tensor, *, pos0: int = 0, mode: str = "train",
                 cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -59,6 +65,28 @@ class SSMBlock(nn.Module):
         return x + h, new_cache
 
 
+class RecBlock(nn.Module):
+    """``x + rec(norm1(x))``, then ``+ mlp(norm2(x))``. ``p`` holds one
+    layer's tensors keyed as in the reference's block plan: norm1/scale,
+    rec/..., norm2/scale, mlp/..."""
+
+    def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.norm1 = RMSNorm(p["norm1/scale"])
+        self.rec = RecMixer(cfg, _sub(p, "rec/"))
+        self.norm2 = RMSNorm(p["norm2/scale"])
+        self.mlp = _mlp(cfg, p)
+
+    def forward(self, x: torch.Tensor, *, pos0: int = 0, mode: str = "train",
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_len: Optional[int] = None):
+        """Returns (x, new_cache); see ``RecMixer.forward``. ``pos0`` and
+        ``cache_len`` do not apply to a recurrent state."""
+        h, new_cache = self.rec(self.norm1(x), mode=mode, cache=cache)
+        x = x + h
+        return x + self.mlp(self.norm2(x)), new_cache
+
+
 def build_block(cfg: ModelConfig, kind: str, p: Dict[str, torch.Tensor],
                 window: Optional[int] = None) -> nn.Module:
     """The block of one layer of ``kind`` from its tensors ``p``."""
@@ -66,4 +94,6 @@ def build_block(cfg: ModelConfig, kind: str, p: Dict[str, torch.Tensor],
         return Block(cfg, p, window=window)
     if kind == "ssm":
         return SSMBlock(cfg, p)
+    if kind == "rec":
+        return RecBlock(cfg, p)
     raise ValueError(f"unknown block kind {kind!r}")

@@ -1,6 +1,6 @@
 """Shared primitive layers (port of ``repro.models.layers``): the dense
-projection, RMSNorm, the SwiGLU MLP, rotary embeddings and the causal
-depthwise convolution of the Mamba mixer."""
+projection, RMSNorm, the gated MLP (SwiGLU, GeGLU), rotary embeddings and
+the causal depthwise convolution of the Mamba and RG-LRU mixers."""
 from __future__ import annotations
 
 from typing import Union
@@ -70,15 +70,28 @@ class RMSNorm(nn.Module):
 # MLP
 # --------------------------------------------------------------------------
 
-class MLP(nn.Module):
-    """SwiGLU: w_down(silu(w_gate(x)) * w_up(x))."""
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` with its default ``approximate=True``: the tanh form,
+    not torch's default erf form."""
+    return F.gelu(x, approximate="tanh")
 
-    def __init__(self, w_gate, w_up, w_down):
+
+_GATE_ACTS = {"swiglu": F.silu, "geglu": gelu}
+
+
+class MLP(nn.Module):
+    """Gated MLP: w_down(act(w_gate(x)) * w_up(x)), act = SiLU (SwiGLU) or
+    tanh GeLU (GeGLU)."""
+
+    def __init__(self, w_gate, w_up, w_down, act: str = "swiglu"):
         super().__init__()
+        if act not in _GATE_ACTS:
+            raise ValueError(f"MLP: act {act!r} not in {sorted(_GATE_ACTS)}")
+        self.act = _GATE_ACTS[act]
         self.w_gate, self.w_up, self.w_down = Dense(w_gate), Dense(w_up), Dense(w_down)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+        return self.w_down(self.act(self.w_gate(x)) * self.w_up(x))
 
 
 # --------------------------------------------------------------------------
@@ -105,7 +118,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 # --------------------------------------------------------------------------
-# causal depthwise conv (mamba), as shifted adds in the reference's order
+# causal depthwise conv (mamba, rg-lru), as shifted adds in the reference's order
 # --------------------------------------------------------------------------
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:

@@ -1,21 +1,25 @@
-"""Model assembly (port of ``repro.models.model``) for the dense and the
-Mamba-1 SSM families.
+"""Model assembly (port of ``repro.models.model``) for the dense, the
+Mamba-1 SSM and the Griffin hybrid families.
 
-``CausalLM`` holds the embedding, one ``nn.ModuleList`` of blocks per stack
-(both families have one stack, ``main``: ``attn`` blocks for dense models,
-``ssm`` blocks for falcon-mamba), the final norm and, for an untied head,
-the ``lm_head`` projection. It is built from a flat mapping of tensors in
-the JAX package's layout — leaf paths ``tok_embed``, ``final_norm/scale``,
-``stacks/main/blk/attn/wq``, ..., stacked leaves with the layer on dim 0 —
-so one constructor serves both ``params.init`` and
-``params.load_jax_params``. ``DenseLM`` is the same class under the name it
-had while only dense models ran.
+``CausalLM`` holds the embedding, one ``nn.ModuleList`` of steps per stack,
+the final norm and, for an untied head, the ``lm_head`` projection. A step
+is a ``SuperBlock``: one block per sub of the stack, in order, as the
+reference scans a superblock. Dense and ssm models have one stack, ``main``,
+of one sub ``blk`` (``attn`` or ``ssm`` blocks); recurrentgemma has a
+``period`` stack of (s0 rec, s1 rec, s2 attn) steps and a ``tail`` of
+``rec`` steps. The model is built from a flat mapping of tensors in the JAX
+package's layout (leaf paths ``tok_embed``, ``final_norm/scale``,
+``stacks/main/blk/attn/wq``, ``stacks/period/s0/rec/w_a``, ..., stacked
+leaves with the step on dim 0), so one constructor serves both
+``params.init`` and ``params.load_jax_params``. ``DenseLM`` is the same
+class under the name it had while only dense models ran.
 
 Serving runs ``prefill`` (the prompt, building one cache per layer) and
 then ``decode_step`` per token. The cache tree mirrors the reference's:
-{stack: {sub: {"k", "v": (layers, B, C, HK, Dh)}}} for attention rings,
-{stack: {sub: {"conv": (layers, B, K-1, di), "ssm": (layers, B, di, N)}}}
-for the recurrent state. Decode updates either in place.
+{stack: {sub: {"k", "v": (steps, B, C, HK, Dh)}}} for attention rings,
+{stack: {sub: {"conv": (steps, B, K-1, di), "ssm": (steps, B, di, N)}}} for
+the Mamba state and {stack: {sub: {"conv": (steps, B, K-1, w), "lru":
+(steps, B, w)}}} for the RG-LRU state. Decode updates every leaf in place.
 """
 from __future__ import annotations
 
@@ -49,21 +53,26 @@ class StackDef:
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError unless the port runs every feature of
     ``cfg``: a dense model with qwen2-0.5b's features (GQA, QKV bias, RoPE,
-    RMSNorm, SwiGLU, tied embeddings, optional sliding window), or a
+    RMSNorm, SwiGLU or GeGLU, tied embeddings, optional sliding window), a
     Mamba-1 model with falcon-mamba's (RMSNorm, no attention, no RoPE, no
-    MLP, tied or untied head)."""
-    families = (("moe", cfg.moe), ("hybrid", bool(cfg.block_pattern)),
-                ("vlm", bool(cfg.cross_attn_every)), ("audio", cfg.enc_dec),
-                ("MLA", cfg.use_mla))
+    MLP, tied or untied head), or a Griffin hybrid with recurrentgemma's
+    (a block pattern of ``rec`` and ``attn`` blocks, local attention, MQA,
+    GeGLU, the Gemma embedding scale)."""
+    families = (("moe", cfg.moe), ("vlm", bool(cfg.cross_attn_every)),
+                ("audio", cfg.enc_dec), ("MLA", cfg.use_mla))
     missing = [name for name, on in families if on]
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         missing.insert(0, cfg.family)
     elif cfg.ssm != (cfg.family == "ssm"):
         missing.insert(0, f"family={cfg.family} with ssm={cfg.ssm}")
+    elif bool(cfg.block_pattern) != (cfg.family == "hybrid"):
+        missing.insert(0, f"family={cfg.family} with block_pattern={cfg.block_pattern}")
     features = [("norm=" + cfg.norm, cfg.norm != "rmsnorm")]
+    features += [(f"block kind {k!r}", k not in ("rec", "attn"))
+                 for k in sorted(set(cfg.block_pattern))]
     if not cfg.ssm:
         features += [("qk_norm", cfg.qk_norm), ("attn_bias", cfg.attn_bias),
-                     ("mlp_act=" + cfg.mlp_act, cfg.mlp_act != "swiglu"),
+                     ("mlp_act=" + cfg.mlp_act, cfg.mlp_act not in ("swiglu", "geglu")),
                      ("untied lm_head", not cfg.tie_embeddings),
                      ("use_rope=False", not cfg.use_rope)]
     missing += [name for name, on in features if on]
@@ -73,14 +82,77 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 def stack_defs(cfg: ModelConfig) -> Tuple[StackDef, ...]:
-    """Decoder trunk stacks, in execution order (one ``main`` stack)."""
+    """Decoder trunk stacks, in execution order: one ``main`` stack of one
+    sub for dense and ssm models; for a block pattern, a ``period`` stack
+    whose step holds one sub per kind of the pattern (s0, s1, ...), then
+    the remainder layers as a ``tail`` stack (one kind) or as ``tail0``,
+    ``tail1``, ... of one layer each (mixed kinds)."""
     check_ported(cfg)
-    kind = "ssm" if cfg.ssm else "attn"
-    return (StackDef("main", cfg.n_layers, (Sub("blk", kind),)),)
+    L = cfg.n_layers
+    if cfg.ssm:
+        return (StackDef("main", L, (Sub("blk", "ssm"),)),)
+    if cfg.block_pattern:
+        p = cfg.block_pattern
+        n_per, n_full = len(p), L // len(p)
+        defs = [StackDef("period", n_full,
+                         tuple(Sub(f"s{i}", p[i]) for i in range(n_per)))]
+        rem_kinds = p[:L - n_full * n_per]
+        if len(set(rem_kinds)) == 1:
+            defs.append(StackDef("tail", len(rem_kinds), (Sub("blk", rem_kinds[0]),)))
+        else:
+            defs += [StackDef(f"tail{i}", 1, (Sub("blk", k),))
+                     for i, k in enumerate(rem_kinds)]
+        return tuple(defs)
+    return (StackDef("main", L, (Sub("blk", "attn"),)),)
 
 
 def _sub_window(cfg: ModelConfig, sub: Sub) -> Optional[int]:
-    return cfg.sliding_window if sub.kind == "attn" else None
+    if sub.kind != "attn":
+        return None
+    return cfg.local_window if cfg.block_pattern else cfg.sliding_window
+
+
+def _cache_len(window: Optional[int], total_len: Optional[int]) -> Optional[int]:
+    """Ring slots of a prefill's cache: ``total_len``, capped at the window."""
+    if total_len is None:
+        return None
+    return min(total_len, window) if window else total_len
+
+
+def _strip(p: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    """The entries of ``p`` under ``prefix``, keyed without it."""
+    return {k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of every leaf of a {sub: {leaf: (layers, ...)}} tree, as
+    views."""
+    return {sub: {n: t[i] for n, t in leaves.items()} for sub, leaves in tree.items()}
+
+
+class SuperBlock(nn.Module):
+    """One step of a stack: one block per sub, run in order, each under the
+    sub's name. ``p`` holds the step's tensors keyed ``<sub>/<block leaf>``.
+    A cut between two steps is a legal split point; a step is never cut."""
+
+    def __init__(self, cfg: ModelConfig, sdef: StackDef, p: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.names = tuple(sub.name for sub in sdef.subs)
+        self.windows = {sub.name: _sub_window(cfg, sub) for sub in sdef.subs}
+        for sub in sdef.subs:
+            self.add_module(sub.name, build_block(cfg, sub.kind, _strip(p, f"{sub.name}/"),
+                                                  window=self.windows[sub.name]))
+
+    def forward(self, x: torch.Tensor, *, pos0: int = 0, mode: str = "train",
+                cache=None, total_len: Optional[int] = None):
+        """Returns (x, {sub: new_cache}); ``cache`` is {sub: {leaf: tensor}}
+        or None."""
+        new_cache = {}
+        for name in self.names:
+            x, new_cache[name] = getattr(self, name)(
+                x, pos0=pos0, mode=mode, cache=None if cache is None else cache[name],
+                cache_len=_cache_len(self.windows[name], total_len) if mode == "prefill" else None)
+        return x, new_cache
 
 
 class CausalLM(nn.Module):
@@ -88,21 +160,23 @@ class CausalLM(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.tok_embed = nn.Parameter(flat["tok_embed"], requires_grad=False)
+        # the Gemma convention: embeddings times sqrt(d_model), rounded to
+        # the compute dtype first, as the reference does
+        self.register_buffer("embed_scale", torch.tensor(
+            cfg.d_model ** 0.5, dtype=cfg.cdtype, device=flat["tok_embed"].device)
+            if cfg.family == "hybrid" else None, persistent=False)
         self.final_norm = RMSNorm(flat["final_norm/scale"])
         self.lm_head = None if cfg.tie_embeddings else Dense(flat["lm_head"])
         self.stacks = nn.ModuleDict()
         for s in stack_defs(cfg):
-            (sub,) = s.subs
-            prefix = f"stacks/{s.name}/{sub.name}/"
-            leaves = {k[len(prefix):]: v for k, v in flat.items()
-                      if k.startswith(prefix)}
+            leaves = _strip(flat, f"stacks/{s.name}/")
             self.stacks[s.name] = nn.ModuleList(
-                build_block(cfg, sub.kind, {k: v[i] for k, v in leaves.items()},
-                            window=_sub_window(cfg, sub))
+                SuperBlock(cfg, s, {k: v[i] for k, v in leaves.items()})
                 for i in range(s.length))
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.tok_embed).to(self.cfg.cdtype)
+        x = F.embedding(tokens, self.tok_embed).to(self.cfg.cdtype)
+        return x if self.embed_scale is None else x * self.embed_scale
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """Tied head: ``h @ tok_embed.T`` (a plain matmul, as the JAX package
@@ -115,25 +189,20 @@ class CausalLM(nn.Module):
 
     def _trunk(self, x: torch.Tensor, *, mode: str, pos0: int = 0,
                caches=None, total_len: Optional[int] = None):
-        """Every block in order, then the final norm. Returns (h, caches):
-        None in train mode, the caches built in prefill, the (in place
-        updated) ``caches`` in decode."""
+        """Every step of every stack in order, then the final norm. Returns
+        (h, caches): None in train mode, the caches built in prefill, the (in
+        place updated) ``caches`` in decode."""
         new_caches = {"train": None, "prefill": {}, "decode": caches}[mode]
         for s in stack_defs(self.cfg):
-            (sub,) = s.subs
-            window = _sub_window(self.cfg, sub)
-            clen = None
-            if mode == "prefill" and total_len is not None:
-                clen = min(total_len, window) if window else total_len
-            stack_cache = None if caches is None else caches[s.name][sub.name]
-            layers = []
-            for i, blk in enumerate(self.stacks[s.name]):
-                c = None if stack_cache is None else {n: t[i] for n, t in stack_cache.items()}
-                x, nc = blk(x, pos0=pos0, mode=mode, cache=c, cache_len=clen)
-                layers.append(nc)
+            steps = []
+            for i, step in enumerate(self.stacks[s.name]):
+                c = None if caches is None else _layer(caches[s.name], i)
+                x, nc = step(x, pos0=pos0, mode=mode, cache=c, total_len=total_len)
+                steps.append(nc)
             if mode == "prefill":
-                new_caches[s.name] = {sub.name: {
-                    n: torch.stack([c[n] for c in layers]) for n in layers[0]}}
+                new_caches[s.name] = {
+                    sub: {n: torch.stack([c[sub][n] for c in steps]) for n in leaves}
+                    for sub, leaves in steps[0].items()}
         return self.final_norm(x), new_caches
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -185,36 +254,42 @@ def decode_step(cfg: ModelConfig, model: CausalLM, caches, token, pos):
 # cache trees: {stack: {sub: {leaf: (layers, B, ...)}}}
 # --------------------------------------------------------------------------
 
+def _cache_shapes(cfg: ModelConfig, sub: Sub, seq_len: int):
+    """{leaf: shape without (layers, B)} of one sub's cache."""
+    if sub.kind == "ssm":
+        return {"conv": (cfg.ssm_conv - 1, cfg.d_inner),
+                "ssm": (cfg.d_inner, cfg.ssm_state)}
+    if sub.kind == "rec":
+        w = cfg.resolved_lru_width
+        return {"conv": (cfg.ssm_conv - 1, w), "lru": (w,)}
+    C = _cache_len(_sub_window(cfg, sub), seq_len)
+    Dh, HK = cfg.resolved_head_dim, cfg.n_kv_heads
+    return {"k": (C, HK, Dh), "v": (C, HK, Dh)}
+
+
 def init_cache(cfg: ModelConfig, B: int, seq_len: int, dtype=None,
                device: DeviceLike = None):
     """Zero caches: rings with every slot empty for ``seq_len`` positions
-    (windowed stacks capped at their window), or zero conv and scan states."""
+    (windowed subs capped at their window), or zero conv and recurrent
+    states."""
     dev = resolve_device(device)
     dtype = dtype if dtype is not None else cfg.cdtype
-    Dh, HK = cfg.resolved_head_dim, cfg.n_kv_heads
-    caches = {}
-    for s in stack_defs(cfg):
-        (sub,) = s.subs
-        if sub.kind == "ssm":
-            shapes = {"conv": (cfg.ssm_conv - 1, cfg.d_inner),
-                      "ssm": (cfg.d_inner, cfg.ssm_state)}
-        else:
-            window = _sub_window(cfg, sub)
-            C = min(window, seq_len) if window else seq_len
-            shapes = {"k": (C, HK, Dh), "v": (C, HK, Dh)}
-        caches[s.name] = {sub.name: {
-            n: torch.zeros((s.length, B) + shape, dtype=dtype, device=dev)
-            for n, shape in shapes.items()}}
-    return caches
+    return {s.name: {sub.name: {
+        n: torch.zeros((s.length, B) + shape, dtype=dtype, device=dev)
+        for n, shape in _cache_shapes(cfg, sub, seq_len).items()} for sub in s.subs}
+        for s in stack_defs(cfg)}
+
+
+_CACHE_AXES = {
+    "ssm": {"conv": ("layers", "batch", None, "inner"),
+            "ssm": ("layers", "batch", "inner", None)},
+    "rec": {"conv": ("layers", "batch", None, "lru"), "lru": ("layers", "batch", "lru")},
+    "attn": {"k": ("layers", "batch", "kv_cache_seq", "kv_heads", None),
+             "v": ("layers", "batch", "kv_cache_seq", "kv_heads", None)},
+}
 
 
 def cache_axes(cfg: ModelConfig):
     """Logical axis names of every cache leaf, in ``init_cache``'s tree."""
-    def block(kind):
-        if kind == "ssm":
-            return {"conv": ("layers", "batch", None, "inner"),
-                    "ssm": ("layers", "batch", "inner", None)}
-        axes = ("layers", "batch", "kv_cache_seq", "kv_heads", None)
-        return {"k": axes, "v": axes}
-    return {s.name: {sub.name: block(sub.kind) for sub in s.subs}
+    return {s.name: {sub.name: dict(_CACHE_AXES[sub.kind]) for sub in s.subs}
             for s in stack_defs(cfg)}

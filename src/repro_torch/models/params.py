@@ -1,12 +1,13 @@
-"""Parameter plan, init and weight exchange for the dense and ssm models
-(port of ``repro.models.params`` and ``plan_model`` in
+"""Parameter plan, init and weight exchange for the dense, ssm and hybrid
+models (port of ``repro.models.params`` and ``plan_model`` in
 ``repro.models.model``).
 
 The plan maps each leaf path of the JAX package's flattened parameters
 (``tok_embed``, ``final_norm/scale``, ``stacks/main/blk/attn/wq``,
-``stacks/main/blk/ssm/a_log``, ...) to its shape, initializer and, where it
-is fixed whatever ``param_dtype`` is, its dtype; stacked leaves carry the
-layer on dim 0. Dense weights are (in, out).
+``stacks/main/blk/ssm/a_log``, ``stacks/period/s0/rec/w_a``, ...) to its
+shape, initializer and, where it is fixed whatever ``param_dtype`` is, its
+dtype; stacked leaves carry the stack's step on dim 0. Dense weights are
+(in, out).
 """
 from __future__ import annotations
 
@@ -20,12 +21,13 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import Dense
 from repro_torch.models.model import CausalLM, stack_defs
+from repro_torch.models.rglru import LRU_C
 
 
 @dataclasses.dataclass(frozen=True)
 class P:
     shape: Tuple[int, ...]
-    init: str = "fan_in"             # fan_in | zeros | ones | normal | constant | s4d_real
+    init: str = "fan_in"  # fan_in | zeros | ones | normal | constant | s4d_real | lru_lam
     scale: Optional[float] = None    # stddev: required by "normal", overrides fan-in
     value: float = 0.0               # the fill of "constant"
     dtype: Optional[str] = None      # overrides cfg.param_dtype
@@ -49,10 +51,38 @@ def _ssm_block_plan(cfg: ModelConfig) -> Dict[str, P]:
     }
 
 
-def _block_plan(cfg: ModelConfig) -> Dict[str, P]:
-    if cfg.ssm:
+def _rec_block_plan(cfg: ModelConfig) -> Dict[str, P]:
+    """RG-LRU block leaves with the reference's inits (``plan_rec``)."""
+    d, w, k = cfg.d_model, cfg.resolved_lru_width, cfg.ssm_conv
+    return {
+        "norm1/scale": P((d,), "ones"),
+        "rec/w_gate_branch": P((d, w)),
+        "rec/w_rec_branch": P((d, w)),
+        "rec/conv_w": P((k, w), "normal", 0.1),
+        "rec/conv_b": P((w,), "zeros"),
+        "rec/w_a": P((w, w), scale=w ** -0.5),
+        "rec/b_a": P((w,), "zeros"),
+        "rec/w_x": P((w, w), scale=w ** -0.5),
+        "rec/b_x": P((w,), "zeros"),
+        "rec/lam": P((w,), "lru_lam", dtype="float32"),
+        "rec/w_out": P((w, d)),
+        "norm2/scale": P((d,), "ones"),
+        **_mlp_plan(cfg),
+    }
+
+
+def _mlp_plan(cfg: ModelConfig) -> Dict[str, P]:
+    """The gated MLP's leaves (SwiGLU and GeGLU have the same)."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {"mlp/w_gate": P((d, f)), "mlp/w_up": P((d, f)), "mlp/w_down": P((f, d))}
+
+
+def _block_plan(cfg: ModelConfig, kind: str) -> Dict[str, P]:
+    if kind == "ssm":
         return _ssm_block_plan(cfg)
-    d, f, Dh = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    if kind == "rec":
+        return _rec_block_plan(cfg)
+    d, Dh = cfg.d_model, cfg.resolved_head_dim
     H, HK = cfg.n_heads, cfg.n_kv_heads
     plan = {
         "norm1/scale": P((d,), "ones"),
@@ -61,9 +91,7 @@ def _block_plan(cfg: ModelConfig) -> Dict[str, P]:
         "attn/wv": P((d, HK * Dh)),
         "attn/wo": P((H * Dh, d)),
         "norm2/scale": P((d,), "ones"),
-        "mlp/w_gate": P((d, f)),
-        "mlp/w_up": P((d, f)),
-        "mlp/w_down": P((f, d)),
+        **_mlp_plan(cfg),
     }
     if cfg.qkv_bias:
         plan.update({"attn/bq": P((H * Dh,), "zeros"),
@@ -79,10 +107,10 @@ def plan_model(cfg: ModelConfig) -> Dict[str, P]:
     if not cfg.tie_embeddings:
         plan["lm_head"] = P((cfg.d_model, cfg.vocab_size))
     for s in stack_defs(cfg):
-        (sub,) = s.subs
-        for path, p in _block_plan(cfg).items():
-            plan[f"stacks/{s.name}/{sub.name}/{path}"] = dataclasses.replace(
-                p, shape=(s.length,) + p.shape)
+        for sub in s.subs:
+            for path, p in _block_plan(cfg, sub.kind).items():
+                plan[f"stacks/{s.name}/{sub.name}/{path}"] = dataclasses.replace(
+                    p, shape=(s.length,) + p.shape)
     return dict(sorted(plan.items()))
 
 
@@ -101,6 +129,12 @@ def _init_leaf(p: P, generator: torch.Generator, dtype, device):
         # A_n = -(n + 1): log(1..N) along the last (state) dim
         a = torch.arange(1, p.shape[-1] + 1, dtype=torch.float32, device=device)
         return torch.log(a).expand(p.shape).to(dtype).contiguous()
+    if p.init == "lru_lam":
+        # a ~ U[0.9, 0.999]: Lambda = softplus^-1(-log a / c)
+        u = torch.rand(p.shape, generator=generator, dtype=torch.float32,
+                       device=device) * (0.999 - 0.9) + 0.9
+        t = torch.clamp_min(-torch.log(u) / LRU_C, 1e-8)
+        return torch.log(torch.expm1(t)).to(dtype)
     if p.init == "normal":
         std = p.scale
     elif p.init == "fan_in":
@@ -118,7 +152,8 @@ def init(cfg: ModelConfig, generator: torch.Generator,
          device: DeviceLike = None) -> CausalLM:
     """A model with the reference's init distributions (fan-in normal for
     matrices, std 0.01 normal for ``tok_embed``, ones for norm scales,
-    zeros for biases; the ssm leaves as ``_ssm_block_plan`` says), drawn
+    zeros for biases; the ssm and rec leaves as ``_ssm_block_plan`` and
+    ``_rec_block_plan`` say), drawn
     from ``generator`` leaf by leaf in plan order.
     ``generator`` must live on ``device``. torch draws other numbers than
     JAX's threefry: weights cross between the packages through .npz files."""
@@ -151,7 +186,7 @@ def load_jax_params(cfg: ModelConfig, flat: Mapping[str, np.ndarray],
 
 def export_params(model: CausalLM) -> Dict[str, np.ndarray]:
     """The reverse of ``load_jax_params``: the model's float parameters as
-    the JAX package's flat {leaf path: ndarray}, layers stacked on dim 0."""
+    the JAX package's flat {leaf path: ndarray}, steps stacked on dim 0."""
     cfg = model.cfg
     flat = {"tok_embed": model.tok_embed, "final_norm/scale": model.final_norm.scale}
     if model.lm_head is not None:
@@ -159,17 +194,17 @@ def export_params(model: CausalLM) -> Dict[str, np.ndarray]:
         if not isinstance(flat["lm_head"], torch.Tensor):
             raise TypeError("lm_head is quantized; export the float model")
     for s in stack_defs(cfg):
-        (sub,) = s.subs
-        blocks = model.stacks[s.name]
-        for path in _block_plan(cfg):
-            mod_path, leaf = path.rsplit("/", 1)
-            per_layer = []
-            for blk in blocks:
-                t = getattr(blk.get_submodule(mod_path), leaf)
-                if isinstance(t, Dense):
-                    t = t.w
-                if not isinstance(t, torch.Tensor):
-                    raise TypeError(f"{path} is quantized; export the float model")
-                per_layer.append(t)
-            flat[f"stacks/{s.name}/{sub.name}/{path}"] = torch.stack(per_layer)
+        steps = model.stacks[s.name]
+        for sub in s.subs:
+            for path in _block_plan(cfg, sub.kind):
+                mod_path, leaf = path.rsplit("/", 1)
+                per_step = []
+                for step in steps:
+                    t = getattr(step.get_submodule(f"{sub.name}.{mod_path}"), leaf)
+                    if isinstance(t, Dense):
+                        t = t.w
+                    if not isinstance(t, torch.Tensor):
+                        raise TypeError(f"{path} is quantized; export the float model")
+                    per_step.append(t)
+                flat[f"stacks/{s.name}/{sub.name}/{path}"] = torch.stack(per_step)
     return {k: v.detach().cpu().numpy() for k, v in sorted(flat.items())}

@@ -111,7 +111,8 @@ def test_every_module_imports_first_and_builds_nothing():
     names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                          "repro_torch."))
     for name in ("kernels.flash_attention", "kernels.flash_decode", "kernels.mamba_scan",
-                 "models.ssm", "serving.scheduler", "sim.metrics", "launch.serve"):
+                 "kernels.rglru_scan", "models.ssm", "models.rglru", "serving.scheduler",
+                 "sim.metrics", "launch.serve"):
         assert f"repro_torch.{name}" in names
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _IMPORT_EACH_FIRST, *names],
@@ -151,7 +152,7 @@ def test_unported_families_raise():
     from repro_torch.models import stack_defs
     cfg = get_config("qwen2-0.5b").reduced()
     for kw in (dict(family="moe", moe=True), dict(family="ssm", ssm=True, norm="layernorm"),
-               dict(family="hybrid", block_pattern=("rec", "attn")),
+               dict(family="hybrid"),
                dict(family="vlm", cross_attn_every=2),
                dict(family="audio", enc_dec=True), dict(use_mla=True),
                dict(qk_norm=True)):
@@ -171,7 +172,7 @@ def test_decode_profile_runs_chip_smokes_decode_shape():
             for n, v in zip(names, values):
                 if isinstance(n, ast.Name) and isinstance(v, ast.Constant):
                     smoke[n.id] = v.value
-    for name in ("BATCH", "SEQ", "DEC_CACHE", "FM_BATCH", "FM_SEQ"):
+    for name in ("BATCH", "SEQ", "DEC_CACHE", "FM_BATCH", "FM_SEQ", "RG_BATCH", "RG_SEQ"):
         assert getattr(profile_decode, name) == smoke[name], name
 
 

@@ -1,6 +1,7 @@
 """The flash attention kernel's plain version against repro's Pallas kernel
-(interpret mode) and its oracle (CPU), plus the rules every kernel wrapper
-(flash_attention, flash_decode, mamba_scan, quant_matmul) keeps on the CPU.
+(interpret mode) and its oracle (CPU), at head dims 64 and 256, plus the
+rules every kernel wrapper (flash_attention, flash_decode, mamba_scan,
+quant_matmul, rglru_scan) keeps on the CPU.
 The CUDA kernels themselves run only on the card: ``python3 chip_smoke.py``
 holds them against these plain versions there."""
 import ctypes
@@ -16,11 +17,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.flash_decode import flash_decode as jax_flash_decode  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import quant_matmul as qmm  # noqa: E402
+from repro_torch.kernels import rglru_scan as rs  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -32,7 +35,9 @@ def _qkv(B, H, HK, S, D, seed):
 
 
 @pytest.mark.parametrize("B,H,HK,S,D", [(2, 4, 2, 32, 64),     # GQA 4/2
-                                        (1, 14, 2, 40, 64)])   # 14/2, ragged S
+                                        (1, 14, 2, 40, 64),    # 14/2, ragged S
+                                        (1, 10, 1, 40, 256),   # recurrentgemma: MQA, D 256
+                                        (1, 4, 2, 24, 256)])   # D 256, h % HK != h // G
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 16), (False, None)])
 def test_flash_attention_ref_matches_pallas_and_oracle(B, H, HK, S, D, causal, window):
     q, k, v = _qkv(B, H, HK, S, D, seed=S + H)
@@ -63,6 +68,20 @@ def test_flash_attention_ref_reads_kv_head_h_mod_hk():
     want = np.asarray(jax_flash(*(jnp.asarray(a) for a in (q, k, v)), causal=True,
                                 interpret=True))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("B,H,HK,C,pos,window", [
+    (2, 10, 1, 64, 40, None),      # MQA, partly filled ring
+    (1, 10, 1, 64, 150, 64),       # MQA, wrapped ring, window = C
+    (1, 4, 2, 48, 100, 32)])       # h % HK != h // G, wrapped, window < C
+def test_flash_decode_ref_matches_pallas_at_head_dim_256(B, H, HK, C, pos, window):
+    r = np.random.default_rng(C + pos)
+    q, k, v = (r.normal(size=s).astype(np.float32)
+               for s in ((B, H, 256), (B, HK, C, 256), (B, HK, C, 256)))
+    want = jax_flash_decode(*(jnp.asarray(a) for a in (q, k, v)), jnp.int32(pos),
+                            window=window, interpret=True)
+    got = fd.flash_decode_ref(*(torch.from_numpy(a) for a in (q, k, v)), pos, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_ops_dispatch_cpu_tensors_to_the_plain_versions():
@@ -147,6 +166,27 @@ def test_mamba_scan_kernel_refuses_what_it_does_not_take():
     assert ms.launches == 0
 
 
+def test_rglru_scan_kernel_refuses_what_it_does_not_take():
+    r = np.random.default_rng(4)
+    a, gx = (torch.from_numpy(r.uniform(0.5, 1.0, size=(2, 5, 6)).astype(np.float32))
+             for _ in range(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        rs.rglru_scan(a, gx)
+    with pytest.raises(TypeError, match="float32"):
+        rs.rglru_scan(a.to(torch.bfloat16), gx)
+    with pytest.raises(TypeError, match="float32"):
+        rs.rglru_scan(a, gx.double())
+    with pytest.raises(ValueError, match="shapes"):
+        rs.rglru_scan(a, gx[:, :4])
+    with pytest.raises(ValueError, match="shapes"):
+        rs.rglru_scan(a[0], gx[0])
+    with pytest.raises(ValueError, match="out of range"):
+        rs.rglru_scan(a[:, :0], gx[:, :0])
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.rglru_scan(a.transpose(1, 2).contiguous().transpose(1, 2), gx)
+    assert rs.launches == 0
+
+
 def _c_signature(source: str, fn: str):
     """ctypes types of an ``extern "C"`` function's parameters, read from
     its CUDA source."""
@@ -170,7 +210,8 @@ def _c_signature(source: str, fn: str):
     (fa, "flash_attention", "flash_attention_fwd"),
     (fd, "flash_decode", "flash_decode_fwd"),
     (ms, "mamba_scan", "mamba_scan_fwd"),
-    (qmm, "quant_matmul", "quant_matmul_s8")])
+    (qmm, "quant_matmul", "quant_matmul_s8"),
+    (rs, "rglru_scan", "rglru_scan_fwd")])
 def test_ctypes_signatures_match_the_c_entry_points(monkeypatch, module, name, fn):
     lib = types.SimpleNamespace(**{fn: types.SimpleNamespace()})
     monkeypatch.setattr(_build, "library", lambda n: lib if n == name else None)

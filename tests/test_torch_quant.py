@@ -89,11 +89,11 @@ def test_versions_registry_and_build():
     model = init(cfg, torch.Generator().manual_seed(0), device="cpu")
     out = build_version_params(cfg, model)
     assert out["bf16"] is model
-    blk = out["w8"].stacks["main"][0]
+    blk = out["w8"].stacks["main"][0].blk
     assert blk.attn.wq.act_bits == 8 and blk.mlp.w_down.bits == 8
-    assert out["w4"].stacks["main"][1].mlp.w_up.bits == 4
+    assert out["w4"].stacks["main"][1].blk.mlp.w_up.bits == 4
     assert out["w8"].tok_embed is model.tok_embed      # shared, stays float
-    assert out["w8"].stacks["main"][0].attn.bq is model.stacks["main"][0].attn.bq
+    assert out["w8"].stacks["main"][0].blk.attn.bq is model.stacks["main"][0].blk.attn.bq
     # the source model is left as it was
     assert all(isinstance(m.w, torch.Tensor) for m in model.modules()
                if isinstance(m, Dense))

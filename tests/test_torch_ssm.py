@@ -252,7 +252,7 @@ def test_quantize_tree_quantizes_only_the_untied_head(shared, version):
     assert list(dense) == ["lm_head"]
     assert isinstance(dense["lm_head"].w, QTensor)
     assert dense["lm_head"].w.bits == (8 if version == "w8" else 4)
-    assert qmodel.stacks["main"][0].ssm.in_proj is model.stacks["main"][0].ssm.in_proj
+    assert qmodel.stacks["main"][0].blk.ssm.in_proj is model.stacks["main"][0].blk.ssm.in_proj
     assert isinstance(model.lm_head.w, torch.Tensor)     # the float model stays float
 
 
@@ -380,7 +380,7 @@ def test_init_draws_the_reference_distributions_and_keeps_a_log_d_skip_f32(share
     _, cfg, params, _, _ = shared
     model = init(cfg, torch.Generator().manual_seed(0), device="cpu")
     ref_ssm = params["stacks"]["main"]["blk"]["ssm"]
-    mixer = model.stacks["main"][1].ssm
+    mixer = model.stacks["main"][1].blk.ssm
     for n in ("d_skip", "dt_bias", "conv_b"):
         np.testing.assert_array_equal(getattr(mixer, n).numpy(), np.asarray(ref_ssm[n][1]))
     # log(1..N): torch's and XLA's log may round one value an ulp apart
@@ -390,7 +390,7 @@ def test_init_draws_the_reference_distributions_and_keeps_a_log_d_skip_f32(share
     assert abs(mixer.dt_proj.std().item() - cfg.resolved_dt_rank ** -0.5) < 0.02
     assert abs(mixer.in_proj.std().item() - cfg.d_model ** -0.5) < 0.005
     bf = init(cfg.with_overrides(param_dtype="bfloat16"), torch.Generator().manual_seed(0),
-              device="cpu").stacks["main"][0].ssm
+              device="cpu").stacks["main"][0].blk.ssm
     assert bf.in_proj.dtype == torch.bfloat16 and bf.dt_bias.dtype == torch.bfloat16
     assert bf.a_log.dtype == torch.float32 and bf.d_skip.dtype == torch.float32
 
