@@ -9,9 +9,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    flash_attention and flash_decode within 2e-5 in f32 and 2e-2 in bf16,
    mamba_scan and rglru_scan within 1e-4 in f32 on y and the last state,
    as the JAX package's kernel tests), including GQA cases in which h % HK
-   and h // G give different answers, MQA at head_dim 256 with a window of
-   2048 over 2304 positions and over a wrapped ring, and ragged scan
-   lengths.
+   and h // G give different answers, flash_attention at head_dim 128
+   (causal and not, 40 and 512 tokens), MQA at head_dim 256 with a window
+   of 2048 over 2304 positions and over a wrapped ring, flash_decode's
+   split edges (a window of 96 in a wrapped 2048-slot ring, C = 200, G = 1,
+   2, 7, 10 and 20), its split calls alternating on two streams (a
+   workspace each) and its refusal to make a workspace inside a CUDA graph
+   capture, and ragged scan lengths.
 3. Main path: full-width qwen2-0.5b (random weights from torch.Generator
    seed 0) served by ``SplitServingEngine``: 8 requests x 512 tokens for
    each version (bf16, w8, w4) at cuts 1, 12 and 24, with the kernels'
@@ -64,7 +68,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 7. Timing: each kernel at the main path's shapes beside its plain version,
    one PyTorch library call for the same function where there is one, and
    its bound; flash_attention and flash_decode also at recurrentgemma's
-   head_dim 256.
+   head_dim 256, flash_attention also at recurrentgemma's 2304-token
+   prefill under its 2048 window (its bound is that of 3xTF32 on the tensor
+   cores, the arithmetic it runs; the f32 CUDA-core bound is printed beside
+   it), flash_decode also as device time (a CUDA graph of the calls),
+   quant_matmul also at falcon-mamba's head beside ``torch._int_mm``.
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -106,7 +114,14 @@ FD_CASES = ((2, 4, 2, 128, 64, 50, None), (2, 4, 2, 128, 64, 127, None),
             (1, 4, 4, 64, 128, 10, None),
             (8, 14, 2, 576, 64, 575, None), (8, 14, 2, 576, 64, 1000, 256),
             (2, 10, 1, 2048, 256, 2047, 2048), (2, 10, 1, 2048, 256, 3000, 2048),
-            (1, 4, 2, 64, 256, 100, None))
+            (1, 4, 2, 64, 256, 100, None),
+            # the split kernel's edges: a window of 96 in a wrapped 2048-slot
+            # ring (most of the ring masked, the visible arc across slot 0),
+            # C = 200 (no multiple of any chunk), G = 1, 2 and 20 (two head
+            # groups of at most 16)
+            (2, 10, 1, 2048, 256, 3000, 96), (2, 10, 1, 2048, 64, 2050, 96),
+            (2, 14, 2, 200, 64, 450, None), (2, 4, 4, 576, 64, 600, None),
+            (2, 8, 4, 300, 128, 700, 256), (1, 40, 2, 256, 64, 300, None))
 DEC_NEW, DEC_CACHE = 64, 576          # ServingEngine: new tokens, ring slots
 SRV_REQUESTS, SRV_BATCH, SRV_CACHE = 16, 8, 512
 CPU_NEW = 16
@@ -156,6 +171,23 @@ RS_TOL = 1e-4
 # window; a GQA case where h % HK and h // G differ
 FA256_CASES = ((2, 10, 1, 40, None), (2, 10, 1, 256, 64), (2, 10, 1, 2304, 2048),
                (2, 4, 2, 100, None))
+# flash_attention at head_dim 128 (B, H, HK, S, causal): GQA 14/2 (h % HK
+# and h // G differ), a ragged and a full 512-token tile set
+FA128_CASES = tuple((2, 14, 2, S, causal) for S in (40, 512) for causal in (True, False))
+# H100 SXM dense TF32 tensor-core rate; 3xTF32 runs three TF32 products for
+# each f32 product
+PEAK_3XTF32 = 495e12 / 3
+# the attention kernels' serving-path shapes, timed in phase 7 (and by
+# scripts/attention_timing.py). flash_attention (B, H, HK, S, D, window),
+# causal: qwen2-0.5b's split path, recurrentgemma-2b's split path (S within
+# its window, so the window masks nothing) and its 2304-token prefill under
+# the 2048 window. flash_decode (B, H, HK, C, D, layers, pos, window):
+# qwen2-0.5b's decode step (24 layers) and recurrentgemma-2b's (8 attention
+# layers, full 2048-slot rings, wrapped).
+FA_PATHS = ((BATCH, 14, 2, SEQ, 64, None), (RG_SPLIT_BATCH, 10, 1, RG_SPLIT_SEQ, 256, 2048),
+            (RG_BATCH, 10, 1, RG_SEQ, 256, 2048))
+FD_PATHS = ((BATCH, 14, 2, DEC_CACHE, 64, 24, DEC_CACHE - 1, None),
+            (RG_BATCH, 10, 1, 2048, 256, RG_ATTN, RG_SEQ + 100, 2048))
 
 failures = []
 
@@ -255,30 +287,31 @@ def phase_kernel_checks(dev):
     check_flash_decode(dev, g)
     qmm_err = max(qmm_err, check_head_quant_matmul(dev, g))
     ms_err = check_mamba_scan(dev, g)
-    check_flash_attention_256(dev, g)
+    check_flash_attention_wide(dev, g)
     rs_err = check_rglru_scan(dev, g)
     return qmm_err, ms_err, rs_err
 
 
-def check_flash_attention_256(dev, g):
-    """flash_attention at recurrentgemma's head_dim 256."""
+def check_flash_attention_wide(dev, g):
+    """flash_attention at head_dim 128 and at recurrentgemma's 256."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    D = 256
-    for B, H, HK, S, window in FA256_CASES:
+    cases = ([(B, H, HK, S, causal, None, 128) for B, H, HK, S, causal in FA128_CASES]
+             + [(B, H, HK, S, True, window, 256) for B, H, HK, S, window in FA256_CASES])
+    for B, H, HK, S, causal, window, D in cases:
         for dtype in (torch.float32, torch.bfloat16):
             # the model's layout: (B, S, H, D) projections viewed as (B, H, S, D)
             q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype).transpose(1, 2)
             k = torch.randn(B, S, HK, D, generator=g, device=dev).to(dtype).transpose(1, 2)
             v = torch.randn(B, S, HK, D, generator=g, device=dev).to(dtype).transpose(1, 2)
-            out = fa.flash_attention(q, k, v, causal=True, window=window)
-            ref = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+            out = fa.flash_attention(q, k, v, causal=causal, window=window)
+            ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             tol = FA_TOL[str(dtype).split(".")[1]]
             err = (out.float() - ref.float()).abs().max().item()
             check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
                   f"flash_attention {str(dtype)[6:]} B={B} H={H} HK={HK} S={S} D={D} "
-                  f"causal=True window={window}: max_abs_err={err:.3g} (tol {tol})")
+                  f"causal={causal} window={window}: max_abs_err={err:.3g} (tol {tol})")
 
 
 def _rglru_inputs(B, S, W, g, dev):
@@ -384,6 +417,7 @@ def check_mamba_scan(dev, g):
 def check_flash_decode(dev, g):
     import torch
     from repro_torch.kernels import flash_decode as fd
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, H, HK, C, D, pos, window in FD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
@@ -395,9 +429,11 @@ def check_flash_decode(dev, g):
             torch.cuda.synchronize()
             tol = FA_TOL[str(dtype).split(".")[1]]
             err = (out.float() - ref.float()).abs().max().item()
+            p = fd.plan(B, H, HK, C, D, pos, window, sms)
             check(out.dtype == dtype and torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
                   f"flash_decode {str(dtype)[6:]} B={B} H={H} HK={HK} C={C} D={D} pos={pos} "
-                  f"window={window}: max_abs_err={err:.3g} (tol {tol})")
+                  f"window={window} ({p.nvis} visible, {p.units * p.splits} blocks of "
+                  f"{p.per_split} x {p.chunk} slots): max_abs_err={err:.3g} (tol {tol})")
 
     # head mapping: kv head h % HK (the reference), not h // G
     H, HK, C, D = 14, 2, 200, 64
@@ -414,6 +450,37 @@ def check_flash_decode(dev, g):
     check(e_mod <= 2e-5 and e_div > 0.1,
           f"flash_decode GQA head map: |out - ref(h % HK)| = {e_mod:.3g}, "
           f"|out - ref(h // G)| = {e_div:.3g}")
+
+    # the merge counters: split calls on two streams at once, each stream
+    # with its own workspace, and no workspace made inside a graph capture
+    B, H, HK, C, D, _, pos, _ = FD_PATHS[0]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    calls = []
+    for i in range(16):
+        q = torch.randn(B, H, D, generator=g, device=dev)
+        k, v = (torch.randn(B, HK, C, D, generator=g, device=dev) for _ in range(2))
+        calls.append((q, k, v))
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i, (q, k, v) in enumerate(calls):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(fd.flash_decode(q, k, v, pos))
+    torch.cuda.synchronize()
+    err = max((o - fd.flash_decode_ref(q, k, v, pos)).abs().max().item()
+              for o, (q, k, v) in zip(outs, calls))
+    check(err <= FA_TOL["float32"] and fd.plan(B, H, HK, C, D, pos, None, sms).splits > 1,
+          f"flash_decode split calls alternating on two streams: max_abs_err={err:.3g}")
+    fresh = torch.cuda.Stream()
+    fresh.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            fd.flash_decode(*calls[0], pos)
+        refused = False
+    except RuntimeError as e:
+        refused = "no workspace" in str(e)
+    torch.cuda.synchronize()
+    check(refused, "flash_decode refuses to make a stream's workspace inside a graph capture")
 
 
 def _kernel_modules():
@@ -1070,15 +1137,14 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
         sum(2 * M * K * N for K, N in QMM_LAYER), PEAK_INT8)
     head = time_head_quant_matmul(dev, g)
 
-    fa_row = time_attention(dev, g, BATCH, 14, 2, SEQ, 64, None, "")
-    # recurrentgemma's split path: S <= its 2048 window, so the window masks
-    # nothing and SDPA's causal mask computes the same function
-    fa_row.update(_d256(time_attention(dev, g, RG_SPLIT_BATCH, 10, 1, RG_SPLIT_SEQ, 256, 2048,
-                                       f" ({RG_ARCH} split path)")))
-    fd_row = time_decode(dev, g, BATCH, 14, 2, DEC_CACHE, 64, 24, DEC_CACHE - 1, None, "")
-    # recurrentgemma's decode path: full 2048-slot rings, wrapped
-    fd_row.update(_d256(time_decode(dev, g, RG_BATCH, 10, 1, 2048, 256, RG_ATTN, RG_SEQ + 100,
-                                    2048, f" ({RG_ARCH} decode path)")))
+    fa_main, fa_split, fa_prefill = FA_PATHS
+    fa_row = time_attention(dev, g, *fa_main, "")
+    fa_row.update(_d256(time_attention(dev, g, *fa_split, f" ({RG_ARCH} split path)")))
+    fa_row.update(_prefixed("prefill_", time_attention(dev, g, *fa_prefill,
+                                                       f" ({RG_ARCH} prefill)")))
+    fd_main, fd_rg = FD_PATHS
+    fd_row = time_decode(dev, g, *fd_main, "")
+    fd_row.update(_d256(time_decode(dev, g, *fd_rg, f" ({RG_ARCH} decode path)")))
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -1104,11 +1170,21 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
         print(f"  {kern['name']}: ms={kern['ms']:.4f} plain_ms={kern['plain_ms']:.4f} "
               f"library_ms={kern['library_ms']} bound_ms={kern['bound_ms']:.4f} "
               f"({kern['bound_by']}) [{kern['shape']}]")
-        if "d256_ms" in kern:
-            print(f"  {kern['name']} at head_dim 256: ms={kern['d256_ms']:.4f} "
-                  f"plain_ms={kern['d256_plain_ms']:.4f} library_ms={kern['d256_library_ms']:.4f} "
-                  f"bound_ms={kern['d256_bound_ms']:.4f} ({kern['d256_bound_by']}) "
-                  f"[{kern['d256_shape']}]")
+        for pre in ("d256_", "prefill_"):
+            if f"{pre}ms" in kern:
+                print(f"  {kern['name']} {pre[:-1]}: ms={kern[pre + 'ms']:.4f} "
+                      f"plain_ms={kern[pre + 'plain_ms']:.4f} "
+                      f"library_ms={kern[pre + 'library_ms']:.4f} "
+                      f"bound_ms={kern[pre + 'bound_ms']:.4f} ({kern[pre + 'bound_by']}) "
+                      f"[{kern[pre + 'shape']}]")
+        for pre in ("", "d256_"):
+            if f"{pre}device_ms" in kern:
+                print(f"  {kern['name']} {pre[:-1] or 'main'} device time (CUDA graph) "
+                      f"{kern[pre + 'device_ms']:.4f} ms")
+        if "head_ms" in kern:
+            print(f"  {kern['name']} head: ms={kern['head_ms']:.4f} "
+                  f"library_ms={kern['head_library_ms']} bound_ms={kern['head_bound_ms']:.4f} "
+                  f"[{kern['head_shape']}]")
     return kernels
 
 
@@ -1118,9 +1194,35 @@ def _bound(nbytes, nops, peak_ops=PEAK_F32):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
 
 
+def _prefixed(prefix, row):
+    """A timing row's keys under ``prefix``."""
+    return {f"{prefix}{k}": v for k, v in row.items()}
+
+
 def _d256(row):
     """A timing row's keys under the ``d256_`` prefix (head_dim 256)."""
-    return {f"d256_{k}": v for k, v in row.items()}
+    return _prefixed("d256_", row)
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of ``fn()``, replayed as one CUDA graph, so
+    no host work sits between its launches (the eager ``cuda_ms`` of a small
+    kernel times the host's launch path when that is the slower)."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # captured on the stream it warmed up on (flash_decode makes its
+    # workspace for a stream on the first call there, never in a capture)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    ms = cuda_ms(graph.replay, iters)
+    del graph
+    return ms
 
 
 def time_attention(dev, g, B, H, HK, S, D, window, path):
@@ -1140,12 +1242,24 @@ def time_attention(dev, g, B, H, HK, S, D, window, path):
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=window), 50)
     plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True, window=window), 10)
     # SDPA groups heads as h // G; expanding k, v to H heads as h % HK
-    # makes it compute the same function
+    # makes it compute the same function. Where the window masks keys, SDPA
+    # gets the same causal-and-window boolean mask.
     kr, vr = k.repeat(1, H // HK, 1, 1), v.repeat(1, H // HK, 1, 1)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True), 50)
-    # QK^T and PV over the visible pairs
-    bound, by = _bound(4 * (2 * B * H * S * D + 2 * B * HK * S * D),
-                       4 * B * H * D * (S * (S + 1) // 2))
+    i = torch.arange(S, device=dev)
+    visible = i[None, :] <= i[:, None]
+    if window is not None and window < S:
+        visible &= i[:, None] - i[None, :] < window
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=visible), 50)
+    else:
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True), 50)
+    # QK^T and PV over the visible pairs, at the rate of the arithmetic the
+    # kernel runs them in: 3xTF32 on the tensor cores (the f32 CUDA-core
+    # bound only printed, for comparison with the kernel's first design)
+    nbytes = 4 * (2 * B * H * S * D + 2 * B * HK * S * D)
+    nops = 4 * B * H * D * int(visible.sum())
+    bound, by = _bound(nbytes, nops, PEAK_3XTF32)
+    print(f"  flash_attention at D={D}{path}: 3xTF32 bound {bound:.4f} ms ({by}), "
+          f"{bound / ms:.1%} of it reached; f32 CUDA-core bound {_bound(nbytes, nops)[0]:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": lib,
             "shape": f"f32 q ({B},{H},{S},{D}) k/v ({B},{HK},{S},{D}) causal, window {window}, "
@@ -1174,6 +1288,11 @@ def time_decode(dev, g, B, H, HK, C, D, L, pos, window, path):
 
     ms = cuda_ms(per_layer(lambda k, v: fd.flash_decode(q, k, v, pos, window=window), kv),
                  50) / L
+    device = graph_ms(per_layer(lambda k, v: fd.flash_decode(q, k, v, pos, window=window), kv),
+                      50) / L
+    p = fd.plan(B, H, HK, C, D, pos, window,
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"  flash_decode at D={D}{path}: {p.units * p.splits} blocks, plan {p}")
     plain = cuda_ms(per_layer(lambda k, v: fd.flash_decode_ref(q, k, v, pos, window=window),
                               kv), 10) / L
     # SDPA groups heads as h // G; k, v repeated to H heads read kv head h % HK
@@ -1186,8 +1305,8 @@ def time_decode(dev, g, B, H, HK, C, D, L, pos, window, path):
     n_vis = int(visible.sum())
     # q.k and p.v over the visible slots
     bound, by = _bound(4 * (2 * B * HK * n_vis * D + 2 * B * H * D), 4 * B * H * n_vis * D)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib,
+    return {"max_abs_err": err, "ms": ms, "device_ms": device, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
             "shape": f"f32 q ({B},{H},{D}) k/v ({B},{HK},{C},{D}) as (B,C,HK,D) views, "
                      f"pos {pos}, window {window}, per call, {L} caches in turn{path}"}
 
@@ -1223,9 +1342,15 @@ def time_head_quant_matmul(dev, g):
             torch.rand(M, generator=g, device=dev) * 0.01,
             torch.rand(N, generator=g, device=dev) * 0.01)
     ms = cuda_ms(lambda: qmm.quant_matmul(*args), 20)
+    x, w, xs, ws = args
+    try:
+        lib = cuda_ms(lambda: torch._int_mm(x, w).float() * xs[:, None] * ws[None, :], 20)
+    except RuntimeError as e:   # torch._int_mm refuses some shapes on some builds
+        print(f"  torch._int_mm unavailable at the head: {e}")
+        lib = None
     bound, by = _bound(M * K + K * N + 4 * M + 4 * N + 4 * M * N, 2 * M * K * N, PEAK_INT8)
     return {"head_shape": f"M={M} K={K} N={N} ({FM_ARCH} w8 lm_head), per call",
-            "head_ms": ms, "head_bound_ms": bound, "head_bound_by": by}
+            "head_ms": ms, "head_bound_ms": bound, "head_bound_by": by, "head_library_ms": lib}
 
 
 def time_mamba_scan(dev, g, err, launches):

@@ -6,7 +6,8 @@ by ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 Nothing is built when the package is imported: the first call of a
 kernel's wrapper builds its library, or ``build()`` builds several at once,
 one ``nvcc`` process per source, all started together. The library's file
-name carries a hash of the source and flags, so an edited source is rebuilt.
+name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt.
 A failed build raises.
 """
 from __future__ import annotations
@@ -38,8 +39,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):   # what a source may include
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -92,3 +95,4 @@ def library(name: str) -> ctypes.CDLL:
         build([name])
         _LIBS[name] = ctypes.CDLL(str(_target(name)))
     return _LIBS[name]
+

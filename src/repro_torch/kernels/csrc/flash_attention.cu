@@ -1,4 +1,5 @@
-// Forward flash attention with GQA, causal and sliding-window masks.
+// Forward flash attention with GQA, causal and sliding-window masks, on the
+// tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (_flash_kernel). q is (B, H, Sq, D) and k, v are (B, HK, Skv, D), each
@@ -10,201 +11,443 @@
 // the TPU kernel, and the denominator is clamped at 1e-30. m, l and the
 // output accumulator stay in f32 registers; the output has q's type.
 //
-// What bounds it on the H100: on the main path (f32, B=8, H=14, HK=2,
-// S=512, D=64, causal) the work is ~3.8 GFLOP of f32 arithmetic against
-// 67 TFLOP/s of f32 CUDA cores, ~56 us, while q, k, v and o are ~34 MB,
-// ~10 us at 3.35 TB/s: the kernel is bound by operations. Exact f32 input
-// keeps it off the tensor cores (TF32 would break the 2e-5 agreement with
-// the plain version). The design: one block of 256 threads per
-// (64-query tile, head, batch row); the query tile and each 64-key tile of
-// K and V are converted to f32 in shared memory; each thread owns a 4x4
-// block of scores and a 4 x D/16 block of the output, with the row max and
-// row sum reduced over the 16 threads that share a row by warp shuffles.
-// Key tiles that lie wholly above the diagonal (causal) or wholly outside
-// the window are skipped. Skipping is exact: every query row sees its own
-// key, so a row's first visible tile flushes what masked tiles added.
-// Head dims 64, 128 and 256. At D = 256 (recurrentgemma-2b: H=10, HK=1,
-// a local window of 2048) the tiles take 4 * (64*257 + 64*257 + 64*256 +
-// 64*65) = 213,760 bytes of shared memory, under the 232,448 a block may opt
-// into, so one block runs per SM, and each thread holds 4 x 16 output
-// accumulators in registers.
-// Later work: bf16/fp16 through the tensor cores (mma/wgmma), a deeper
-// pipeline with cp.async or TMA.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What bounds it on the H100: QK^T and PV over the visible pairs. On the
+// main path (f32, B=8, H=14, HK=2, S=512, D=64, causal) that is 3.77 GFLOP;
+// q, k, v and o are 33.5 MB, 10 us at 3.35 TB/s. On f32 CUDA cores (67
+// TFLOP/s) the operations take 56 us; on the tensor cores in 3xTF32 (three
+// TF32 products per f32 product, 495 / 3 = 165 TFLOP/s of f32 work) 23 us.
+// At head_dim 256 (recurrentgemma-2b's split path: B=4, H=10, HK=1, S=512)
+// 5.38 GFLOP: 80 us on CUDA cores, 33 us in 3xTF32; its prefill (B=2,
+// S=2304 under the 2048 window) 53.7 GFLOP: 0.80 ms and 0.33 ms. The kernel
+// is bound by operations.
+//
+// The design (FlashAttention-2's split of work): one block per (64-query
+// tile, head, batch row); each 16 query rows belong to one warp (two at
+// D = 256), and their scores and output accumulator stay in mma.sync
+// fragments in registers.
+//  - f32 inputs run mma.sync m16n8k8 in TF32 with the 3xTF32 split: each
+//    operand x = big + small, both TF32, and a*b ~ a_small*b_big +
+//    a_big*b_small + a_big*b_big in f32 accumulators. A single TF32 product
+//    keeps ~3 digits and would miss the 2e-5 agreement with the plain
+//    version; the split keeps f32 accuracy at three times the tensor-core
+//    work. bf16 inputs run mma.sync m16n8k16 bf16 with f32 accumulators,
+//    P rounded to bf16 for the PV product.
+//  - P feeds the PV product from registers. The C fragment of m16n8k8 (a
+//    thread holds columns 2t, 2t+1) is not its A fragment (columns t, t+4),
+//    so the k index of each 8-key step is permuted alike in P and V: k slot
+//    t is key 2t, slot t + 4 key 2t + 1, and V's B fragment loads rows 2t
+//    and 2t + 1.
+//  - D = 256: a 16 x 256 output accumulator is 128 registers a thread, and
+//    one warp per SM sub-partition cannot hide the mma latency. So two warps
+//    share 16 rows: each scores half of the tile's keys, they exchange the
+//    row max and P through shared memory (a named barrier per pair), and
+//    each multiplies all keys into its half of the 256 output columns.
+//    8 warps a block, no spill.
+//  - K and V tiles (64 keys at D = 64, 32 at D = 128 and 256) come by
+//    16-byte cp.async into a ring of two stages, so the next tile lands
+//    while the current one is multiplied; rows are padded by 16 bytes so
+//    every fragment read from shared memory is free of bank conflicts. Q
+//    stays in shared memory and is split per fragment.
+//  - Causal q-tiles are launched heaviest first (the last tile of a
+//    sequence sees the most keys). Key tiles wholly above the diagonal or
+//    outside the window are skipped per block and per warp; skipping is
+//    exact, since every query row sees its own key, so a row's first
+//    visible tile flushes what masked tiles added. The mask is applied only
+//    on tiles that cross a boundary; padded rows of a ragged tile are zero.
+//  - Shared memory, f32: (64 + 4 x BKV) x (D + 4) x 4 bytes = 87,040 at
+//    D = 64 (two blocks an SM), 101,376 at D = 128 (two), and 199,680 plus
+//    9,728 of P exchange at D = 256 (one block of 8 warps an SM).
+// Head dims 64, 128 and 256.
+#include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, THREADS = 256;
-constexpr float NEG_INF = -1e30f;
+using namespace repro;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f(float x, float* out) { *out = x; }
-__device__ __forceinline__ void from_f(float x, __nv_bfloat16* out) { *out = __float2bfloat16_rn(x); }
+constexpr int BQ = 64, ROW_GROUPS = BQ / 16;
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
   long long b, h, s;
 };
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1));
+template <typename T, int D>
+struct Tile {
+  static constexpr int BKV = D >= 128 ? 32 : 64;   // keys per tile
+  static constexpr int WN = D >= 256 ? 2 : 1;      // warps that share 16 query rows
+  static constexpr int THREADS = 32 * ROW_GROUPS * WN;
+  static constexpr int VEC = 16 / sizeof(T);       // elements per 16-byte copy
+  static constexpr int LD = D + VEC;               // padded row, in elements
+  static constexpr int CPR = D / VEC;              // 16-byte pieces per row
+  static constexpr int LDP = BKV + 4;              // row of the shared P tile (WN > 1)
+  // Q, two stages of K and V; with WN > 1 also P and the row exchange
+  static constexpr size_t SMEM =
+      sizeof(T) * (size_t)LD * (BQ + 4 * BKV) +
+      (WN > 1 ? sizeof(float) * (size_t)ROW_GROUPS * 16 * (LDP + WN) : 0);
+};
+
+// ROWS rows starting at row0 of a (rows, D) matrix with row stride `stride`
+// into shared memory; rows at or past `limit` are zero-filled, not read.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride, int row0,
+                                          int limit) {
+  using C = Tile<T, D>;
+  for (int i = threadIdx.x; i < ROWS * C::CPR; i += C::THREADS) {
+    const int r = i / C::CPR, c = i % C::CPR;
+    const bool ok = row0 + r < limit;
+    const T* g = src + (ok ? (long long)(row0 + r) * stride : 0) + c * C::VEC;
+    cp_async16(dst + r * C::LD + c * C::VEC, g, ok ? 16 : 0);
+  }
+}
+
+// the two warps of row group rg meet (named barrier 1 + rg, 64 threads)
+__device__ __forceinline__ void pair_sync(int rg) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rg) : "memory");
+}
+
+// s[n] += Q (this warp's 16 rows) . K^T for NT groups of 8 keys.
+template <int D, int NT>
+__device__ __forceinline__ void qk(float (*s)[4], const float* Qw, const float* Ks, int g, int t) {
+  constexpr int LD = Tile<float, D>::LD;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ab[4], as[4];
+    const float* qa = Qw + g * LD + kk * 8 + t;
+    split_tf32(qa[0], ab[0], as[0]);
+    split_tf32(qa[8 * LD], ab[1], as[1]);
+    split_tf32(qa[4], ab[2], as[2]);
+    split_tf32(qa[8 * LD + 4], ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t bb[2], bs[2];
+      const float* kb = Ks + (n * 8 + g) * LD + kk * 8 + t;
+      split_tf32(kb[0], bb[0], bs[0]);
+      split_tf32(kb[4], bb[1], bs[1]);
+      mma_3xtf32(s[n], ab, as, bb, bs);
+    }
+  }
+}
+
+template <int D, int NT>
+__device__ __forceinline__ void qk(float (*s)[4], const __nv_bfloat16* Qw,
+                                   const __nv_bfloat16* Ks, int g, int t) {
+  constexpr int LD = Tile<__nv_bfloat16, D>::LD;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    const __nv_bfloat16* qa = Qw + g * LD + kk * 16 + 2 * t;
+    a[0] = *reinterpret_cast<const uint32_t*>(qa);
+    a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD);
+    a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD + 8);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t b[2];
+      const __nv_bfloat16* kb = Ks + (n * 8 + g) * LD + kk * 16 + 2 * t;
+      b[0] = *reinterpret_cast<const uint32_t*>(kb);
+      b[1] = *reinterpret_cast<const uint32_t*>(kb + 8);
+      mma_bf16(s[n], a, b);
+    }
+  }
+}
+
+// The P fragment of one k step, f32: k slot t <-> key 2t, slot t + 4 <->
+// key 2t + 1, in P and in V alike (the C fragment holds columns 2t, 2t + 1).
+// From registers (p: the score fragment of these 8 keys) or from the shared
+// P tile (row stride LDP).
+__device__ __forceinline__ void p_frag(const float* p, uint32_t* ab, uint32_t* as) {
+  split_tf32(p[0], ab[0], as[0]);
+  split_tf32(p[2], ab[1], as[1]);
+  split_tf32(p[1], ab[2], as[2]);
+  split_tf32(p[3], ab[3], as[3]);
+}
+template <int LDP>
+__device__ __forceinline__ void p_frag(const float* Pw, int kk, int g, int t, uint32_t* ab,
+                                       uint32_t* as) {
+  const float2 r0 = *reinterpret_cast<const float2*>(Pw + g * LDP + kk * 8 + 2 * t);
+  const float2 r1 = *reinterpret_cast<const float2*>(Pw + (g + 8) * LDP + kk * 8 + 2 * t);
+  const float p[4] = {r0.x, r0.y, r1.x, r1.y};
+  p_frag(p, ab, as);
+}
+
+// o[n] += P (8 keys) . V for the NO 8-column groups of V at Vs.
+template <int D, int NO>
+__device__ __forceinline__ void pv_step(float (*o)[4], const uint32_t* ab, const uint32_t* as,
+                                        const float* Vs, int kk, int g, int t) {
+  constexpr int LD = Tile<float, D>::LD;
+  const float* vr = Vs + (kk * 8 + 2 * t) * LD + g;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    uint32_t bb[2], bs[2];
+    split_tf32(vr[n * 8], bb[0], bs[0]);
+    split_tf32(vr[LD + n * 8], bb[1], bs[1]);
+    mma_3xtf32(o[n], ab, as, bb, bs);
+  }
+}
+
+// bf16: P (16 keys) as the A fragment, from four score values per 8 keys
+__device__ __forceinline__ void p_frag16(const float* lo, const float* hi, uint32_t* a) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+template <int LDP>
+__device__ __forceinline__ void p_frag16(const float* Pw, int kk, int g, int t, uint32_t* a) {
+  const float* r = Pw + g * LDP + kk * 16 + 2 * t;
+  const float lo[4] = {r[0], r[1], r[8 * LDP], r[8 * LDP + 1]};
+  const float hi[4] = {r[8], r[9], r[8 * LDP + 8], r[8 * LDP + 9]};
+  p_frag16(lo, hi, a);
+}
+
+template <int D, int NO>
+__device__ __forceinline__ void pv_step16(float (*o)[4], const uint32_t* a,
+                                          const __nv_bfloat16* Vs, int kk, int g, int t) {
+  constexpr int LD = Tile<__nv_bfloat16, D>::LD;
+  const unsigned short* vr = reinterpret_cast<const unsigned short*>(Vs) + (kk * 16 + 2 * t) * LD + g;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    uint32_t b[2];
+    b[0] = (uint32_t)vr[n * 8] | ((uint32_t)vr[LD + n * 8] << 16);
+    b[1] = (uint32_t)vr[8 * LD + n * 8] | ((uint32_t)vr[9 * LD + n * 8] << 16);
+    mma_bf16(o[n], a, b);
+  }
+}
+
+// o += P . V over the tile's BKV keys: P from the score registers s (the
+// warp scored every key, WN = 1) or, SHARED, from the shared tile Pw.
+template <int D, int BKV, int NO, bool SHARED>
+__device__ __forceinline__ void pv(float (*o)[4], float (*s)[4], const float* Pw, const float* Vs,
+                                   int g, int t) {
+  constexpr int LDP = BKV + 4;
+#pragma unroll
+  for (int kk = 0; kk < BKV / 8; ++kk) {
+    uint32_t ab[4], as[4];
+    if constexpr (SHARED) p_frag<LDP>(Pw, kk, g, t, ab, as);
+    else p_frag(s[kk], ab, as);
+    pv_step<D, NO>(o, ab, as, Vs, kk, g, t);
+  }
+}
+
+template <int D, int BKV, int NO, bool SHARED>
+__device__ __forceinline__ void pv(float (*o)[4], float (*s)[4], const float* Pw,
+                                   const __nv_bfloat16* Vs, int g, int t) {
+  constexpr int LDP = BKV + 4;
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk) {
+    uint32_t a[4];
+    if constexpr (SHARED) p_frag16<LDP>(Pw, kk, g, t, a);
+    else p_frag16(s[2 * kk], s[2 * kk + 1], a);
+    pv_step16<D, NO>(o, a, Vs, kk, g, t);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Tile<T, D>::THREADS, Tile<T, D>::WN > 1 ? 1 : 2)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so,
-          int HK, int Sq, int Skv, int causal, int window, float scale) {
-  extern __shared__ float smem[];
-  constexpr int LD = D + 1;      // padded Q/K rows: conflict-free column reads
-  constexpr int LDP = BKV + 1;
-  constexpr int R = BQ / 16;     // query rows per thread
-  constexpr int CS = BKV / 16;   // score columns per thread
-  constexpr int CO = D / 16;     // output columns per thread
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BKV * LD;
-  float* Ps = Vs + BKV * D;
+          T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int BH, int H,
+          int HK, int Sq, int Skv, int causal, int window, float scale_log2, int n_qtiles) {
+  using C = Tile<T, D>;
+  constexpr int BKV = C::BKV, LD = C::LD, WN = C::WN, LDP = C::LDP;
+  constexpr int KW = BKV / WN, NT = KW / 8;     // keys this warp scores, in 8s
+  constexpr int NO = D / 8 / WN;                 // output 8-column groups of this warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* ring = Qs + BQ * LD;  // stage s: K at ring + 2s BKV LD, V after it
+  // WN > 1: the P tile of each row group, then each warp's 16 row values
+  float* Ps = reinterpret_cast<float*>(ring + 4 * BKV * LD);
+  float* xch = Ps + ROW_GROUPS * 16 * LDP;
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h % HK;
+  // heaviest causal q-tiles first: the tile index is the slowest grid index
+  const int bh = blockIdx.x % BH, tq = blockIdx.x / BH;
+  const int qt = causal ? n_qtiles - 1 - tq : tq;
+  const int b = bh / H, h = bh % H, hk = h % HK;
+  const int q0 = qt * BQ;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + hk * sk.h;
   const T* vb = v + b * sv.b + hk * sv.h;
   T* ob = o + b * so.b + h * so.h;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    Qs[r * LD + c] = (q0 + r < Sq) ? to_f(qb[(q0 + r) * sq.s + c]) : 0.f;
-  }
-
-  float m[R], l[R], acc[R][CO];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CO; ++c) acc[i][c] = 0.f;
-  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = warp % ROW_GROUPS, wh = warp / ROW_GROUPS;   // row group, its half
+  const int g = lane >> 2, t = lane & 3;
+  const int w_first = q0 + rg * 16, w_last = min(w_first + 15, Sq - 1);
+  const int r0 = w_first + g, r1 = r0 + 8;
+  const int kw0 = wh * KW, dw0 = wh * (D / WN);  // this warp's keys and columns
+  float* Pw = Ps + rg * 16 * LDP;
+  float* xw = xch + (rg * WN + wh) * 16;         // this warp's row values
+  const float* xp = xch + (rg * WN + (wh ^ 1)) * 16;  // its partner's
 
   // key range that some row of this tile can see
   const int q_last = min(q0 + BQ, Sq) - 1;
   const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int t_end = (kv_end + BKV - 1) / BKV;
+  const int t_begin = kv_begin / BKV, t_end = (kv_end + BKV - 1) / BKV;
 
-  for (int t = kv_begin / BKV; t < t_end; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    for (int i = tid; i < BKV * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      const bool ok = k0 + r < Skv;
-      Ks[r * LD + c] = ok ? to_f(kb[(k0 + r) * sk.s + c]) : 0.f;
-      Vs[r * D + c] = ok ? to_f(vb[(k0 + r) * sv.s + c]) : 0.f;
+  load_rows<T, D, BQ>(Qs, qb, sq.s, q0, Sq);
+  load_rows<T, D, BKV>(ring, kb, sk.s, t_begin * BKV, Skv);
+  load_rows<T, D, BKV>(ring + BKV * LD, vb, sv.s, t_begin * BKV, Skv);
+  cp_async_commit();
+
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int st = (tile - t_begin) & 1;
+    if (tile + 1 < t_end) {
+      T* nxt = ring + (st ^ 1) * 2 * BKV * LD;
+      load_rows<T, D, BKV>(nxt, kb, sk.s, (tile + 1) * BKV, Skv);
+      load_rows<T, D, BKV>(nxt + BKV * LD, vb, sv.s, (tile + 1) * BKV, Skv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
 
-    float s[R][CS];
+    const int k0 = tile * BKV;
+    // this warp's rows see none of the tile's keys: skipping it is exact
+    // (the same for both warps of a row group)
+    const bool skip = w_first >= Sq || (causal && k0 > w_last) ||
+                      (window > 0 && w_first - (k0 + BKV - 1) >= window);
+    if (!skip) {
+      const T* Ks = ring + st * 2 * BKV * LD;
+      const T* Vs = Ks + BKV * LD;
+      float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < CS; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[R], kv[CS];
-#pragma unroll
-      for (int i = 0; i < R; ++i) qv[i] = Qs[(ty * R + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < CS; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < CS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+      for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      qk<D, NT>(s, Qs + rg * 16 * LD, Ks + kw0 * LD, g, t);
 
+      const bool masked = k0 + BKV > Skv || (causal && k0 + BKV - 1 > w_first) ||
+                          (window > 0 && w_last - k0 >= window);
+      float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qp = q0 + ty * R + i;
-      float rmax = NEG_INF;
+      for (int n = 0; n < NT; ++n) {
 #pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const bool ok = kp < Skv && (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
-        rmax = fmaxf(rmax, s[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if (masked) {
+            const int kp = k0 + kw0 + n * 8 + 2 * t + (e & 1), qp = e < 2 ? r0 : r1;
+            const bool ok = kp < Skv && (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
+            x = ok ? x : NEG_INF;
+          }
+          s[n][e] = x;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty * R + i) * LDP + tx + 16 * j] = p;
-        rsum += p;
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
+      if constexpr (WN > 1) {  // the row max over both halves of the tile
+        if (t == 0) {
+          xw[g] = mx0;
+          xw[g + 8] = mx1;
+        }
+        pair_sync(rg);
+        mx0 = fmaxf(mx0, xp[g]);
+        mx1 = fmaxf(mx1, xp[g + 8]);
+      }
+      const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
+      float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = l[i] * alpha + rsum;
-      m[i] = m_new;
+      for (int n = 0; n < NT; ++n) {
+        s[n][0] = exp2f(s[n][0] - mx0);
+        s[n][1] = exp2f(s[n][1] - mx0);
+        s[n][2] = exp2f(s[n][2] - mx1);
+        s[n][3] = exp2f(s[n][3] - mx1);
+        rs0 += s[n][0] + s[n][1];
+        rs1 += s[n][2] + s[n][3];
+      }
+      // l stays a per-thread partial sum over this warp's keys: alpha is the
+      // same in every thread of a row, so the row's sum is taken at the end
+      l0 = l0 * a0 + rs0;
+      l1 = l1 * a1 + rs1;
+      m0 = mx0;
+      m1 = mx1;
 #pragma unroll
-      for (int c = 0; c < CO; ++c) acc[i][c] *= alpha;
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= a0;
+        acc[n][1] *= a0;
+        acc[n][2] *= a1;
+        acc[n][3] *= a1;
+      }
+      if constexpr (WN > 1) {  // share P: each warp multiplies all keys into its columns
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int col = kw0 + n * 8 + 2 * t;
+          *reinterpret_cast<float2*>(Pw + g * LDP + col) = make_float2(s[n][0], s[n][1]);
+          *reinterpret_cast<float2*>(Pw + (g + 8) * LDP + col) = make_float2(s[n][2], s[n][3]);
+        }
+        pair_sync(rg);
+        pv<D, BKV, NO, true>(acc, s, Pw, Vs + dw0, g, t);
+      } else {
+        pv<D, BKV, NO, false>(acc, s, Pw, Vs, g, t);
+      }
     }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < BKV; ++c) {
-      float pv[R], vv[CO];
-#pragma unroll
-      for (int i = 0; i < R; ++i) pv[i] = Ps[(ty * R + i) * LDP + c];
-#pragma unroll
-      for (int jd = 0; jd < CO; ++jd) vv[jd] = Vs[c * D + tx + 16 * jd];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int jd = 0; jd < CO; ++jd) acc[i][jd] = fmaf(pv[i], vv[jd], acc[i][jd]);
-    }
+    __syncthreads();  // the stage (and P) is free for the load after next
   }
 
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qp = q0 + ty * R + i;
-    if (qp >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if constexpr (WN > 1) {  // each warp summed its own keys
+    if (t == 0) {
+      xw[g] = l0;
+      xw[g + 8] = l1;
+    }
+    __syncthreads();
+    l0 += xp[g];
+    l1 += xp[g + 8];
+  }
+  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
-    for (int jd = 0; jd < CO; ++jd) from_f(acc[i][jd] / den, ob + qp * so.s + tx + 16 * jd);
+  for (int n = 0; n < NO; ++n) {
+    const int col = dw0 + n * 8 + 2 * t;
+    if (r0 < Sq) store2(ob + r0 * so.s + col, acc[n][0] * i0, acc[n][1] * i0);
+    if (r1 < Sq) store2(ob + r1 * so.s + col, acc[n][2] * i1, acc[n][3] * i1);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, const long long* st,
-           int B, int H, int HK, int Sq, int Skv, int causal, int window, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
+           int H, int HK, int Sq, int Skv, int causal, int window, float scale,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = Tile<T, D>::SMEM;
+  static size_t allowed[MAX_DEVICES] = {};  // one record per instantiation
+  cudaError_t err = allow_smem((const void*)flash_fwd<T, D>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
   const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd<T, D><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, HK, Sq, Skv,
-      causal, window, scale);
+  const int n_qtiles = (Sq + BQ - 1) / BQ;
+  const long long blocks = (long long)B * H * n_qtiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_fwd<T, D><<<(unsigned)blocks, Tile<T, D>::THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, B * H, H, HK, Sq, Skv,
+      causal, window, scale * LOG2E, n_qtiles);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: (b, h, s) element strides of
-// q, k, v and o, in that order. window <= 0 means no window. Returns the CUDA
-// error code of the launch (0 = launched).
+// q, k, v and o, in that order; every pointer and s stride must be 16-byte
+// aligned (the wrapper sees to it). window <= 0 means no window. Returns the
+// CUDA error code of the launch (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    const long long* strides, int B, int H, int HK, int Sq,
                                    int Skv, int D, int dtype, int causal, int window,
@@ -216,14 +459,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return launch<float, 64>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window, scale, s);
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window, scale, s);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window, scale, s);
   if (dtype == 1 && D == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window,
                                      scale, s);
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window,
                                       scale, s);
-  if (dtype == 0 && D == 256)
-    return launch<float, 256>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window, scale, s);
   if (dtype == 1 && D == 256)
     return launch<__nv_bfloat16, 256>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window,
                                       scale, s);

@@ -26,6 +26,16 @@ HEAD_DIMS = (64, 128, 256)
 launches = 0   # kernel launches since the count was last set to 0
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its start and row strides are 16-byte aligned, as
+    the kernel's 16-byte copies need (every view the models pass is), else
+    a contiguous copy."""
+    size = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.library("flash_attention").flash_attention_fwd
@@ -70,6 +80,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: a causal or windowed mask needs Sq == Skv")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     scale = logit_scale if logit_scale is not None else D ** -0.5
     strides = (ctypes.c_longlong * 12)(

@@ -1,7 +1,9 @@
 """The flash attention kernel's plain version against repro's Pallas kernel
 (interpret mode) and its oracle (CPU), at head dims 64 and 256, plus the
 rules every kernel wrapper (flash_attention, flash_decode, mamba_scan,
-quant_matmul, rglru_scan) keeps on the CPU.
+quant_matmul, rglru_scan) keeps on the CPU, and the arithmetic of the two
+attention kernels emulated on the CPU: flash_attention's 3xTF32 products
+and flash_decode's split-and-merge over the ring.
 The CUDA kernels themselves run only on the card: ``python3 chip_smoke.py``
 holds them against these plain versions there."""
 import ctypes
@@ -236,3 +238,196 @@ def test_a_missing_compiler_raises_and_nothing_falls_back(monkeypatch, tmp_path)
     assert "flash_attention" not in _build._LIBS
     with pytest.raises(KeyError):
         _build.build(["no_such_kernel"])
+
+
+# --- the arithmetic of the two attention kernels, pinned on the CPU --------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest on the
+    13 dropped significand bits, ties away from zero (the bits are sign and
+    magnitude, so adding half an ulp to the magnitude rounds it so)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b on TF32 tensor cores: one product of the rounded operands, or
+    the 3xTF32 split x = big + small, a_small b_big + a_big b_small +
+    a_big b_big (the kernel's order), each accumulated in f32."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    return _tf32(a - ab) @ bb + ab @ _tf32(b - bb) + ab @ bb
+
+
+def _attention_tf32(q, k, v, *, causal, window, passes):
+    """The flash_attention kernel's f32 arithmetic: QK^T and PV through
+    ``_mm_tf32``, softmax in f32 with the finite -1e30 and exp2, kv head
+    h % HK."""
+    B, H, S, D = q.shape
+    HK = k.shape[1]
+    idx = torch.arange(H) % HK
+    kh, vh = k[:, idx], v[:, idx]
+    s = _mm_tf32(q, kh.transpose(-1, -2), passes) * (D ** -0.5 * 1.4426950408889634)
+    i = torch.arange(S)
+    ok = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        ok &= i[None, :] <= i[:, None]
+    if window is not None:
+        ok &= i[:, None] - i[None, :] < window
+    s = torch.where(ok, s, torch.tensor(-1e30))
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    return _mm_tf32(p, vh, passes) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("B,H,HK,S,D,causal,window", [
+    (2, 14, 2, 40, 64, True, None),       # qwen2's heads, ragged S
+    (2, 14, 2, 512, 64, True, None),      # the split path's S
+    (2, 14, 2, 512, 128, False, None),    # head_dim 128, no mask
+    (2, 10, 1, 256, 256, True, 64),       # recurrentgemma: MQA, D 256, window
+    (2, 4, 2, 100, 256, True, None)])     # D 256, h % HK != h // G
+def test_3xtf32_attention_keeps_f32_accuracy_and_one_tf32_pass_does_not(
+        B, H, HK, S, D, causal, window):
+    """The kernel's f32 route: three TF32 products per f32 product stay
+    within the 2e-5 of the chip checks; a single TF32 product does not."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(B, H, HK, S, D, seed=S + D))
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    three = _attention_tf32(q, k, v, causal=causal, window=window, passes=3)
+    one = _attention_tf32(q, k, v, causal=causal, window=window, passes=1)
+    torch.testing.assert_close(three, want, **TOL)
+    assert (one - want).abs().max() > 2e-5
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11, -(1.0 + 2 ** -11),
+                      1.0 + 2 ** -12, 3.0e-3], dtype=torch.float32)
+    got = _tf32(x)
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9, -(1.0 + 2 ** -10), 1.0,
+                         float(np.float32(3.0e-3))], dtype=torch.float32)
+    torch.testing.assert_close(got[:5], want[:5], rtol=0, atol=0)
+    # 11 significant bits kept: within half a TF32 ulp, low 13 bits zero
+    assert abs(got[5].item() - 3.0e-3) <= 3.0e-3 * 2 ** -11
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    # the split is exact to 2^-22: big + small reproduces x
+    r = torch.from_numpy(np.random.default_rng(0).normal(size=1000).astype(np.float32))
+    big = _tf32(r)
+    assert ((big + _tf32(r - big)) - r).abs().le(r.abs() * 2 ** -21).all()
+
+
+def _decode_by_splits(q, k, v, pos, window, sms, group=lambda h, HK, G: h % HK,
+                      empty_split=False):
+    """flash_decode's arithmetic: ``fd.plan``'s chunks of the visible arc
+    (distance d from the query at slot (pos - d) mod C), an online softmax in
+    log2 units per split, then the merge of the splits' (m, l, acc) with
+    weights exp2(m_s - m_all). ``group`` maps query head h to its kv head;
+    ``empty_split`` adds a split that saw no slot (m = -1e30, l = 0)."""
+    B, H, D = q.shape
+    HK, C = k.shape[1], k.shape[2]
+    G = H // HK
+    p = fd.plan(B, H, HK, C, D, pos, window, sms)
+    nchunks = -(-p.nvis // p.chunk)
+    out = torch.empty_like(q)
+    for b in range(B):
+        for hk in range(HK):
+            heads = [h for h in range(H) if group(h, HK, G) == hk]
+            qs = q[b, heads] * (D ** -0.5 * 1.4426950408889634)
+            parts = []
+            for sp in range(p.splits):
+                m = torch.full((G,), -1e30)
+                l, acc = torch.zeros(G), torch.zeros(G, D)
+                for c in range(sp * p.per_split, min((sp + 1) * p.per_split, nchunks)):
+                    dist = torch.arange(c * p.chunk, min((c + 1) * p.chunk, p.nvis))
+                    slots = (pos - dist) % C
+                    s = qs @ k[b, hk, slots].T
+                    m_new = torch.maximum(m, s.amax(1))
+                    alpha = torch.exp2(m - m_new)
+                    pr = torch.exp2(s - m_new[:, None])
+                    l = l * alpha + pr.sum(1)
+                    acc = acc * alpha[:, None] + pr @ v[b, hk, slots]
+                    m = m_new
+                parts.append((m, l, acc))
+            if empty_split:
+                parts.append((torch.full((G,), -1e30), torch.zeros(G), torch.zeros(G, D)))
+            m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+            w = [torch.exp2(m - m_all) for m, _, _ in parts]
+            den = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+            num = sum(wi[:, None] * acc for wi, (_, _, acc) in zip(w, parts))
+            out[b, heads] = num / den.clamp_min(1e-30)[:, None]
+    return out, p
+
+
+@pytest.mark.parametrize("B,H,HK,C,D,pos,window", [
+    (8, 14, 2, 576, 64, 575, None),       # qwen2's decode path: 9 splits of 64 slots
+    (2, 10, 1, 2048, 256, 2404, 2048),    # recurrentgemma's: wrapped full ring
+    (2, 10, 1, 2048, 64, 3000, 96),       # window 96 in a wrapped 2048-slot ring
+    (2, 14, 2, 200, 64, 450, None),       # C = 200, no multiple of a chunk
+    (1, 40, 2, 256, 64, 300, None),       # G = 20: two groups of query heads
+    (2, 4, 2, 48, 32, 10, None)])         # a partly filled ring
+@pytest.mark.parametrize("empty_split", [False, True])
+def test_decode_splits_merged_by_the_kernels_rule_equal_the_plain_version(
+        B, H, HK, C, D, pos, window, empty_split):
+    r = np.random.default_rng(C + pos)
+    q, k, v = (torch.from_numpy(r.normal(size=s).astype(np.float32))
+               for s in ((B, H, D), (B, HK, C, D), (B, HK, C, D)))
+    got, p = _decode_by_splits(q, k, v, pos, window, sms=132, empty_split=empty_split)
+    torch.testing.assert_close(got, fd.flash_decode_ref(q, k, v, pos, window=window), **TOL)
+    assert p.nvis == min(pos + 1, C, window or C)
+
+
+def test_decode_splits_group_query_heads_as_h_mod_hk():
+    """The block of kv head hk holds query heads hk, hk + HK, ...: grouping
+    them as h // G instead gives another answer."""
+    B, H, HK, C, D, pos = 2, 14, 2, 200, 64, 150
+    r = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(r.normal(size=s).astype(np.float32))
+               for s in ((B, H, D), (B, HK, C, D), (B, HK, C, D)))
+    want = fd.flash_decode_ref(q, k, v, pos)
+    by_mod, _ = _decode_by_splits(q, k, v, pos, None, sms=132)
+    by_div, _ = _decode_by_splits(q, k, v, pos, None, sms=132,
+                                  group=lambda h, HK, G: h // G)
+    torch.testing.assert_close(by_mod, want, **TOL)
+    assert (by_div - want).abs().max() > 0.1
+
+
+@pytest.mark.parametrize("B,H,HK,C,D,pos,window,blocks", [
+    (8, 14, 2, 576, 64, 575, None, 144),     # qwen2-0.5b's decode path
+    (2, 10, 1, 2048, 256, 2404, 2048, 128)])  # recurrentgemma-2b's
+def test_decode_plan_fills_the_card_and_covers_the_arc_once(B, H, HK, C, D, pos, window, blocks):
+    p = fd.plan(B, H, HK, C, D, pos, window, sms=132)
+    assert p.units * p.splits == blocks >= 128
+    # the C entry point's own check: every split holds at least one slot
+    assert (p.splits - 1) * p.per_split * p.chunk < p.nvis <= p.splits * p.per_split * p.chunk
+    assert p.chunk * D <= 4096 and p.chunk >= max(8, 512 // D)
+
+
+
+@pytest.mark.parametrize("sms", [8, 78, 114, 132])
+def test_decode_workspace_holds_every_plan(sms):
+    """The per-stream workspace is made once at one size: every plan that
+    splits, at any batch, head grouping, ring, head dim and position, fits
+    in it, so it never has to grow under a captured CUDA graph."""
+    n_part, n_count = fd._workspace_size(sms)
+    rng = np.random.default_rng(sms)
+    seen = 0
+    for _ in range(2000):
+        HK = int(rng.integers(1, 9))
+        H = HK * int(rng.integers(1, 41))
+        B, C = int(rng.integers(1, 17)), int(rng.integers(1, 5000))
+        D = int(rng.choice(fd.HEAD_DIMS))
+        pos = int(rng.integers(0, 3 * C))
+        window = None if rng.random() < 0.5 else int(rng.integers(1, 3000))
+        p = fd.plan(B, H, HK, C, D, pos, window, sms)
+        if p.splits > 1:
+            seen += 1
+            assert p.units * p.splits * fd.GROUP * (D + 2) <= n_part
+            assert p.units <= n_count
+    assert seen > 100
+
+def test_build_target_hashes_the_shared_headers(monkeypatch, tmp_path):
+    """A library is rebuilt when a header its source may include changes."""
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    before = _build._target("k")
+    (tmp_path / "common.cuh").write_text("// two\n")
+    assert _build._target("k") != before
