@@ -5,11 +5,19 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``.
 2. Kernel checks: hold each kernel against its plain PyTorch version on the
-   card (quant_matmul bit for bit, also at falcon-mamba's head shape;
+   card (quant_matmul bit for bit at qwen2-0.5b's seven projections for M =
+   1, 8, 16, 37, 64, 65 and 4096, both sides of its regime bound, at
+   recurrentgemma-2b's for M = 2 and 2048, at ragged edges of both regimes
+   (M, K, N = 37, 100, 200 and 8, 4864, 200 split; 4096, 912, 200, 65,
+   1040, 100 and 8, 144, 4100 wgmma) and at falcon-mamba's head, each with
+   w_q held K-major and contiguous, its split calls alternating on two
+   streams and its refusal to make a workspace inside a graph capture;
    flash_attention and flash_decode within 2e-5 in f32 and 2e-2 in bf16,
    mamba_scan and rglru_scan within 1e-4 in f32 on y and the last state,
    as the JAX package's kernel tests), including GQA cases in which h % HK
-   and h // G give different answers, flash_attention at head_dim 128
+   and h // G give different answers, mamba_scan also at N = 4, 8, 16, 32
+   and 5, S no multiple of its 32-step chunk and a bf16 u, flash_attention
+   at head_dim 128
    (causal and not, 40 and 512 tokens), MQA at head_dim 256 with a window
    of 2048 over 2304 positions and over a wrapped ring, flash_decode's
    split edges (a window of 96 in a wrapped 2048-slot ring, C = 200, G = 1,
@@ -72,7 +80,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    prefill under its 2048 window (its bound is that of 3xTF32 on the tensor
    cores, the arithmetic it runs; the f32 CUDA-core bound is printed beside
    it), flash_decode also as device time (a CUDA graph of the calls),
-   quant_matmul also at falcon-mamba's head beside ``torch._int_mm``.
+   quant_matmul at qwen2's layer for the split path (M = 4096) and the w8
+   decode step (M = 8, also as device time, and ``ops.quantized_dense``
+   with its activation quantization), recurrentgemma's w8 layer (M = 2048)
+   and falcon-mamba's head, each beside ``torch._int_mm`` plus the rescale
+   ("unavailable" where it refuses the shape); mamba_scan's bound is the
+   larger of its bytes and its exps on the SFU.
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -104,6 +117,21 @@ BATCH, SEQ, CPU_SEQ = 8, 512, 128
 # (K, N) of the seven w8 projections of one qwen2-0.5b layer
 QMM_LAYER = ((896, 896), (896, 128), (896, 128), (896, 896),
              (896, 4864), (896, 4864), (4864, 896))
+# quant_matmul's phase-2 rows: both sides of the small-M regime's bound
+# (SPLIT_M_MAX = 64) and the decode step's M = 8 and the split path's 4096
+QMM_ROWS = (1, 8, 16, 37, 64, 65, BATCH * SEQ)
+# (K, N) of recurrentgemma-2b's w8 projections: q and o, k and v (MQA),
+# GeGLU gate and up, down; and a ragged shape (M, K, N)
+RG_QMM_LAYER = ((2560, 2560), (2560, 256), (2560, 256), (2560, 2560),
+                (2560, 7680), (2560, 7680), (7680, 2560))
+QMM_RAGGED = (37, 100, 200)
+# ragged edges that each regime takes (M, K, N, regime): K no multiple of
+# the 64-deep split stage or the 128-deep TMA box, N of any tile width
+QMM_EDGES = (QMM_RAGGED + ("split",), (8, 4864, 200, "split"), (4096, 912, 200, "wgmma"),
+             (65, 1040, 100, "wgmma"), (8, 144, 4100, "wgmma"))
+# H100 SXM special-function units: 16 results a clock an SM, 132 SMs at
+# the 1.98 GHz boost clock (mamba_scan's exps)
+PEAK_SFU = 16 * 132 * 1.98e9
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # flash_decode: tests/test_kernels.py::test_flash_decode_sweep's cases
 # (B, H, HK, C, D, pos, window), then the qwen2 decode path's shape, then
@@ -151,6 +179,12 @@ FM_DECODE_TOL = 1e-3
 MS_CASES = ((1, 128, 128, 8), (2, 256, 256, 16), (1, 384, 128, 4),
             (2, 200, 384, 16), (2, 512, 8192, 16))
 MS_TOL = 1e-4
+# beyond them: S no multiple of the kernel's 32-step chunk, N of 4, 8, 16
+# and 32 (one to eight lanes a channel), and N = 5 with DI = 100 (rows
+# that are no whole 16-byte pieces, staged by plain loads); each in f32
+# and with a bf16 u
+MS_EXTRA = ((2, 77, 96, 4), (2, 45, 64, 8), (1, 100, 160, 16), (2, 77, 96, 32),
+            (1, 45, 100, 5))
 # recurrentgemma-2b: split serving and decode shapes, cuts, expected size
 RG_ARCH, RG_PARAMS = "recurrentgemma-2b", 2_894_574_080
 RG_SPLIT_BATCH, RG_SPLIT_SEQ = 4, 512
@@ -178,7 +212,7 @@ FA128_CASES = tuple((2, 14, 2, S, causal) for S in (40, 512) for causal in (True
 # each f32 product
 PEAK_3XTF32 = 495e12 / 3
 # the attention kernels' serving-path shapes, timed in phase 7 (and by
-# scripts/attention_timing.py). flash_attention (B, H, HK, S, D, window),
+# scripts/kernel_timing.py). flash_attention (B, H, HK, S, D, window),
 # causal: qwen2-0.5b's split path, recurrentgemma-2b's split path (S within
 # its window, so the window masks nothing) and its 2304-token prefill under
 # the 2048 window. flash_decode (B, H, HK, C, D, layers, pos, window):
@@ -233,23 +267,9 @@ def phase_build():
 def phase_kernel_checks(dev):
     import torch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import quant_matmul as qmm
     print("== 2. kernel checks against the plain versions")
     g = torch.Generator(device=dev).manual_seed(1)
-    qmm_err = 0.0
-    for K, N in sorted(set(QMM_LAYER)):
-        for M in (1, 37, BATCH * SEQ):
-            xq = torch.randint(-128, 128, (M, K), dtype=torch.int8, generator=g, device=dev)
-            wq = torch.randint(-128, 128, (K, N), dtype=torch.int8, generator=g, device=dev)
-            xs = torch.rand(M, generator=g, device=dev) * 0.05 + 1e-4
-            ws = torch.rand(N, generator=g, device=dev) * 0.05 + 1e-4
-            out = qmm.quant_matmul(xq, wq, xs, ws)
-            ref = qmm.quant_matmul_ref(xq, wq, xs, ws)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            qmm_err = max(qmm_err, err)
-            check(torch.equal(out, ref),
-                  f"quant_matmul M={M} K={K} N={N}: bit-exact, max_abs_err={err}")
+    qmm_err = check_quant_matmul(dev, g)
 
     H, HK, D = 14, 2, 64
     for S in (8, 40, 512, 2048):
@@ -343,6 +363,75 @@ def check_rglru_scan(dev, g):
     return err
 
 
+def _qmm_inputs(M, K, N, g, dev):
+    """int8 codes over the full range, positive scales."""
+    import torch
+    return (torch.randint(-128, 128, (M, K), dtype=torch.int8, generator=g, device=dev),
+            torch.randint(-128, 128, (K, N), dtype=torch.int8, generator=g, device=dev),
+            torch.rand(M, generator=g, device=dev) * 0.05 + 1e-4,
+            torch.rand(N, generator=g, device=dev) * 0.05 + 1e-4)
+
+
+def check_quant_matmul(dev, g):
+    """quant_matmul bit for bit against its plain version at qwen2's and
+    recurrentgemma's shapes on both sides of the regime bound and at
+    ragged edges of each regime, with w_q held K-major (as a w8a8 leaf
+    holds it) and contiguous (copied K-major by the call); its split
+    calls alternating on two streams; its refusal to make a workspace in a
+    graph capture. Returns the largest error."""
+    import torch
+    from repro_torch.kernels import quant_matmul as qmm
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = ([(M, K, N, None) for K, N in sorted(set(QMM_LAYER)) for M in QMM_ROWS]
+             + [(M, K, N, None) for K, N in sorted(set(RG_QMM_LAYER))
+                for M in (RG_BATCH, RG_SPLIT_BATCH * RG_SPLIT_SEQ)]
+             + list(QMM_EDGES))
+    err_max = 0.0
+    for M, K, N, regime in cases:
+        xq, wq, xs, ws = _qmm_inputs(M, K, N, g, dev)
+        ref = qmm.quant_matmul_ref(xq, wq, xs, ws)
+        p = qmm.plan(M, N, K, sms)
+        if regime is not None:
+            check(p.regime == regime, f"quant_matmul M={M} K={K} N={N} takes the "
+                                      f"{regime} regime (plan: {p.regime})")
+        for w, held in ((wq.t().contiguous().t(), "K-major"), (wq, "contiguous")):
+            out = qmm.quant_matmul(xq, w, xs, ws)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            err_max = max(err_max, err)
+            check(torch.equal(out, ref),
+                  f"quant_matmul M={M} K={K} N={N} ({p.regime}, {p.tiles} tiles of "
+                  f"{p.mt} x {p.bn}, {p.splits} split(s), w_q {held}): bit-exact, "
+                  f"max_abs_err={err}")
+
+    # the split workspace: calls alternating on two streams, each stream
+    # with its own, and none made inside a graph capture
+    M, K, N = 8, 4864, 896
+    check(qmm.plan(M, N, K, sms).splits > 1, f"quant_matmul M={M} K={K} N={N} splits K")
+    calls = [_qmm_inputs(M, K, N, g, dev) for _ in range(16)]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i, args in enumerate(calls):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(qmm.quant_matmul(*args))
+    torch.cuda.synchronize()
+    check(all(torch.equal(o, qmm.quant_matmul_ref(*a)) for o, a in zip(outs, calls)),
+          f"quant_matmul split calls (M={M} K={K} N={N}) alternating on two streams: bit-exact")
+    fresh = torch.cuda.Stream()
+    fresh.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            qmm.quant_matmul(*calls[0])
+        refused = False
+    except RuntimeError as e:
+        refused = "no workspace" in str(e)
+    torch.cuda.synchronize()
+    check(refused, "quant_matmul refuses to make a stream's workspace inside a graph capture")
+    return err_max
+
+
 def check_head_quant_matmul(dev, g):
     """quant_matmul at falcon-mamba's w8 head: (B*S, d) x (d, V)."""
     import torch
@@ -354,13 +443,17 @@ def check_head_quant_matmul(dev, g):
     wq = torch.randint(-128, 128, (K, N), dtype=torch.int8, generator=g, device=dev)
     xs = torch.rand(M, generator=g, device=dev) * 0.05 + 1e-4
     ws = torch.rand(N, generator=g, device=dev) * 0.05 + 1e-4
-    out = qmm.quant_matmul(xq, wq, xs, ws)
     ref = qmm.quant_matmul_ref(xq, wq, xs, ws)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    check(torch.equal(out, ref), f"quant_matmul M={M} K={K} N={N} ({FM_ARCH} head): "
-                                 f"bit-exact, max_abs_err={err}")
-    return err
+    err_max = 0.0
+    for w, held in ((wq.t().contiguous().t(), "K-major"), (wq, "contiguous")):
+        out = qmm.quant_matmul(xq, w, xs, ws)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        err_max = max(err_max, err)
+        check(torch.equal(out, ref), f"quant_matmul M={M} K={K} N={N} ({FM_ARCH} head, "
+                                     f"w_q {held}): bit-exact, max_abs_err={err}")
+        del out
+    return err_max
 
 
 def _scan_inputs(B, S, DI, N, g, dev, falcon_a=False):
@@ -399,18 +492,30 @@ def check_mamba_scan(dev, g):
               f"mamba_scan f32 B={B} S={S} DI={DI} N={N}{' (path)' if path else ''}: "
               f"max_abs_err y {ey:.3g}, h_final {eh:.3g} (tol {MS_TOL}; max |y| "
               f"{yr.abs().max().item():.3g})")
+    for B, S, DI, N in MS_EXTRA:
+        u, dt, Bm, Cm, A = _scan_inputs(B, S, DI, N, g, dev)
+        y, h = ms.mamba_scan(u, dt, Bm, Cm, A)
+        yr, hr = ms.mamba_scan_ref(u, dt, Bm, Cm, A)
+        torch.cuda.synchronize()
+        ey, eh = (y - yr).abs().max().item(), (h - hr).abs().max().item()
+        check(torch.allclose(y, yr, rtol=MS_TOL, atol=MS_TOL)
+              and torch.allclose(h, hr, rtol=MS_TOL, atol=MS_TOL),
+              f"mamba_scan f32 B={B} S={S} DI={DI} N={N}: max_abs_err y {ey:.3g}, "
+              f"h_final {eh:.3g} (tol {MS_TOL})")
     # a bf16 u: both versions read the same bf16 values and round y to bf16
-    u, dt, Bm, Cm, A = _scan_inputs(2, 200, 384, 16, g, dev)
-    u = u.bfloat16()
-    y, h = ms.mamba_scan(u, dt, Bm, Cm, A)
-    yr, hr = ms.mamba_scan_ref(u, dt, Bm, Cm, A)
-    torch.cuda.synchronize()
     tol = FA_TOL["bfloat16"]
-    ey = (y.float() - yr.float()).abs().max().item()
-    check(y.dtype == torch.bfloat16 and torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol)
-          and torch.allclose(h, hr, rtol=MS_TOL, atol=MS_TOL),
-          f"mamba_scan bf16 u B=2 S=200 DI=384 N=16: max_abs_err y {ey:.3g} (tol {tol}), "
-          f"h_final {(h - hr).abs().max().item():.3g}")
+    for B, S, DI, N in ((2, 200, 384, 16),) + MS_EXTRA:
+        u, dt, Bm, Cm, A = _scan_inputs(B, S, DI, N, g, dev)
+        u = u.bfloat16()
+        y, h = ms.mamba_scan(u, dt, Bm, Cm, A)
+        yr, hr = ms.mamba_scan_ref(u, dt, Bm, Cm, A)
+        torch.cuda.synchronize()
+        ey = (y.float() - yr.float()).abs().max().item()
+        check(y.dtype == torch.bfloat16
+              and torch.allclose(y.float(), yr.float(), rtol=tol, atol=tol)
+              and torch.allclose(h, hr, rtol=MS_TOL, atol=MS_TOL),
+              f"mamba_scan bf16 u B={B} S={S} DI={DI} N={N}: max_abs_err y {ey:.3g} "
+              f"(tol {tol}), h_final {(h - hr).abs().max().item():.3g}")
     return err
 
 
@@ -1109,33 +1214,9 @@ def phase_rg_card_vs_cpu(dev, cfg, model, batch):
 
 def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
     import torch
-    from repro_torch.kernels import quant_matmul as qmm
     print("== 7. kernel timing at the main path's shapes (CUDA events)")
     g = torch.Generator(device=dev).manual_seed(3)
-    M = BATCH * SEQ
-    ops = [(torch.randint(-127, 128, (M, K), dtype=torch.int8, generator=g, device=dev),
-            torch.randint(-127, 128, (K, N), dtype=torch.int8, generator=g, device=dev),
-            torch.rand(M, generator=g, device=dev) * 0.01,
-            torch.rand(N, generator=g, device=dev) * 0.01) for K, N in QMM_LAYER]
-
-    def qmm_layer(fn):
-        return lambda: [fn(*a) for a in ops]
-
-    def int_mm_layer():
-        return [torch._int_mm(x, w).float() * xs[:, None] * ws[None, :]
-                for x, w, xs, ws in ops]
-
-    qmm_ms = cuda_ms(qmm_layer(qmm.quant_matmul), 20)
-    qmm_plain = cuda_ms(qmm_layer(qmm.quant_matmul_ref), 5)
-    try:
-        qmm_lib = cuda_ms(int_mm_layer, 20)
-    except RuntimeError as e:   # torch._int_mm refuses some shapes on some builds
-        print(f"  torch._int_mm unavailable: {e}")
-        qmm_lib = None
-    qmm_bound, qmm_by = _bound(
-        sum(M * K + K * N + 4 * M + 4 * N + 4 * M * N for K, N in QMM_LAYER),
-        sum(2 * M * K * N for K, N in QMM_LAYER), PEAK_INT8)
-    head = time_head_quant_matmul(dev, g)
+    qmm_row = time_quant_matmul(dev, g, qmm_err, launches)
 
     fa_main, fa_split, fa_prefill = FA_PATHS
     fa_row = time_attention(dev, g, *fa_main, "")
@@ -1151,14 +1232,7 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:103",
          "launches": launches["flash_attention"], **fa_row},
-        {"name": "quant_matmul", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
-         "replaces": "src/repro/kernels/quant_matmul.py:78",
-         "launches": launches["quant_matmul"], "max_abs_err": qmm_err,
-         "ms": qmm_ms, "plain_ms": qmm_plain, "bound_ms": qmm_bound, "bound_by": qmm_by,
-         "library_ms": qmm_lib,
-         "shape": f"M={M}, the 7 (K,N) of one layer {list(QMM_LAYER)}, per layer",
-         **head},
+        qmm_row,
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:98",
@@ -1170,21 +1244,17 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
         print(f"  {kern['name']}: ms={kern['ms']:.4f} plain_ms={kern['plain_ms']:.4f} "
               f"library_ms={kern['library_ms']} bound_ms={kern['bound_ms']:.4f} "
               f"({kern['bound_by']}) [{kern['shape']}]")
-        for pre in ("d256_", "prefill_"):
+        for pre in ("d256_", "prefill_", "decode_", "rg_", "head_"):
             if f"{pre}ms" in kern:
                 print(f"  {kern['name']} {pre[:-1]}: ms={kern[pre + 'ms']:.4f} "
                       f"plain_ms={kern[pre + 'plain_ms']:.4f} "
-                      f"library_ms={kern[pre + 'library_ms']:.4f} "
+                      f"library_ms={kern[pre + 'library_ms']} "
                       f"bound_ms={kern[pre + 'bound_ms']:.4f} ({kern[pre + 'bound_by']}) "
                       f"[{kern[pre + 'shape']}]")
-        for pre in ("", "d256_"):
+        for pre in ("", "d256_", "decode_"):
             if f"{pre}device_ms" in kern:
                 print(f"  {kern['name']} {pre[:-1] or 'main'} device time (CUDA graph) "
                       f"{kern[pre + 'device_ms']:.4f} ms")
-        if "head_ms" in kern:
-            print(f"  {kern['name']} head: ms={kern['head_ms']:.4f} "
-                  f"library_ms={kern['head_library_ms']} bound_ms={kern['head_bound_ms']:.4f} "
-                  f"[{kern['head_shape']}]")
     return kernels
 
 
@@ -1330,27 +1400,84 @@ def time_rglru_scan(dev, g, err, launches):
             "shape": f"f32 a, gx ({B},{S},{W}), per call (one rec layer)"}
 
 
-def time_head_quant_matmul(dev, g):
-    """quant_matmul at falcon-mamba's w8 head, (B*S, d) x (d, V), per call."""
+def _int_mm_ms(ops, iters):
+    """``torch._int_mm`` plus the rescale over ``ops``, or None where it
+    refuses a shape (it takes M > 16 and K, N multiples of 8)."""
+    import torch
+    try:
+        return cuda_ms(lambda: [torch._int_mm(x, w).float() * xs[:, None] * ws[None, :]
+                                for x, w, xs, ws, _ in ops], iters)
+    except RuntimeError as e:
+        print(f"  torch._int_mm unavailable: {str(e).splitlines()[0]}")
+        return None
+
+
+def _time_qmm(dev, g, M, shapes, what, iters=20):
+    """quant_matmul over ``shapes`` at M rows, as the path calls it (with
+    the weights held K-major): its time a set of calls, eager and as a
+    CUDA graph, its plain version's, the library call's and its bound."""
+    import torch
+    from repro_torch.kernels import quant_matmul as qmm
+    ops = []
+    for K, N in shapes:
+        x, w, xs, ws = _qmm_inputs(M, K, N, g, dev)
+        ops.append((x, w, xs, ws, w.t().contiguous().t()))
+
+    def call():
+        return [qmm.quant_matmul(x, wk, xs, ws) for x, _, xs, ws, wk in ops]
+
+    err = max((o - qmm.quant_matmul_ref(*a[:4])).abs().max().item() for o, a in zip(call(), ops))
+    check(err == 0.0, f"quant_matmul at {what}: bit-exact")
+    bound, by = _bound(sum(M * K + K * N + 4 * M + 4 * N + 4 * M * N for K, N in shapes),
+                       sum(2 * M * K * N for K, N in shapes), PEAK_INT8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = sorted({f"{p.regime} {p.tiles}x{p.splits}"
+                    for p in (qmm.plan(M, N, K, sms) for K, N in shapes)})
+    return {"ms": cuda_ms(call, iters), "device_ms": graph_ms(call, iters),
+            "plain_ms": cuda_ms(lambda: [qmm.quant_matmul_ref(*a[:4]) for a in ops], 5),
+            "library_ms": _int_mm_ms(ops, iters), "bound_ms": bound, "bound_by": by,
+            "shape": f"{what}: M={M}, (K,N) {list(shapes)}, plans {plans}"}
+
+
+def time_quant_matmul(dev, g, err, launches):
+    """quant_matmul at the paths' shapes: qwen2-0.5b's layer at the split
+    path's M = 4096 (the row's main numbers) and at the w8 decode step's M
+    = 8 (also ``ops.quantized_dense`` there, quantize_act included),
+    recurrentgemma-2b's w8 layer at M = 2048, falcon-mamba-7b's w8 head."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import quant_matmul as qmm
-    cfg = get_config(FM_ARCH)
-    M, K, N = FM_BATCH * FM_SEQ, cfg.d_model, cfg.vocab_size
-    args = (torch.randint(-127, 128, (M, K), dtype=torch.int8, generator=g, device=dev),
-            torch.randint(-127, 128, (K, N), dtype=torch.int8, generator=g, device=dev),
-            torch.rand(M, generator=g, device=dev) * 0.01,
-            torch.rand(N, generator=g, device=dev) * 0.01)
-    ms = cuda_ms(lambda: qmm.quant_matmul(*args), 20)
-    x, w, xs, ws = args
-    try:
-        lib = cuda_ms(lambda: torch._int_mm(x, w).float() * xs[:, None] * ws[None, :], 20)
-    except RuntimeError as e:   # torch._int_mm refuses some shapes on some builds
-        print(f"  torch._int_mm unavailable at the head: {e}")
-        lib = None
-    bound, by = _bound(M * K + K * N + 4 * M + 4 * N + 4 * M * N, 2 * M * K * N, PEAK_INT8)
-    return {"head_shape": f"M={M} K={K} N={N} ({FM_ARCH} w8 lm_head), per call",
-            "head_ms": ms, "head_bound_ms": bound, "head_bound_by": by, "head_library_ms": lib}
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.layers import Dense
+    from repro_torch.quant.quantize import quantize
+    fm = get_config(FM_ARCH)
+    row = {"name": "quant_matmul", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
+           "replaces": "src/repro/kernels/quant_matmul.py:78",
+           "launches": launches["quant_matmul"], "max_abs_err": err,
+           **_time_qmm(dev, g, BATCH * SEQ, QMM_LAYER, "qwen2-0.5b w8 layer, split path")}
+    row.update(_prefixed("decode_", _time_qmm(dev, g, BATCH, QMM_LAYER,
+                                              "qwen2-0.5b w8 layer, decode step", 50)))
+    row.update(_prefixed("rg_", _time_qmm(dev, g, RG_SPLIT_BATCH * RG_SPLIT_SEQ, RG_QMM_LAYER,
+                                          f"{RG_ARCH} w8 layer, split path")))
+    row.update(_prefixed("head_", _time_qmm(dev, g, FM_BATCH * FM_SEQ,
+                                            ((fm.d_model, fm.vocab_size),),
+                                            f"{FM_ARCH} w8 lm_head, split path")))
+    # the decode step's projections as the model runs them: per-row
+    # activation quantization (its launches) and the kernel, the leaves as
+    # the model holds them, K-major
+    dense = [(torch.randn(BATCH, K, generator=g, device=dev),
+              Dense(quantize(torch.randn(K, N, generator=g, device=dev) * 0.02, "w8a8")).w)
+             for K, N in QMM_LAYER]
+
+    def dense_layer():
+        return [kops.quantized_dense(x, w) for x, w in dense]
+
+    row["decode_dense_ms"] = cuda_ms(dense_layer, 50)
+    row["decode_dense_device_ms"] = graph_ms(dense_layer, 50)
+    print(f"  quant_matmul decode layer: kernel eager {row['decode_ms']:.4f} ms, device "
+          f"{row['decode_device_ms']:.4f} ms; ops.quantized_dense (quantize_act + kernel) "
+          f"eager {row['decode_dense_ms']:.4f} ms, device {row['decode_dense_device_ms']:.4f} ms")
+    return row
 
 
 def time_mamba_scan(dev, g, err, launches):
@@ -1363,10 +1490,15 @@ def time_mamba_scan(dev, g, err, launches):
     kernel = cuda_ms(lambda: ms.mamba_scan(*args), 20)
     plain = cuda_ms(lambda: ms.mamba_scan_ref(*args), 1, warmup=1)
     # each input read once (u, dt, Bm, Cm, A), y and h_final written once;
-    # per (b, t, d, n): dt*A, exp, dA*h, + (dt*u)*B, h*C, the sum over n
-    # (7), and dt*u per (b, t, d), all f32 (the exp counted at the f32 rate)
-    bound, by = _bound(4 * (3 * B * S * DI + 2 * B * S * N + DI * N + B * DI * N),
-                       B * S * DI * (7 * N + 1))
+    # one exp per (b, t, d, n) on the SFU (16 a clock an SM); the f32
+    # arithmetic (dt*A, dA*h + (dt*u)*B, h*C and the sum over n, 6 per
+    # element, and dt*u) at the CUDA-core rate is below both
+    nbytes = 4 * (3 * B * S * DI + 2 * B * S * N + DI * N + B * DI * N)
+    t_bytes, t_sfu = nbytes / PEAK_BYTES * 1e3, B * S * DI * N / PEAK_SFU * 1e3
+    bound, by = max(t_bytes, t_sfu, B * S * DI * (6 * N + 1) / PEAK_F32 * 1e3), \
+        "bytes" if t_bytes >= t_sfu else "operations"
+    print(f"  mamba_scan bound: bytes {t_bytes:.4f} ms, SFU exps {t_sfu:.4f} ms "
+          f"({B * S * DI * N} exps)")
     return {"name": "mamba_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
             "replaces": "src/repro/kernels/mamba_scan.py:69",

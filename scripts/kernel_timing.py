@@ -1,0 +1,142 @@
+"""Time the port's kernels of one source tree at the serving paths' shapes,
+to compare two versions of them on one card.
+
+The shapes are ``chip_smoke.py``'s phase-7 paths. ``flash_attention`` at
+qwen2-0.5b's split path, at recurrentgemma-2b's split path and at its
+2304-token prefill under the 2048 window (``FA_PATHS``); ``flash_decode``
+at qwen2-0.5b's decode step (24 layers in turn) and recurrentgemma-2b's (8
+layers in turn, ``FD_PATHS``); ``quant_matmul`` over qwen2-0.5b's seven w8
+projections at the split path's M = 4096 and the decode step's M = 8, over
+recurrentgemma-2b's at M = 2048 and at falcon-mamba-7b's head (M = 1024,
+K = 4096, N = 65024), with the weights held K-major where the tree's
+wrapper reads that layout, as its path holds them, else contiguous; ``mamba_scan`` at falcon-mamba-7b's
+split path (2, 512, 8192, N 16). f32 (int8 codes for ``quant_matmul``),
+inputs from ``torch.Generator`` seed 0. Each time is the mean milliseconds
+of one call (of one layer's calls for ``quant_matmul``) by ``chip_smoke``'s
+CUDA-event timers, eager (``eager_ms``: as a caller launches it, the
+wrapper's host work included) and replayed as one CUDA graph
+(``device_ms``: device time alone); for ``flash_decode`` and the decode
+step's ``quant_matmul`` also the host microseconds a call (the wrapper's
+path).
+
+``--src`` names the ``src`` directory whose ``repro_torch`` is timed (this
+checkout's by default), so one call can time two commits in turn, each
+built from its own sources:
+
+    python3 scripts/kernel_timing.py [--src OTHER/src]
+
+Prints one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+# chip_smoke's timers, inputs and path shapes (importing it runs and imports
+# nothing else)
+from chip_smoke import (BATCH, FA_PATHS, FD_PATHS, FM_ARCH, FM_BATCH, FM_SEQ,  # noqa: E402
+                        QMM_LAYER, RG_QMM_LAYER, RG_SPLIT_BATCH, RG_SPLIT_SEQ, SEQ,
+                        _qmm_inputs, _scan_inputs, cuda_ms, graph_ms)
+
+
+def _host_us(fn, iters: int = 20) -> float:
+    """Mean host microseconds of ``fn()`` between launches: the calls are
+    only enqueued (fewer launches than the device queue holds), then
+    synchronised outside the clock."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / iters * 1e6
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src directory whose repro_torch is timed")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_timing: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import quant_matmul as qmm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build(["flash_attention", "flash_decode", "mamba_scan", "quant_matmul"])
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for B, H, HK, S, D, window in FA_PATHS:
+        q = torch.randn(B, S, H, D, generator=g, device=dev).transpose(1, 2)
+        k, v = (torch.randn(B, S, HK, D, generator=g, device=dev).transpose(1, 2)
+                for _ in range(2))
+
+        def call():
+            fa.flash_attention(q, k, v, causal=True, window=window)
+        rows.append({"kernel": "flash_attention", "shape": [B, H, HK, S, D, window],
+                     "eager_ms": cuda_ms(call, 30), "device_ms": graph_ms(call, 30)})
+    for B, H, HK, C, D, L, pos, window in FD_PATHS:
+        q = torch.randn(B, H, D, generator=g, device=dev)
+        kv = [tuple(torch.randn(B, C, HK, D, generator=g, device=dev).transpose(1, 2)
+                    for _ in range(2)) for _ in range(L)]
+
+        def step():
+            for k, v in kv:
+                fd.flash_decode(q, k, v, pos, window=window)
+        rows.append({"kernel": "flash_decode", "shape": [B, H, HK, C, D, pos, window],
+                     "layers": L, "eager_ms": cuda_ms(step, 50) / L,
+                     "device_ms": graph_ms(step, 50) / L, "host_us": _host_us(step) / L})
+    fm = get_config(FM_ARCH)
+    for what, M, shapes in (("qwen2-0.5b layer, split path", BATCH * SEQ, QMM_LAYER),
+                            ("qwen2-0.5b layer, decode step", BATCH, QMM_LAYER),
+                            ("recurrentgemma-2b layer, split path",
+                             RG_SPLIT_BATCH * RG_SPLIT_SEQ, RG_QMM_LAYER),
+                            ("falcon-mamba-7b head", FM_BATCH * FM_SEQ,
+                             ((fm.d_model, fm.vocab_size),))):
+        calls = []
+        for K, N in shapes:
+            x, w, xs, ws = _qmm_inputs(M, K, N, g, dev)
+            try:     # a wrapper that takes no K-major weight refuses it
+                qmm.quant_matmul(x, w.t().contiguous().t(), xs, ws)
+                w = w.t().contiguous().t()
+            except ValueError:
+                pass
+            calls.append((x, w, xs, ws))
+
+        def layer():
+            for args in calls:
+                qmm.quant_matmul(*args)
+        row = {"kernel": "quant_matmul", "shape": what, "M": M, "KN": shapes,
+               "eager_ms": cuda_ms(layer, 30), "device_ms": graph_ms(layer, 30)}
+        if M == BATCH:   # the decode step: host-bound, so its host path too
+            row["host_us"] = _host_us(layer) / len(shapes)
+        rows.append(row)
+    scan = _scan_inputs(FM_BATCH, FM_SEQ, fm.d_inner, fm.ssm_state, g, dev, falcon_a=True)
+    rows.append({"kernel": "mamba_scan", "shape": [FM_BATCH, FM_SEQ, fm.d_inner, fm.ssm_state],
+                 "eager_ms": cuda_ms(lambda: ms.mamba_scan(*scan), 30),
+                 "device_ms": graph_ms(lambda: ms.mamba_scan(*scan), 30)})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"src": args.src, "card": smi, "rows": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

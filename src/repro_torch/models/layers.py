@@ -23,13 +23,20 @@ def dense(x: torch.Tensor, w: Union[torch.Tensor, QTensor]) -> torch.Tensor:
 
 class Dense(nn.Module):
     """A dense projection holding either a float weight (in, out) or a
-    ``QTensor`` (its codes and scales as buffers)."""
+    ``QTensor`` (its codes and scales as buffers). A w8a8 leaf holds its
+    codes (in, out) in K-major order, as the transpose of an (out, in)
+    tensor: the order the int8 kernel reads, laid out once here, when the
+    version is built, so no call copies the weight. Shape, values and
+    size stay those of the JAX layout."""
 
     def __init__(self, w: Union[torch.Tensor, QTensor]):
         super().__init__()
         if isinstance(w, QTensor):
             self.register_parameter("weight", None)
-            self.register_buffer("q", w.q)
+            q = w.q
+            if w.bits == 8 and w.act_bits == 8 and not q.t().is_contiguous():
+                q = q.t().contiguous().t()
+            self.register_buffer("q", q)
             self.register_buffer("scale", w.scale)
             self.bits, self.act_bits = w.bits, w.act_bits
         else:

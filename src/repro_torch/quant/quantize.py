@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import FrozenSet
+from typing import Dict, FrozenSet, Tuple
 
 import torch
 from torch import nn
@@ -55,12 +55,22 @@ class QTensor:
         return out.reshape(*q.shape[:-2], d, n)
 
 
+# the divisors of _true_div, one device scalar per (device, dtype, value):
+# made once, since copying a host value to the card waits for the stream
+# (and cannot happen inside a CUDA graph capture)
+_DIVISORS: Dict[Tuple[torch.device, torch.dtype, float], torch.Tensor] = {}
+
+
 def _true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d`` correctly rounded on every device. PyTorch's CUDA division
     by a Python scalar multiplies by the reciprocal, which can be one ulp
     off; a scale one ulp off moves codes that sit at a rounding boundary,
     so the card would quantize otherwise than the CPU and the reference."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    key = (x.device, x.dtype, d)
+    divisor = _DIVISORS.get(key)
+    if divisor is None:
+        divisor = _DIVISORS[key] = torch.tensor(d, dtype=x.dtype, device=x.device)
+    return x / divisor
 
 
 def _pack_int4(q: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """The flash attention kernel's plain version against repro's Pallas kernel
 (interpret mode) and its oracle (CPU), at head dims 64 and 256, plus the
 rules every kernel wrapper (flash_attention, flash_decode, mamba_scan,
-quant_matmul, rglru_scan) keeps on the CPU, and the arithmetic of the two
-attention kernels emulated on the CPU: flash_attention's 3xTF32 products
-and flash_decode's split-and-merge over the ring.
+quant_matmul, rglru_scan) keeps on the CPU, and the arithmetic of three
+kernels emulated on the CPU: flash_attention's 3xTF32 products,
+flash_decode's split-and-merge over the ring and mamba_scan's four states a
+lane with its exp2 of the prescaled A.
 The CUDA kernels themselves run only on the card: ``python3 chip_smoke.py``
 holds them against these plain versions there."""
 import ctypes
@@ -431,3 +432,57 @@ def test_build_target_hashes_the_shared_headers(monkeypatch, tmp_path):
     before = _build._target("k")
     (tmp_path / "common.cuh").write_text("// two\n")
     assert _build._target("k") != before
+
+
+def _mamba_kernel_emulation(u, dt, Bm, Cm, A):
+    """The CUDA mamba_scan's f32 arithmetic, one batch row: four states a
+    thread (P = ceil(N / 4) lanes a channel), exp(dt * A) as exp2 of dt
+    times the prescaled A log2 e, h = dA * h + (dt * u) * B, the lane's
+    partial y over its four states, and the deferred sum over lanes: at P
+    = 8 lanes q and q + 4 meet first, then the write-out adds the (up to
+    four) partials as (p0 + p1) + (p2 + p3)."""
+    f32 = np.float32
+    S, DI = u.shape
+    N = A.shape[1]
+    P = 1 << max(0, (-(-N // 4) - 1).bit_length())
+    a2 = np.zeros((DI, 4 * P), f32)
+    a2[:, :N] = A * f32(1.4426950408889634)
+    pad = lambda m: np.pad(m, ((0, 0), (0, 4 * P - N)))  # noqa: E731
+    Bp, Cp = pad(Bm), pad(Cm)
+    h = np.zeros((DI, 4 * P), f32)
+    y = np.zeros((S, DI), f32)
+    for t in range(S):
+        dtu = dt[t] * u[t]
+        h = np.exp2(dt[t][:, None] * a2) * h + dtu[:, None] * Bp[t][None, :]
+        hc = (h * Cp[t][None, :]).reshape(DI, P, 4)
+        p = ((hc[..., 0] + hc[..., 1]) + hc[..., 2]) + hc[..., 3]      # (DI, P)
+        if P == 8:
+            p = p[:, :4] + p[:, 4:]
+        if p.shape[1] == 4:
+            y[t] = (p[:, 0] + p[:, 1]) + (p[:, 2] + p[:, 3])
+        elif p.shape[1] == 2:
+            y[t] = p[:, 0] + p[:, 1]
+        else:
+            y[t] = p[:, 0]
+    return y, h[:, :N]
+
+
+@pytest.mark.parametrize("falcon_a,N", [(True, 16), (False, 16), (False, 32), (False, 5),
+                                        (False, 4)])
+def test_mamba_kernel_arithmetic_holds_the_plain_version_at_s512(falcon_a, N):
+    """Four states a lane, the exp as exp2 of the prescaled A, the y sum
+    split over lanes: within 1e-4 of mamba_scan_ref over 512 steps, with
+    falcon-mamba's A = -(1..16) and with random A = -exp(normal), at one,
+    two, four and eight lanes a channel."""
+    S, DI = 512, 48
+    r = np.random.default_rng(16)
+    u = r.normal(size=(S, DI)).astype(np.float32)
+    dt = r.uniform(0.001, 0.1, size=(S, DI)).astype(np.float32)
+    Bm, Cm = (r.normal(size=(S, N)).astype(np.float32) for _ in range(2))
+    A = (-np.tile(np.arange(1, N + 1, dtype=np.float32), (DI, 1)) if falcon_a
+         else -np.exp(r.normal(size=(DI, N))).astype(np.float32))
+    y, h = _mamba_kernel_emulation(u, dt, Bm, Cm, A)
+    want_y, want_h = ms.mamba_scan_ref(*(torch.from_numpy(a)[None] for a in (u, dt, Bm, Cm)),
+                                       torch.from_numpy(A))
+    np.testing.assert_allclose(y, want_y[0].numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h, want_h[0].numpy(), rtol=1e-4, atol=1e-4)
