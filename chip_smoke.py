@@ -23,7 +23,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    split edges (a window of 96 in a wrapped 2048-slot ring, C = 200, G = 1,
    2, 7, 10 and 20), its split calls alternating on two streams (a
    workspace each) and its refusal to make a workspace inside a CUDA graph
-   capture, and ragged scan lengths.
+   capture, and ragged scan lengths; rglru_scan in each regime of its plan
+   (one chunk, 1 x 1 x 100; a walk of 32 chunks over one tile, 1 x 8192 x
+   32; ragged tiles and chunks, 3 x 4099 x 2600 and 6 x 1000 x 2600, in
+   8-warp and 4-warp chunks) and at the paths' shapes
+   (RS_PATHS), two calls and two replays of a CUDA graph bit for bit.
 3. Main path: full-width qwen2-0.5b (random weights from torch.Generator
    seed 0) served by ``SplitServingEngine``: 8 requests x 512 tokens for
    each version (bf16, w8, w4) at cuts 1, 12 and 24, with the kernels'
@@ -85,7 +89,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    with its activation quantization), recurrentgemma's w8 layer (M = 2048)
    and falcon-mamba's head, each beside ``torch._int_mm`` plus the rescale
    ("unavailable" where it refuses the shape); mamba_scan's bound is the
-   larger of its bytes and its exps on the SFU.
+   larger of its bytes and its exps on the SFU; rglru_scan at
+   recurrentgemma's split path, its 2304-token prefill and a scheduler
+   cohort (4 x 218), eager and as a CUDA graph.
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -196,9 +202,16 @@ RG_DECODE_TOL = 1e-3
 # per infer or prefill: 2 rec layers of each of 8 periods + the 2-layer
 # tail; 8 attention layers; w8: 26 MLPs x 3 + 8 attentions x 4 projections
 RG_SCANS, RG_ATTN, RG_QMM = 18, 8, 110
+# rglru_scan at the paths' shapes (B, S, W), W recurrentgemma-2b's LRU
+# width: its split path, its 2304-token decode prefill and a scheduler
+# cohort; timed in phase 7 (and by scripts/kernel_timing.py)
+RS_PATHS = ((RG_SPLIT_BATCH, RG_SPLIT_SEQ, 2560), (RG_BATCH, RG_SEQ, 2560), (4, 218, 2560))
 # rglru_scan: tests/test_kernels.py::test_rglru_scan_sweep's cases and
-# tolerance (B, S, W), a ragged one, then the split path's shape
-RS_CASES = ((1, 128, 256), (2, 256, 512), (1, 384, 128), (2, 200, 320), (4, 512, 2560))
+# tolerance (B, S, W), a ragged one, then the regimes of the kernel's plan (a
+# single chunk; a long walk over one tile in 16-warp chunks; ragged tiles
+# and chunks walked in 8-warp and in 4-warp chunks), then the paths'
+RS_CASES = ((1, 128, 256), (2, 256, 512), (1, 384, 128), (2, 200, 320),
+            (1, 1, 100), (1, 8192, 32), (3, 4099, 2600), (6, 1000, 2600)) + RS_PATHS
 RS_TOL = 1e-4
 # flash_attention at head_dim 256 (B, H, HK, S, window), causal: MQA
 # plain, windowed, the decode prompt's 2304 positions under the 2048
@@ -342,24 +355,50 @@ def _rglru_inputs(B, S, W, g, dev):
 
 
 def check_rglru_scan(dev, g):
-    """rglru_scan against its plain version; returns the path shape's error."""
+    """rglru_scan against its plain version at RS_CASES (each line names the
+    plan); two calls and two replays of a CUDA graph bit for bit. Returns
+    the largest error at the paths' shapes."""
     import torch
     from repro_torch.kernels import rglru_scan as rs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = 0.0
     for B, S, W in RS_CASES:
-        path = (B, S, W) == RS_CASES[-1]
+        path = (B, S, W) in RS_PATHS
         a, gx = _rglru_inputs(B, S, W, g, dev)
         y, h = rs.rglru_scan(a, gx)
         yr, hr = rs.rglru_scan_ref(a, gx)
         torch.cuda.synchronize()
         ey, eh = (y - yr).abs().max().item(), (h - hr).abs().max().item()
         if path:
-            err = max(ey, eh)
+            err = max(err, ey, eh)
+        p = rs.plan(B, S, W, sms)
         check(y.dtype == h.dtype == torch.float32
               and torch.allclose(y, yr, rtol=RS_TOL, atol=RS_TOL)
-              and torch.allclose(h, hr, rtol=RS_TOL, atol=RS_TOL),
-              f"rglru_scan f32 B={B} S={S} W={W}{' (path)' if path else ''}: max_abs_err "
+              and torch.allclose(h, hr, rtol=RS_TOL, atol=RS_TOL) and torch.equal(h, y[:, -1]),
+              f"rglru_scan f32 B={B} S={S} W={W}{' (path)' if path else ''} ({p.blocks} blocks: "
+              f"{B} x {p.tiles} tiles x {p.chunks} chunk(s) of {p.chunk} steps): max_abs_err "
               f"h_seq {ey:.3g}, h_last {eh:.3g} (tol {RS_TOL}; max |h| {yr.abs().max().item():.3g})")
+
+    # nothing outlives a launch, so every call runs the same FMAs in the
+    # same order: two calls and two replays of a captured call give the
+    # same bits (the prefill's walk of 18 chunks; a ragged tile and chunk)
+    side = torch.cuda.Stream()
+    for B, S, W in (RS_PATHS[1], (3, 4099, 2600)):
+        a, gx = _rglru_inputs(B, S, W, g, dev)
+        y1, h1 = rs.rglru_scan(a, gx)
+        y2, h2 = rs.rglru_scan(a, gx)
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            yg, hg = rs.rglru_scan(a, gx)
+        same = []
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            same.append(torch.equal(yg, y1) and torch.equal(hg, h1))
+        check(torch.equal(y1, y2) and torch.equal(h1, h2) and all(same),
+              f"rglru_scan B={B} S={S} W={W}: two calls and two graph replays bit for bit")
+        del graph
     return err
 
 
@@ -1244,14 +1283,14 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
         print(f"  {kern['name']}: ms={kern['ms']:.4f} plain_ms={kern['plain_ms']:.4f} "
               f"library_ms={kern['library_ms']} bound_ms={kern['bound_ms']:.4f} "
               f"({kern['bound_by']}) [{kern['shape']}]")
-        for pre in ("d256_", "prefill_", "decode_", "rg_", "head_"):
+        for pre in ("d256_", "prefill_", "cohort_", "decode_", "rg_", "head_"):
             if f"{pre}ms" in kern:
                 print(f"  {kern['name']} {pre[:-1]}: ms={kern[pre + 'ms']:.4f} "
                       f"plain_ms={kern[pre + 'plain_ms']:.4f} "
                       f"library_ms={kern[pre + 'library_ms']} "
                       f"bound_ms={kern[pre + 'bound_ms']:.4f} ({kern[pre + 'bound_by']}) "
                       f"[{kern[pre + 'shape']}]")
-        for pre in ("", "d256_", "decode_"):
+        for pre in ("", "d256_", "prefill_", "cohort_", "decode_"):
             if f"{pre}device_ms" in kern:
                 print(f"  {kern['name']} {pre[:-1] or 'main'} device time (CUDA graph) "
                       f"{kern[pre + 'device_ms']:.4f} ms")
@@ -1381,23 +1420,36 @@ def time_decode(dev, g, B, H, HK, C, D, L, pos, window, path):
                      f"pos {pos}, window {window}, per call, {L} caches in turn{path}"}
 
 
-def time_rglru_scan(dev, g, err, launches):
-    """rglru_scan at recurrentgemma's split path shape, per call (one rec
-    layer)."""
+def _time_rglru(dev, g, B, S, W, what):
+    """rglru_scan per call at (B, S, W): eager, as a CUDA graph, its plain
+    version's time and its bound."""
+    import torch
     from repro_torch.kernels import rglru_scan as rs
-    B, S, W = RS_CASES[-1]
     a, gx = _rglru_inputs(B, S, W, g, dev)
-    kernel = cuda_ms(lambda: rs.rglru_scan(a, gx), 50)
-    plain = cuda_ms(lambda: rs.rglru_scan_ref(a, gx), 10)
+    p = rs.plan(B, S, W, torch.cuda.get_device_properties(dev).multi_processor_count)
     # a and gx read once, h_seq and h_last written once; one FMA per (b, t, w)
     bound, by = _bound(4 * (3 * B * S * W + B * W), 2 * B * S * W)
-    return {"name": "rglru_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
-            "replaces": "src/repro/kernels/rglru_scan.py:53",
-            "launches": launches["rglru_scan"], "max_abs_err": err,
-            "ms": kernel, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": None,
-            "shape": f"f32 a, gx ({B},{S},{W}), per call (one rec layer)"}
+    return {"ms": cuda_ms(lambda: rs.rglru_scan(a, gx), 50),
+            "device_ms": graph_ms(lambda: rs.rglru_scan(a, gx), 50),
+            "plain_ms": cuda_ms(lambda: rs.rglru_scan_ref(a, gx), 10),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": f"f32 a, gx ({B},{S},{W}), per call ({what}); {p.blocks} blocks of "
+                     f"{p.warps} warps, {p.chunks} chunk(s) of {p.chunk} steps a tile"}
+
+
+def time_rglru_scan(dev, g, err, launches):
+    """rglru_scan at recurrentgemma's split path shape (the row's main
+    numbers), its 2304-token prefill and a scheduler cohort, per call (one
+    rec layer)."""
+    split, prefill, cohort = RS_PATHS
+    row = {"name": "rglru_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+           "replaces": "src/repro/kernels/rglru_scan.py:53",
+           "launches": launches["rglru_scan"], "max_abs_err": err,
+           **_time_rglru(dev, g, *split, "one rec layer, split path")}
+    row.update(_prefixed("prefill_", _time_rglru(dev, g, *prefill, "one rec layer, prefill")))
+    row.update(_prefixed("cohort_", _time_rglru(dev, g, *cohort, "one rec layer, a cohort")))
+    return row
 
 
 def _int_mm_ms(ops, iters):

@@ -10,7 +10,10 @@ projections at the split path's M = 4096 and the decode step's M = 8, over
 recurrentgemma-2b's at M = 2048 and at falcon-mamba-7b's head (M = 1024,
 K = 4096, N = 65024), with the weights held K-major where the tree's
 wrapper reads that layout, as its path holds them, else contiguous; ``mamba_scan`` at falcon-mamba-7b's
-split path (2, 512, 8192, N 16). f32 (int8 codes for ``quant_matmul``),
+split path (2, 512, 8192, N 16); ``rglru_scan`` at recurrentgemma-2b's
+split path, its 2304-token prefill, a scheduler cohort (``RS_PATHS``) and
+a cohort of one request (1, 218, 2560). f32 (int8 codes for
+``quant_matmul``),
 inputs from ``torch.Generator`` seed 0. Each time is the mean milliseconds
 of one call (of one layer's calls for ``quant_matmul``) by ``chip_smoke``'s
 CUDA-event timers, eager (``eager_ms``: as a caller launches it, the
@@ -42,8 +45,8 @@ sys.path.insert(0, str(ROOT))
 # chip_smoke's timers, inputs and path shapes (importing it runs and imports
 # nothing else)
 from chip_smoke import (BATCH, FA_PATHS, FD_PATHS, FM_ARCH, FM_BATCH, FM_SEQ,  # noqa: E402
-                        QMM_LAYER, RG_QMM_LAYER, RG_SPLIT_BATCH, RG_SPLIT_SEQ, SEQ,
-                        _qmm_inputs, _scan_inputs, cuda_ms, graph_ms)
+                        QMM_LAYER, RG_QMM_LAYER, RG_SPLIT_BATCH, RG_SPLIT_SEQ, RS_PATHS, SEQ,
+                        _qmm_inputs, _rglru_inputs, _scan_inputs, cuda_ms, graph_ms)
 
 
 def _host_us(fn, iters: int = 20) -> float:
@@ -77,9 +80,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.kernels import rglru_scan as rs
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build(["flash_attention", "flash_decode", "mamba_scan", "quant_matmul"])
+    _build.build()
     dev = torch.device("cuda", torch.cuda.current_device())
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -132,6 +136,11 @@ def main(argv=None) -> int:
     rows.append({"kernel": "mamba_scan", "shape": [FM_BATCH, FM_SEQ, fm.d_inner, fm.ssm_state],
                  "eager_ms": cuda_ms(lambda: ms.mamba_scan(*scan), 30),
                  "device_ms": graph_ms(lambda: ms.mamba_scan(*scan), 30)})
+    for B, S, W in RS_PATHS + ((1, 218, 2560),):
+        a, gx = _rglru_inputs(B, S, W, g, dev)
+        rows.append({"kernel": "rglru_scan", "shape": [B, S, W],
+                     "eager_ms": cuda_ms(lambda: rs.rglru_scan(a, gx), 50),
+                     "device_ms": graph_ms(lambda: rs.rglru_scan(a, gx), 50)})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"src": args.src, "card": smi, "rows": rows}))
