@@ -33,6 +33,20 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    each version (bf16, w8, w4) at cuts 1, 12 and 24, with the kernels'
    launch counts read around the run (24 flash_attention launches per
    infer; 168 quant_matmul launches per w8 infer, 0 otherwise).
+3a. Closed loop (the paper's): ``make_tpu_env(["qwen2-0.5b"], seq_len=512)``
+   builds its tables on the card, equal to the CPU-built tables exactly;
+   A2C trains on the card (60 updates of 8 envs x 96 slots, every loss
+   finite, mean reward of the last 15 updates above the first 15, time per
+   update printed); the trained weights, copied to the CPU, decide as on the
+   card on 16 measured states, where ``price_actions`` on the card agrees
+   with ``xp=numpy`` within 1e-6; then 6 slots of decide ->
+   ``resolve_selection`` -> ``SplitServingEngine.infer`` (phase 3's engine)
+   on 8 x 512 tokens -> ``env_step``, each slot's measured bytes equal to the
+   table's (cut_bytes x batch, plus batch x seq x 4 of row scales for w8),
+   24 flash_attention launches an infer and 168 quant_matmul launches a w8
+   infer (else 0), logits finite; when the controller picks no w8, the w8
+   version at greedy_oracle's cut is served too. ``decide`` is timed (median
+   of 20, eager) and each slot's infer.
 3b. Decode serving: ``ServingEngine`` generates 64 tokens greedily for
    8 x 512-token prompts (cache_len 576), 24 flash_attention launches per
    prefill and 24 flash_decode launches per decode step; one more generate
@@ -88,7 +102,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    decode step (M = 8, also as device time, and ``ops.quantized_dense``
    with its activation quantization), recurrentgemma's w8 layer (M = 2048)
    and falcon-mamba's head, each beside ``torch._int_mm`` plus the rescale
-   ("unavailable" where it refuses the shape); mamba_scan's bound is the
+   (at M = 8 on rows zero-padded to its least M, 17); mamba_scan's bound is the
    larger of its bytes and its exps on the SFU; rglru_scan at
    recurrentgemma's split path, its 2304-token prefill and a scheduler
    cohort (4 x 218), eager and as a CUDA graph.
@@ -102,6 +116,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -116,6 +131,9 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_INT8 = 1979e12
+# torch._int_mm's least M (it refuses M <= 16): the library time of a
+# smaller M is taken on rows zero-padded to it
+INT_MM_MIN_M = 17
 
 CUTS = (("main", 1), ("main", 12), ("main", 24))
 VERSIONS = ("bf16", "w8", "w4")
@@ -159,6 +177,14 @@ FD_CASES = ((2, 4, 2, 128, 64, 50, None), (2, 4, 2, 128, 64, 127, None),
 DEC_NEW, DEC_CACHE = 64, 576          # ServingEngine: new tokens, ring slots
 SRV_REQUESTS, SRV_BATCH, SRV_CACHE = 16, 8, 512
 CPU_NEW = 16
+# the closed loop (phase 3a): A2C updates on the transformer env of qwen2-0.5b
+# at the served 512 tokens, each over LOOP_ENVS environments at once (the
+# reference's batch_envs), then the trained controller against its CPU copy
+# on LOOP_STATES measured states, LOOP_SLOTS served slots, LOOP_DECIDES
+# timed decisions; pricing card against numpy within LOOP_PRICE_TOL
+# (relative and absolute, as np.allclose)
+LOOP_EPISODES, LOOP_ENVS, LOOP_STATES, LOOP_SLOTS, LOOP_DECIDES = 60, 8, 16, 6, 20
+LOOP_PRICE_TOL = 1e-6
 # card vs CPU, f32 logits of order 1: sums run in other orders on the two
 # devices through 24 blocks, hence 1e-3 for bf16 and w4. In w8 such a
 # difference can also flip an int8 activation code (x / scale within
@@ -708,6 +734,126 @@ def phase_main_path(dev):
           and launches["quant_matmul"] == reps * len(CUTS) * 7 * cfg.n_layers,
           "launch counts over the main path run")
     return cfg, model, eng, batch, launches, times
+
+
+def phase_closed_loop(dev, cfg, eng, batch):
+    """3a. The paper's loop on the card: A2C trained on the transformer env
+    of ``cfg`` at the served sequence length, its greedy decisions executed
+    by phase 3's engine (its bf16/w8/w4 models), the bytes at the cut held
+    against the table's."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import (A2CConfig, decide, env_reset, env_step, make_tpu_env,
+                                  measured_state, pricing, train_agent, transformer_profile)
+    from repro_torch.core.actor_critic import Agent
+    from repro_torch.core.baselines import greedy_oracle
+    from repro_torch.launch import split_serving as loop
+    print(f"== 3a. closed loop: A2C on the transformer env of full-width {cfg.name} "
+          f"(seq {SEQ}), decisions served by SplitServingEngine on {BATCH} x {SEQ} tokens")
+
+    env_cfg, tables = make_tpu_env([cfg.name], seq_len=SEQ, device=dev)
+    _, cpu_tables = make_tpu_env([cfg.name], seq_len=SEQ, device="cpu")
+    arrays = [f.name for f in dataclasses.fields(tables)
+              if isinstance(getattr(tables, f.name), torch.Tensor)]
+    check(tables.device == dev and all(
+        torch.equal(getattr(tables, k).cpu(), getattr(cpu_tables, k)) for k in arrays),
+        f"tables built on the card equal the CPU's exactly ({', '.join(arrays)}; "
+        f"{tables.n_versions} versions x {tables.n_cuts} cuts)")
+
+    ac = A2CConfig(episodes=LOOP_EPISODES, batch_envs=LOOP_ENVS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent, hist = train_agent(env_cfg, tables, ac, seed=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    rewards = [h["mean_reward"] for h in hist]
+    first, last = statistics.mean(rewards[:15]), statistics.mean(rewards[-15:])
+    finite = all(math.isfinite(h["loss"]) for h in hist)
+    check(finite and last > first,
+          f"A2C on the card: {LOOP_EPISODES} updates of {LOOP_ENVS} envs x "
+          f"{env_cfg.episode_len} slots in {train_s:.2f} s "
+          f"({train_s / LOOP_EPISODES * 1e3:.1f} ms an update), losses finite={finite}, "
+          f"mean reward first 15 {first:+.5f} -> last 15 {last:+.5f}")
+
+    # the trained controller on the CPU: same decisions, same prices
+    cpu_agent = Agent({k: v.detach().cpu() for k, v in agent.flat_params().items()})
+    r = np.random.default_rng(11)
+    lp, pw = env_cfg.latency, env_cfg.power
+    same, worst, states = 0, 0.0, []
+    for _ in range(LOOP_STATES):
+        kw = dict(battery_j=r.uniform(0.0, pw.battery_j, 1),
+                  bandwidth=r.uniform(lp.bw_min_bps, lp.bw_max_bps, 1),
+                  p_tx=r.uniform(pw.p_tx_min, pw.p_tx_max, 1),
+                  queue_jobs=float(r.uniform(0.0, 15.0)), load=r.uniform(0.0, 1.0, 1))
+        s_card = measured_state(env_cfg, tables, **kw)
+        s_cpu = measured_state(env_cfg, cpu_tables, **kw)
+        a_card = decide(agent, env_cfg, tables, s_card)
+        a_cpu = decide(cpu_agent, env_cfg, cpu_tables, s_cpu)
+        same += bool(torch.equal(a_card.cpu(), a_cpu))
+        states.append((s_card, a_card))
+        br = pricing.price_actions(env_cfg, tables, pricing.view_from_state(s_card), a_card)
+        view = pricing.view_from_state({k: v.numpy() for k, v in s_cpu.items()})
+        ref = pricing.price_actions(env_cfg, pricing.numpy_tables(cpu_tables), view,
+                                    a_cpu.numpy(), xp=np)
+        for f in dataclasses.fields(pricing.PricingBreakdown):
+            got = getattr(br, f.name).cpu().numpy().astype(np.float64)
+            want = np.asarray(getattr(ref, f.name), dtype=np.float64)
+            err = np.abs(got - want) / (LOOP_PRICE_TOL + np.abs(want))
+            worst = max(worst, float(err.max()))
+    check(same == LOOP_STATES and worst <= LOOP_PRICE_TOL,
+          f"{LOOP_STATES} measured states: decide on the card equals decide on the CPU "
+          f"({same}/{LOOP_STATES}); price_actions card against xp=numpy: worst "
+          f"|d| / ({LOOP_PRICE_TOL} + |numpy|) = {worst:.3g} (limit {LOOP_PRICE_TOL})")
+
+    # serving: decide -> resolve -> infer -> price -> env_step
+    profile = transformer_profile(cfg, seq_len=SEQ)
+    cut_bytes = pricing.numpy_tables(tables).cut_bytes
+    gen = torch.Generator(device=dev).manual_seed(7)
+    state = env_reset(env_cfg, tables, gen)
+    print(f"  {loop.HEADER}")
+    _reset_counts()
+    records = []
+
+    def serve(state, actions, what):
+        before = _counts()
+        rec = loop.serve_slot(eng, cfg, profile, env_cfg, tables, state, actions, batch,
+                              cut_bytes)
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        want = _launches(flash_attention=cfg.n_layers,
+                         quant_matmul=7 * cfg.n_layers if rec["version"] == "w8" else 0)
+        check(not rec["terminal"] and rec["measured_bytes"] == rec["expected_bytes"]
+              and rec["logits_finite"] and rec["logits_shape"] == (BATCH, SEQ, cfg.vocab_size)
+              and delta == want,
+              f"{loop.format_slot(len(records), rec)}  {what}, launches {delta}")
+        records.append(rec)
+
+    for _ in range(LOOP_SLOTS):
+        actions = decide(agent, env_cfg, tables, state)
+        serve(state, actions, "controller")
+        state, _, _ = env_step(env_cfg, tables, state, actions, gen)
+    if not any(rec["version"] == "w8" for rec in records):
+        # the w8 path (quant_matmul) runs in this phase on every run
+        actions = greedy_oracle(env_cfg, tables, state).clone()
+        actions[:, 0] = [v.version for v in profile.versions].index("w8")
+        serve(state, actions, "w8 at greedy_oracle's cut (the controller chose no w8)")
+    launches = _counts()
+
+    decide_ms = []
+    for s_card, _ in (states * 2)[:LOOP_DECIDES]:
+        t0 = time.perf_counter()
+        decide(agent, env_cfg, tables, s_card)
+        torch.cuda.synchronize()
+        decide_ms.append((time.perf_counter() - t0) * 1e3)
+    timing = {"train_s": train_s, "ms_per_update": train_s / LOOP_EPISODES * 1e3,
+              "reward_first15": first, "reward_last15": last,
+              "decide_ms_median": statistics.median(decide_ms),
+              "slots": [{"version": rec["version"], "cut": list(rec["cut"]),
+                         "infer_ms": rec["infer_ms"], "bytes": rec["measured_bytes"]}
+                        for rec in records]}
+    print(f"  decide (eager, {LOOP_DECIDES} calls): median {timing['decide_ms_median']:.3f} ms; "
+          f"closed-loop launches {launches}")
+    return launches, timing
 
 
 def phase_decode_serving(cfg, model, batch):
@@ -1453,12 +1599,19 @@ def time_rglru_scan(dev, g, err, launches):
 
 
 def _int_mm_ms(ops, iters):
-    """``torch._int_mm`` plus the rescale over ``ops``, or None where it
-    refuses a shape (it takes M > 16 and K, N multiples of 8)."""
+    """``torch._int_mm`` plus the rescale over ``ops``, its rows zero-padded
+    to INT_MM_MIN_M where there are fewer (it takes M > 16; the padding is
+    built outside the timing), or None where it refuses a shape (K, N no
+    multiples of 8)."""
     import torch
+    padded = []
+    for x, w, xs, ws, _ in ops:
+        pad = max(INT_MM_MIN_M - x.shape[0], 0)
+        padded.append((torch.cat([x, x.new_zeros(pad, x.shape[1])]),
+                       w, torch.cat([xs, xs.new_zeros(pad)]), ws))
     try:
         return cuda_ms(lambda: [torch._int_mm(x, w).float() * xs[:, None] * ws[None, :]
-                                for x, w, xs, ws, _ in ops], iters)
+                                for x, w, xs, ws in padded], iters)
     except RuntimeError as e:
         print(f"  torch._int_mm unavailable: {str(e).splitlines()[0]}")
         return None
@@ -1485,10 +1638,14 @@ def _time_qmm(dev, g, M, shapes, what, iters=20):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plans = sorted({f"{p.regime} {p.tiles}x{p.splits}"
                     for p in (qmm.plan(M, N, K, sms) for K, N in shapes)})
-    return {"ms": cuda_ms(call, iters), "device_ms": graph_ms(call, iters),
-            "plain_ms": cuda_ms(lambda: [qmm.quant_matmul_ref(*a[:4]) for a in ops], 5),
-            "library_ms": _int_mm_ms(ops, iters), "bound_ms": bound, "bound_by": by,
-            "shape": f"{what}: M={M}, (K,N) {list(shapes)}, plans {plans}"}
+    row = {"ms": cuda_ms(call, iters), "device_ms": graph_ms(call, iters),
+           "plain_ms": cuda_ms(lambda: [qmm.quant_matmul_ref(*a[:4]) for a in ops], 5),
+           "library_ms": _int_mm_ms(ops, iters), "bound_ms": bound, "bound_by": by,
+           "shape": f"{what}: M={M}, (K,N) {list(shapes)}, plans {plans}"}
+    if M < INT_MM_MIN_M:
+        row["library_padded_m"] = INT_MM_MIN_M
+        row["shape"] += f"; library_ms: torch._int_mm on rows zero-padded to M={INT_MM_MIN_M}"
+    return row
 
 
 def time_quant_matmul(dev, g, err, launches):
@@ -1584,6 +1741,7 @@ def main() -> int:
     smi = phase_build()
     qmm_err, ms_err, rs_err = phase_kernel_checks(dev)
     cfg, model, eng, batch, launches, times = phase_main_path(dev)
+    loop_launches, loop_timing = phase_closed_loop(dev, cfg, eng, batch)
     dec_launches, dec_timing = phase_decode_serving(cfg, model, batch)
     phase_split_equals_full(cfg, model, batch)
     cpu_model = phase_card_vs_cpu(cfg, model, eng, batch)
@@ -1606,9 +1764,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels = phase_timing(dev, qmm_err, ms_err, rs_err, {
-        **launches, "flash_decode": dec_launches["flash_decode"],
+        **{k: launches[k] + loop_launches[k] for k in launches},
+        "flash_decode": dec_launches["flash_decode"],
         "mamba_scan": fm_launches["mamba_scan"], "rglru_scan": rg_launches["rglru_scan"]})
-    paths = {f"{cfg.name} split": launches, f"{cfg.name} decode": dec_launches,
+    paths = {f"{cfg.name} split": launches, f"{cfg.name} closed loop": loop_launches,
+             f"{cfg.name} decode": dec_launches,
              f"{FM_ARCH} split": fm_launches, f"{FM_ARCH} decode": fm_dec_launches,
              f"{RG_ARCH} split": rg_launches, f"{RG_ARCH} decode": rg_dec_launches}
     for kern in kernels:
@@ -1616,6 +1776,7 @@ def main() -> int:
 
     print(f"{cfg.name} per-infer ms (median of 3), {BATCH} x {SEQ} tokens: " + json.dumps(
         {k: statistics.median(v) for k, v in times.items()}))
+    print(f"{cfg.name} closed loop: " + json.dumps(loop_timing))
     print(f"{cfg.name} decode serving: " + json.dumps(dec_timing))
     print(f"{FM_ARCH} per-infer ms (median of 3), {FM_BATCH} x {FM_SEQ} tokens: " + json.dumps(
         {k: statistics.median(v) for k, v in fm_times.items()}))

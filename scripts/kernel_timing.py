@@ -20,7 +20,8 @@ CUDA-event timers, eager (``eager_ms``: as a caller launches it, the
 wrapper's host work included) and replayed as one CUDA graph
 (``device_ms``: device time alone); for ``flash_decode`` and the decode
 step's ``quant_matmul`` also the host microseconds a call (the wrapper's
-path).
+path); for ``quant_matmul`` also ``torch._int_mm`` plus the rescale
+(``library_ms``), at M = 8 on rows zero-padded to its least M, 17.
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (this
 checkout's by default), so one call can time two commits in turn, each
@@ -45,8 +46,9 @@ sys.path.insert(0, str(ROOT))
 # chip_smoke's timers, inputs and path shapes (importing it runs and imports
 # nothing else)
 from chip_smoke import (BATCH, FA_PATHS, FD_PATHS, FM_ARCH, FM_BATCH, FM_SEQ,  # noqa: E402
-                        QMM_LAYER, RG_QMM_LAYER, RG_SPLIT_BATCH, RG_SPLIT_SEQ, RS_PATHS, SEQ,
-                        _qmm_inputs, _rglru_inputs, _scan_inputs, cuda_ms, graph_ms)
+                        INT_MM_MIN_M, QMM_LAYER, RG_QMM_LAYER, RG_SPLIT_BATCH, RG_SPLIT_SEQ,
+                        RS_PATHS, SEQ, _int_mm_ms, _qmm_inputs, _rglru_inputs, _scan_inputs,
+                        cuda_ms, graph_ms)
 
 
 def _host_us(fn, iters: int = 20) -> float:
@@ -114,9 +116,10 @@ def main(argv=None) -> int:
                              RG_SPLIT_BATCH * RG_SPLIT_SEQ, RG_QMM_LAYER),
                             ("falcon-mamba-7b head", FM_BATCH * FM_SEQ,
                              ((fm.d_model, fm.vocab_size),))):
-        calls = []
+        calls, library = [], []
         for K, N in shapes:
             x, w, xs, ws = _qmm_inputs(M, K, N, g, dev)
+            library.append((x, w, xs, ws, None))
             try:     # a wrapper that takes no K-major weight refuses it
                 qmm.quant_matmul(x, w.t().contiguous().t(), xs, ws)
                 w = w.t().contiguous().t()
@@ -128,7 +131,10 @@ def main(argv=None) -> int:
             for args in calls:
                 qmm.quant_matmul(*args)
         row = {"kernel": "quant_matmul", "shape": what, "M": M, "KN": shapes,
-               "eager_ms": cuda_ms(layer, 30), "device_ms": graph_ms(layer, 30)}
+               "eager_ms": cuda_ms(layer, 30), "device_ms": graph_ms(layer, 30),
+               "library_ms": _int_mm_ms(library, 30)}
+        if M < INT_MM_MIN_M:
+            row["library_padded_m"] = INT_MM_MIN_M
         if M == BATCH:   # the decode step: host-bound, so its host path too
             row["host_us"] = _host_us(layer) / len(shapes)
         rows.append(row)

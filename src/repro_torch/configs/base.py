@@ -132,6 +132,19 @@ class ModelConfig:
     def cdtype(self) -> torch.dtype:
         return torch_dtype(self.compute_dtype)
 
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer block kind of the decoder trunk: "attn", "rec" (RG-LRU),
+        "ssm" (mamba) or "xattn" (cross-attention)."""
+        if self.ssm:
+            return ("ssm",) * self.n_layers
+        if self.block_pattern:
+            p = self.block_pattern
+            return tuple(p[i % len(p)] for i in range(self.n_layers))
+        if self.cross_attn_every:
+            return tuple("xattn" if (i + 1) % self.cross_attn_every == 0
+                         else "attn" for i in range(self.n_layers))
+        return ("attn",) * self.n_layers
+
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

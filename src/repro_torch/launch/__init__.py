@@ -1,1 +1,2 @@
-"""Launchers (port in progress): the serving CLI."""
+"""Launchers (port in progress): the serving CLI, the closed loop of
+controller and split serving, and the decode profile."""

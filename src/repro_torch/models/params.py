@@ -148,6 +148,17 @@ def _init_leaf(p: P, generator: torch.Generator, dtype, device):
     return x.mul_(std).to(dtype)
 
 
+def materialize(plan: Mapping[str, P], generator: torch.Generator,
+                dtype: torch.dtype = torch.float32,
+                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """{leaf path: P} -> {leaf path: tensor}, drawn from ``generator`` (on
+    ``device``) leaf by leaf in sorted path order; ``P.dtype`` overrides
+    ``dtype``."""
+    dev = resolve_device(device)
+    return {path: _init_leaf(p, generator, torch_dtype(p.dtype) if p.dtype else dtype, dev)
+            for path, p in sorted(plan.items())}
+
+
 def init(cfg: ModelConfig, generator: torch.Generator,
          device: DeviceLike = None) -> CausalLM:
     """A model with the reference's init distributions (fan-in normal for
