@@ -6,7 +6,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 1. Build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``.
 2. Kernel checks: hold each kernel against its plain PyTorch version on the
    card (quant_matmul bit for bit at qwen2-0.5b's seven projections for M =
-   1, 8, 16, 37, 64, 65 and 4096, both sides of its regime bound, at
+   1, 8, 16, 37, 64, 65, 512 (the fleet loop's) and 4096, both sides of
+   its regime bound, at
    recurrentgemma-2b's for M = 2 and 2048, at ragged edges of both regimes
    (M, K, N = 37, 100, 200 and 8, 4864, 200 split; 4096, 912, 200, 65,
    1040, 100 and 8, 144, 4100 wgmma) and at falcon-mamba's head, each with
@@ -17,8 +18,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    as the JAX package's kernel tests), including GQA cases in which h % HK
    and h // G give different answers, mamba_scan also at N = 4, 8, 16, 32
    and 5, S no multiple of its 32-step chunk and a bf16 u, flash_attention
-   at head_dim 128
-   (causal and not, 40 and 512 tokens), MQA at head_dim 256 with a window
+   at B = 1 x 512 tokens (the fleet loop's, also in the model's layout),
+   at head_dim 128 (causal and not, 40 and 512 tokens), MQA at head_dim 256 with a window
    of 2048 over 2304 positions and over a wrapped ring, flash_decode's
    split edges (a window of 96 in a wrapped 2048-slot ring, C = 200, G = 1,
    2, 7, 10 and 20), its split calls alternating on two streams (a
@@ -47,6 +48,27 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    infer (else 0), logits finite; when the controller picks no w8, the w8
    version at greedy_oracle's cut is served too. ``decide`` is timed (median
    of 20, eager) and each slot's infer.
+3c. Fleet loop: the ``tpu-execute`` preset's world (2 devices, Poisson 100
+   rps a device, 1 s slots, SLO 0.05 s, 2,000 requests, seed 0) at full
+   width, ``make_tpu_env(["qwen2-0.5b"] * 2, seq_len=512)`` on the card.
+   An ``A2CPolicy`` trains on the card through ``make_task_sampler`` of the
+   preset's training trace (30 updates of 8 envs, losses finite). For
+   greedy_oracle, device_only, full_offload and a2c, ``simulate`` decides
+   on the card each epoch and ``ExecuteBackend`` (sample 8, seq 512) serves
+   sampled requests through phase 3's engine: bytes at the cut exact,
+   logits finite, 24 flash_attention launches an executed infer (a warm and
+   a timed infer a sample) and 168 quant_matmul launches a w8 infer (else
+   0; when no policy picks w8, the w8 version at greedy_oracle's cut runs
+   as a fifth policy); its SimResult equals the CPU's (tables on the CPU,
+   ``AnalyticalBackend``, a2c weights copied) bit for bit, and the
+   vectorized engine's on the card. Then ``paper-mmpp-burst`` with the
+   three static policies on seeds 0, 2 and 4 at 20,000 requests, card
+   equal to CPU bit for bit. Printed: wall time, epochs and simulated
+   requests a second for each run, the median decide (measured_state +
+   act + host copy, ``SimResult.decide_s`` of those runs) on the card and
+   the CPU, each sample's wall time and
+   the latency ratios (reported, not checked), the card's name and power
+   limit.
 3b. Decode serving: ``ServingEngine`` generates 64 tokens greedily for
    8 x 512-token prompts (cache_len 576), 24 flash_attention launches per
    prefill and 24 flash_decode launches per decode step; one more generate
@@ -142,8 +164,9 @@ BATCH, SEQ, CPU_SEQ = 8, 512, 128
 QMM_LAYER = ((896, 896), (896, 128), (896, 128), (896, 896),
              (896, 4864), (896, 4864), (4864, 896))
 # quant_matmul's phase-2 rows: both sides of the small-M regime's bound
-# (SPLIT_M_MAX = 64) and the decode step's M = 8 and the split path's 4096
-QMM_ROWS = (1, 8, 16, 37, 64, 65, BATCH * SEQ)
+# (SPLIT_M_MAX = 64) and the decode step's M = 8, the fleet loop's 1 x 512
+# (ExecuteBackend's batch) and the split path's 4096
+QMM_ROWS = (1, 8, 16, 37, 64, 65, SEQ, BATCH * SEQ)
 # (K, N) of recurrentgemma-2b's w8 projections: q and o, k and v (MQA),
 # GeGLU gate and up, down; and a ragged shape (M, K, N)
 RG_QMM_LAYER = ((2560, 2560), (2560, 256), (2560, 256), (2560, 2560),
@@ -185,6 +208,10 @@ CPU_NEW = 16
 # (relative and absolute, as np.allclose)
 LOOP_EPISODES, LOOP_ENVS, LOOP_STATES, LOOP_SLOTS, LOOP_DECIDES = 60, 8, 16, 6, 20
 LOOP_PRICE_TOL = 1e-6
+# the fleet loop (phase 3c): the tpu-execute preset's devices at full width,
+# A2C trained on the card for FLEET_EPISODES updates of FLEET_ENVS envs (the
+# path, not learning)
+FLEET_DEVICES, FLEET_EPISODES, FLEET_ENVS = 2, 30, 8
 # card vs CPU, f32 logits of order 1: sums run in other orders on the two
 # devices through 24 blocks, hence 1e-3 for bf16 and w4. In w8 such a
 # difference can also flip an int8 activation code (x / scale within
@@ -311,11 +338,11 @@ def phase_kernel_checks(dev):
     qmm_err = check_quant_matmul(dev, g)
 
     H, HK, D = 14, 2, 64
-    for S in (8, 40, 512, 2048):
+    # B = 1 at S = 512: the fleet loop's executed infers (phase 3c)
+    for B, S in ((2, 8), (2, 40), (2, 512), (1, SEQ), (2, 2048)):
         for causal in (True, False):
             for window in (None, 64):
                 for dtype in (torch.float32, torch.bfloat16):
-                    B = 2
                     q = torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)
                     k = torch.randn(B, HK, S, D, generator=g, device=dev).to(dtype)
                     v = torch.randn(B, HK, S, D, generator=g, device=dev).to(dtype)
@@ -352,11 +379,14 @@ def phase_kernel_checks(dev):
 
 
 def check_flash_attention_wide(dev, g):
-    """flash_attention at head_dim 128 and at recurrentgemma's 256."""
+    """flash_attention at head_dim 128, at recurrentgemma's 256, and at
+    the fleet loop's qwen2 shape, in the model's (B, S, H, D) layout."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     cases = ([(B, H, HK, S, causal, None, 128) for B, H, HK, S, causal in FA128_CASES]
-             + [(B, H, HK, S, True, window, 256) for B, H, HK, S, window in FA256_CASES])
+             + [(B, H, HK, S, True, window, 256) for B, H, HK, S, window in FA256_CASES]
+             # the fleet loop's executed infer (phase 3c), in the model's layout
+             + [(1, 14, 2, SEQ, True, None, 64)])
     for B, H, HK, S, causal, window, D in cases:
         for dtype in (torch.float32, torch.bfloat16):
             # the model's layout: (B, S, H, D) projections viewed as (B, H, S, D)
@@ -853,6 +883,169 @@ def phase_closed_loop(dev, cfg, eng, batch):
                         for rec in records]}
     print(f"  decide (eager, {LOOP_DECIDES} calls): median {timing['decide_ms_median']:.3f} ms; "
           f"closed-loop launches {launches}")
+    return launches, timing
+
+
+def same_sim_result(a, b) -> bool:
+    """Two SimResults bit for bit, the cross-check aside: summary,
+    selection histogram, every epoch-log column, per-request latencies."""
+    import numpy as np
+    ca, cb = a.epoch_log.columns, b.epoch_log.columns
+    return (a.summary == b.summary and np.array_equal(a.selection_hist, b.selection_hist)
+            and set(ca) == set(cb) and all(np.array_equal(ca[k], cb[k]) for k in ca)
+            and np.array_equal(a.metrics.latencies_s, b.metrics.latencies_s))
+
+
+def phase_fleet_loop(dev, cfg, eng, smi):
+    """3c. The fleet loop: the tpu-execute preset's world at full width,
+    its traffic simulated by ``simulate`` with the policy deciding on the
+    card each epoch and ``ExecuteBackend`` serving sampled requests
+    through phase 3's engine; then card against CPU bit for bit, the
+    vectorized engine against the loop, and paper-mmpp-burst."""
+    import numpy as np
+    import torch
+    from repro_torch.core import make_tpu_env, transformer_profile
+    from repro_torch.core.actor_critic import Agent
+    from repro_torch.core.baselines import greedy_oracle
+    from repro_torch.policies import A2CPolicy, StaticPolicy, build_policy
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.sim import AnalyticalBackend, ExecuteBackend, FleetConfig, simulate
+    sc = get_scenario("tpu-execute")
+    print(f"== 3c. fleet loop: the {sc.name} world at full width ({FLEET_DEVICES} x "
+          f"{cfg.name}, seq {SEQ}), {sc.trace} {sc.trace_kw} rps a device, "
+          f"{sc.slot_seconds} s slots, SLO {sc.slo_s} s, {sc.n_requests} requests, seed "
+          f"{sc.seeds[0]}; ExecuteBackend (sample {sc.sample}) over phase 3's engine")
+
+    def world(device):
+        env_cfg, tables = make_tpu_env([cfg.name] * FLEET_DEVICES, weights=sc.weights,
+                                       reduced=False, seq_len=SEQ,
+                                       slot_seconds=sc.slot_seconds, peak_rps=sc.peak_rps,
+                                       device=device)
+        return env_cfg, tables
+
+    env_cfg, tables = world(dev)
+    cpu_env, cpu_tables = world("cpu")
+    profile = transformer_profile(cfg, seq_len=SEQ)
+    mids = np.zeros(FLEET_DEVICES, np.int32)
+    trace = sc.build_trace()
+    fleet = FleetConfig(slo_s=sc.slo_s, engine="loop")
+
+    a2c = A2CPolicy(env_cfg, tables, episodes=FLEET_EPISODES, batch_envs=FLEET_ENVS,
+                    entropy_coef=sc.entropy_coef)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = a2c.train(seed=sc.train_seed, trace=sc.build_train_trace())
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    finite = all(math.isfinite(h["loss"]) for h in hist)
+    check(finite and len(hist) == FLEET_EPISODES,
+          f"A2CPolicy trained on the card through make_task_sampler({sc.build_train_trace()}): "
+          f"{FLEET_EPISODES} updates of {FLEET_ENVS} envs in {train_s:.2f} s, losses "
+          f"finite={finite}")
+    cpu_a2c = A2CPolicy(cpu_env, cpu_tables).set_params(
+        Agent({k: v.detach().cpu() for k, v in a2c.params.flat_params().items()}))
+    names = ["greedy_oracle", "device_only", "full_offload", "a2c"]
+    card = {n: a2c if n == "a2c" else build_policy(n, env_cfg, tables) for n in names}
+    cpu = {n: cpu_a2c if n == "a2c" else build_policy(n, cpu_env, cpu_tables) for n in names}
+
+    def w8_at_oracle_cut(env_, tables_, state, generator=None):
+        actions = greedy_oracle(env_, tables_, state).clone()
+        actions[:, 0] = [v.version for v in profile.versions].index("w8")
+        return actions
+
+    timing = {"card": smi, "a2c_train_s": train_s, "policies": {}}
+    _reset_counts()
+    w8_served = False
+    for name in names:
+        backend = ExecuteBackend(env_cfg, tables, [cfg], [profile], [eng], seq_len=SEQ,
+                                 sample=sc.sample)
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simulate(env_cfg, tables, card[name], trace, n_requests=sc.n_requests,
+                       seed=sc.seeds[0], fleet=fleet, backend=backend, model_ids=mids)
+        wall = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        cc = res.cross_check or {}
+        recs = cc.get("records", [])
+        n_w8 = sum(r["version"] == "w8" for r in recs)
+        w8_served |= n_w8 > 0
+        want = _launches(flash_attention=2 * len(recs) * cfg.n_layers,
+                         quant_matmul=2 * n_w8 * 7 * cfg.n_layers)
+        ratios = [r["wall_s"] / r["est_s"] for r in recs]
+        check(cc.get("bytes_exact") is True and cc["samples"] > 0
+              and all(r["logits_finite"] for r in recs)
+              and all(math.isfinite(x) for x in ratios + [cc["latency_ratio_median"],
+                                                          cc["latency_ratio_max"]])
+              and delta == want,
+              f"{name}: {res.epochs} epochs, {res.served} requests in {wall:.3f} s "
+              f"({res.served / wall:.0f} simulated requests/s), slo_attainment "
+              f"{res.summary['slo_attainment']:.4f}; cross-check {cc.get('samples')} samples "
+              f"({n_w8} w8) bytes_exact={cc.get('bytes_exact')} logits finite, launches "
+              f"{delta} (2 infers a sample: {cfg.n_layers} flash_attention an infer, "
+              f"{7 * cfg.n_layers} quant_matmul a w8 infer)")
+        print(f"    samples (version, cut, bytes, wall_s): " + json.dumps(
+            [(r["version"], r["cut"][1], r["measured_bytes"], round(r["wall_s"], 5))
+             for r in recs]))
+        print(f"    latency ratio (reported, not checked): median "
+              f"{cc.get('latency_ratio_median')} max {cc.get('latency_ratio_max')} "
+              f"within {cc.get('latency_tolerance')}x: {cc.get('latency_within_tolerance')}")
+        ref = simulate(cpu_env, cpu_tables, cpu[name], trace, n_requests=sc.n_requests,
+                       seed=sc.seeds[0], fleet=fleet,
+                       backend=AnalyticalBackend(cpu_env, cpu_tables), model_ids=mids)
+        vec = simulate(env_cfg, tables, card[name], trace, n_requests=sc.n_requests,
+                       seed=sc.seeds[0], model_ids=mids,
+                       fleet=FleetConfig(slo_s=sc.slo_s, engine="vectorized"))
+        check(same_sim_result(res, ref) and same_sim_result(res, vec),
+              f"{name}: card = CPU (tables on the CPU, AnalyticalBackend) and vectorized "
+              f"= loop on the card, bit for bit (summary, selection_hist, epoch_log, "
+              f"latencies)")
+        timing["policies"][name] = {
+            "epochs": res.epochs, "wall_s": wall, "requests_per_s": res.served / wall,
+            "decide_ms_median": 1e3 * float(np.median(res.decide_s)),
+            "cpu_decide_ms_median": 1e3 * float(np.median(ref.decide_s)),
+            "sample_wall_s": [r["wall_s"] for r in recs],
+            "latency_ratio_median": cc.get("latency_ratio_median"),
+            "latency_ratio_max": cc.get("latency_ratio_max"),
+            "latency_within_tolerance": cc.get("latency_within_tolerance")}
+        print(f"    decide (measured_state + act + host copy, timed in these runs) median "
+              f"{timing['policies'][name]['decide_ms_median']:.3f} ms an epoch on the card, "
+              f"{timing['policies'][name]['cpu_decide_ms_median']:.3f} ms on the CPU")
+        if name == names[-1] and not w8_served:
+            # the w8 path (quant_matmul) runs in this phase on every run
+            names.append("w8@greedy_oracle")
+            card[names[-1]] = StaticPolicy(env_cfg, tables, w8_at_oracle_cut)
+            cpu[names[-1]] = StaticPolicy(cpu_env, cpu_tables, w8_at_oracle_cut)
+    launches = _counts()
+
+    mm = get_scenario("paper-mmpp-burst")
+    env_c, tab_c, mids_c, _ = mm.build_env(device=dev)
+    env_h, tab_h, mids_h, _ = mm.build_env(device="cpu")
+    same, t_card, epochs, decide_card, decide_cpu = 0, 0.0, 0, [], []
+    for name in ("greedy_oracle", "device_only", "full_offload"):
+        pc, ph = build_policy(name, env_c, tab_c), build_policy(name, env_h, tab_h)
+        for seed in mm.seeds:
+            t0 = time.perf_counter()
+            a = simulate(env_c, tab_c, pc, mm.build_trace(), n_requests=mm.n_requests,
+                         seed=seed, fleet=FleetConfig(slo_s=mm.slo_s), model_ids=mids_c)
+            t_card += time.perf_counter() - t0
+            epochs += a.epochs
+            decide_card.append(a.decide_s)
+            b = simulate(env_h, tab_h, ph, mm.build_trace(), n_requests=mm.n_requests,
+                         seed=seed, fleet=FleetConfig(slo_s=mm.slo_s), model_ids=mids_h)
+            same += same_sim_result(a, b)
+            decide_cpu.append(b.decide_s)
+    n_runs = 3 * len(mm.seeds)
+    check(same == n_runs,
+          f"{mm.name}: greedy_oracle, device_only, full_offload on seeds {list(mm.seeds)} at "
+          f"{mm.n_requests} requests: card = CPU bit for bit in {same}/{n_runs} runs "
+          f"({epochs} epochs on the card in {t_card:.2f} s, {epochs / t_card:.0f} epochs/s)")
+    timing[mm.name] = {"epochs": epochs, "card_s": t_card,
+                       "decide_ms_median": 1e3 * float(np.median(np.concatenate(decide_card))),
+                       "cpu_decide_ms_median": 1e3 * float(np.median(np.concatenate(decide_cpu)))}
+    print(f"    decide median {timing[mm.name]['decide_ms_median']:.3f} ms an epoch on the card, "
+          f"{timing[mm.name]['cpu_decide_ms_median']:.3f} ms on the CPU")
+    print(f"  fleet loop launches {launches}; card {smi}")
     return launches, timing
 
 
@@ -1742,6 +1935,7 @@ def main() -> int:
     qmm_err, ms_err, rs_err = phase_kernel_checks(dev)
     cfg, model, eng, batch, launches, times = phase_main_path(dev)
     loop_launches, loop_timing = phase_closed_loop(dev, cfg, eng, batch)
+    fleet_launches, fleet_timing = phase_fleet_loop(dev, cfg, eng, smi)
     dec_launches, dec_timing = phase_decode_serving(cfg, model, batch)
     phase_split_equals_full(cfg, model, batch)
     cpu_model = phase_card_vs_cpu(cfg, model, eng, batch)
@@ -1764,10 +1958,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels = phase_timing(dev, qmm_err, ms_err, rs_err, {
-        **{k: launches[k] + loop_launches[k] for k in launches},
+        **{k: launches[k] + loop_launches[k] + fleet_launches[k] for k in launches},
         "flash_decode": dec_launches["flash_decode"],
         "mamba_scan": fm_launches["mamba_scan"], "rglru_scan": rg_launches["rglru_scan"]})
     paths = {f"{cfg.name} split": launches, f"{cfg.name} closed loop": loop_launches,
+             f"{cfg.name} fleet loop": fleet_launches,
              f"{cfg.name} decode": dec_launches,
              f"{FM_ARCH} split": fm_launches, f"{FM_ARCH} decode": fm_dec_launches,
              f"{RG_ARCH} split": rg_launches, f"{RG_ARCH} decode": rg_dec_launches}
@@ -1777,6 +1972,7 @@ def main() -> int:
     print(f"{cfg.name} per-infer ms (median of 3), {BATCH} x {SEQ} tokens: " + json.dumps(
         {k: statistics.median(v) for k, v in times.items()}))
     print(f"{cfg.name} closed loop: " + json.dumps(loop_timing))
+    print(f"{cfg.name} fleet loop: " + json.dumps(fleet_timing))
     print(f"{cfg.name} decode serving: " + json.dumps(dec_timing))
     print(f"{FM_ARCH} per-infer ms (median of 3), {FM_BATCH} x {FM_SEQ} tokens: " + json.dumps(
         {k: statistics.median(v) for k, v in fm_times.items()}))

@@ -103,13 +103,29 @@ def resolve_selection(model_cfg, profile, j: int, k: int):
 
 
 def make_task_sampler(cfg: EnvConfig, trace, seed: int):
-    """Trace-driven offered load needs ``sim/traces.py``, which the fleet
-    loop slice ports; ``trace=None`` keeps the Bernoulli task draw."""
+    """Adapt a workload trace (``repro_torch.sim.traces.Trace``) into the
+    ``task_sampler(episode) -> (episode_len, n_uavs)`` hook the batched
+    trainer consumes: per-slot offered load counts / (slot * peak_rps),
+    the normalization the fleet simulator feeds ``measured_state``, so
+    the agent learns what bursts look like before it meets them online.
+    Each episode draws from numpy PCG64 seeded by ``SeedSequence([seed,
+    episode])``, as the reference does, so the sequences are its own.
+    ``trace=None`` keeps the Bernoulli task draw; a trace needs
+    cfg.peak_rps > 0 to normalize counts into the load feature."""
     if trace is None:
         return None
-    raise NotImplementedError(
-        "trace-driven training needs repro_torch.sim.traces, ported with "
-        "the fleet loop (ROADMAP section 1, item 2)")
+    if cfg.peak_rps <= 0:
+        raise ValueError("trace-driven training needs cfg.peak_rps > 0 "
+                         "to normalize counts into the load feature")
+
+    def task_sampler(episode):
+        rng = np.random.default_rng(np.random.SeedSequence([seed, episode]))
+        gen = trace.stream(rng, cfg.n_uavs, cfg.slot_seconds)
+        rows = [next(gen) for _ in range(cfg.episode_len)]
+        return np.clip(np.asarray(rows, dtype=np.float32)
+                       / (cfg.slot_seconds * cfg.peak_rps), 0.0, 1.0)
+
+    return task_sampler
 
 
 def train_agent(cfg: EnvConfig, tables: ProfileTables,

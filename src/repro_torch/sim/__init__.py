@@ -1,5 +1,36 @@
-"""Fleet metrics (port in progress): the latency schema the scheduler
-reports through."""
-from repro_torch.sim.metrics import LATENCY_SCHEMA, summarize_latencies
+"""repro_torch.sim: trace-driven fleet simulator closing the loop between
+the EdgeRL controller and the executable serving stack (port of
+``repro.sim``).
 
-__all__ = ["LATENCY_SCHEMA", "summarize_latencies"]
+- ``traces``    — pluggable per-device request arrival generators
+  (Poisson, MMPP bursty, diurnal sinusoid, replay-from-array, uniform).
+- ``metrics``   — per-request latency percentiles, SLO attainment,
+  goodput and energy (schema shared with ``serving.ServerStats``).
+- ``backends``  — request pricing: a fast analytical backend over the
+  numpy pricing core, and an execute backend that cross-checks a sampled
+  subset through ``SplitServingEngine`` (on the card, its kernels).
+- ``fleet``     — the discrete-event loop: each decision epoch the
+  controller picks (version, cut) per device from *measured* state.
+- ``megafleet`` — the vectorized numpy engine behind
+  ``FleetConfig(engine="vectorized")``, bit-identical to the loop.
+
+The reference's ``simulate_scan`` (a jitted ``lax.scan`` engine) is not
+ported yet.
+"""
+from repro_torch.sim.traces import (DiurnalTrace, MMPPTrace, PoissonTrace,
+                                    RandomRateTrace, ReplayTrace, Trace,
+                                    get_trace, presample_counts, trace_names)
+from repro_torch.sim.metrics import (EpochLog, FleetMetrics, LATENCY_SCHEMA,
+                                     summarize_latencies)
+from repro_torch.sim.backends import AnalyticalBackend, ExecuteBackend
+from repro_torch.sim.fleet import ENGINES, FleetConfig, SimResult, simulate
+from repro_torch.sim.megafleet import lindley_core
+
+__all__ = [
+    "Trace", "PoissonTrace", "MMPPTrace", "DiurnalTrace", "ReplayTrace",
+    "RandomRateTrace",
+    "get_trace", "trace_names", "presample_counts",
+    "EpochLog", "FleetMetrics", "LATENCY_SCHEMA", "summarize_latencies",
+    "AnalyticalBackend", "ExecuteBackend", "FleetConfig", "SimResult",
+    "simulate", "ENGINES", "lindley_core",
+]

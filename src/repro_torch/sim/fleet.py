@@ -1,0 +1,319 @@
+"""Discrete-event trace-driven fleet simulator (port of
+``repro.sim.fleet``: the ``"loop"`` and ``"vectorized"`` engines over a
+stationary single-server world).
+
+Each decision epoch (one env slot):
+
+1. the trace delivers per-device request arrivals,
+2. the controller policy picks (version, cut) per device from the
+   *measured* state (observed arrival rate (EWMA), server queue depth,
+   battery, link bandwidth) via ``controller.measured_state``, on the
+   tables' device; the actions come back to the host in one copy,
+3. the pricing backend turns each action into per-request cost
+   constants (head/link/tail times, energy, wire bytes), in numpy,
+4. requests flow through a per-device FIFO: the device serializes
+   head-compute + transmit per request, so completion times follow the
+   Lindley recursion C_k = max(A_k, C_{k-1}) + s, vectorized with a
+   running max,
+5. offloaded tails add the measured server wait (queue * job service
+   time, the env's Eq. 4 term) and feed the server backlog that the
+   *next* epoch's controller observes.
+
+Per-request end-to-end latency, SLO attainment, goodput and energy
+accumulate in ``FleetMetrics``; device backlogs carry across epochs, so
+bursts (MMPP) really queue instead of averaging away.
+
+The world and the trace draw from numpy PCG64 as in the reference, so a
+deterministic policy gives the reference's ``SimResult`` bit for bit.
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP item: the ``"scan"`` engine, drift schedules and online
+adaptation, cluster envs and their autoscaler, and the flight-recorder
+timeline.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.env import EnvConfig, ProfileTables
+from repro_torch.sim import megafleet
+from repro_torch.sim.backends import AnalyticalBackend
+from repro_torch.sim.metrics import EpochLog, FleetMetrics
+from repro_torch.sim.traces import Trace
+
+ENGINES = ("loop", "vectorized")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP section 1, {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    slo_s: float = 1.0            # per-request deadline
+    ewma: float = 0.5             # observed arrival-rate smoothing
+    max_epochs: int = 100_000
+    load_norm_rps: Optional[float] = None   # None -> 2 x trace mean
+    # Cap on the queue depth the *controller observes* (jobs). Fleet
+    # congestion can push the true queue orders of magnitude past
+    # anything the slot-env training distribution contains; an
+    # unclipped value drives the policy nets far out of their trained
+    # input range. Pricing and metrics always use the true queue.
+    queue_obs_clip: float = 25.0
+    record_epochs: bool = True
+    # epoch-flow engine: "loop" walks per-device FIFOs in Python (the
+    # parity oracle); "vectorized" runs the same recursion as fused
+    # (devices,)-array numpy ops (repro_torch.sim.megafleet),
+    # bit-identical under the same seed; the reference's "scan" is not
+    # ported yet
+    engine: str = "loop"
+    # epoch_log bounds for mega-fleet horizons: keep every stride-th
+    # epoch row, stop after cap rows (None = unbounded)
+    log_stride: int = 1
+    log_cap: Optional[int] = None
+    # the reference's flight recorder; not ported yet (must stay False)
+    timeline: bool = False
+
+
+@dataclasses.dataclass
+class SimResult:
+    summary: Dict
+    metrics: FleetMetrics
+    selection_hist: np.ndarray            # (M, V, K) int64 requests per action
+    epochs: int
+    served: int
+    duration_s: float
+    cross_check: Optional[Dict] = None
+    epoch_log: object = dataclasses.field(default_factory=list)   # EpochLog
+    # wall seconds of each epoch's decide: measured_state, act and the
+    # actions' copy to the host (the port's own; not in the reference)
+    decide_s: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0))
+
+    @property
+    def modal_selection(self):
+        h = self.selection_hist
+        out = {}
+        for mi in range(h.shape[0]):
+            if h[mi].sum() > 0:
+                j, k = np.unravel_index(np.argmax(h[mi]), h[mi].shape)
+                out[mi] = (int(j), int(k))
+        return out
+
+
+def _kinetic_power(pw, activity):
+    """The reference's per-device kinetic power (``repro.core.energy.
+    kinetic_power`` on float64 numpy activity), value for value: the
+    forward/vertical/rotate terms summed in float64, the hover share
+    clipped in float32, both added in float32 (JAX's default dtype)."""
+    fwd, vert, rot = activity[:, 0], activity[:, 1], activity[:, 2]
+    hover = np.clip((1.0 - fwd - vert - rot).astype(np.float32), 0.0, 1.0)
+    moving = (fwd * pw.p_forward + vert * pw.p_vertical
+              + rot * pw.p_rotate).astype(np.float32)
+    return moving + hover * np.float32(pw.p_hover)
+
+
+def _queues_loop(counts, alive, free_at, pr, srv_wait, t_now,
+                 slot_seconds, w_rng, metrics, slo_s):
+    """One epoch of request flow, per-device loop (engine="loop").
+
+    The parity oracle for ``megafleet.numpy_queues``: same rng stream
+    (offsets drawn unconditionally for every device with arrivals: the
+    world-rng draw order must not depend on policy-driven state like
+    battery death, or two policies under the same seed would unpair
+    mid-run), same recursion, same device-order metric recording.
+    Mutates ``free_at`` in place; returns slo_hits.
+    """
+    slo_hits = 0
+    for d in range(counts.shape[0]):
+        c = int(counts[d])
+        if c == 0:
+            continue
+        offs = t_now + np.sort(w_rng.uniform(0.0, slot_seconds, c))
+        if not alive[d]:
+            continue                   # dropped: counted by the caller
+        s = pr.head_s[d] + pr.tx_s[d]
+        idx = np.arange(c)
+        start = np.maximum.accumulate(np.maximum(offs, free_at[d])
+                                      - s * idx)
+        done = start + s * (idx + 1)       # head+tx completion times
+        free_at[d] = done[-1]
+        lat = done - offs + pr.tail_s[d]
+        if pr.offloaded[d]:
+            lat = lat + srv_wait
+        metrics.record(lat, np.full(c, pr.energy_j[d]), device=d)
+        slo_hits += int(np.sum(lat <= slo_s))
+    return slo_hits
+
+
+def _check_supported(env_cfg, fleet, schedule, online, autoscaler):
+    if fleet.engine not in ENGINES + ("scan",):
+        raise ValueError(f"unknown fleet engine {fleet.engine!r}; "
+                         f"valid engines: {', '.join(ENGINES)}")
+    if fleet.engine == "scan":
+        raise _not_ported("engine='scan' (a compiled GPU epoch loop)", "item 3")
+    if schedule is not None or online is not None:
+        raise _not_ported("drift schedules and online adaptation (repro.online)",
+                          "item 3")
+    if env_cfg.cluster is not None or autoscaler is not None:
+        raise _not_ported("cluster envs and their ServerPool and autoscaler",
+                          "item 3")
+    if fleet.timeline:
+        raise _not_ported("the flight-recorder timeline (obs.timeline)", "item 3")
+
+
+def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
+             trace: Trace, *, n_requests: int = 100_000, seed: int = 0,
+             fleet: FleetConfig = FleetConfig(),
+             backend: Optional[AnalyticalBackend] = None,
+             model_ids: Optional[Sequence[int]] = None,
+             schedule=None, online=None, autoscaler=None) -> SimResult:
+    """Run the fleet until ``n_requests`` have arrived (or max_epochs).
+
+    ``policy`` is a ``repro_torch.policies.Policy`` built against this
+    same (env_cfg, tables) world: ``act(state, generator) -> (n, 2)``
+    on the tables' device. Each epoch it gets the measured state and a
+    ``torch.Generator`` seeded with ``seed`` on the tables' device, which
+    only sampling policies read.
+
+    The trace and the world dynamics draw from independent numpy
+    generators spawned off one seed, and the draw order is
+    policy-independent, so two policies simulated with the same seed face
+    the *identical* request stream, and the whole run is
+    bit-reproducible. ``schedule``, ``online`` and ``autoscaler`` are the
+    reference's; they raise until ported.
+    """
+    from repro_torch.core.controller import measured_state
+
+    if policy.env_cfg is not env_cfg or policy.tables is not tables:
+        raise ValueError(
+            f"policy {policy.name!r} was built against a different "
+            "(env_cfg, tables) world than this simulation; its decisions "
+            "would silently score under the wrong physics; build it from "
+            "the same objects (run_scenario does this for you)")
+    _check_supported(env_cfg, fleet, schedule, online, autoscaler)
+    cfg = env_cfg
+    n = cfg.n_uavs
+    backend = backend if backend is not None else AnalyticalBackend(cfg, tables)
+    lp, pw = cfg.latency, cfg.power
+
+    ss = np.random.SeedSequence(seed)
+    s_trace, s_world = ss.spawn(2)
+    t_rng = np.random.default_rng(s_trace)
+    w_rng = np.random.default_rng(s_world)
+    generator = torch.Generator(device=tables.device).manual_seed(seed)
+
+    if model_ids is None:
+        model_ids = np.arange(n, dtype=np.int32) % tables.n_models
+    model_ids = np.asarray(model_ids, dtype=np.int32)
+
+    # world state (mirrors env_reset means, drawn from the world rng)
+    battery = np.full(n, pw.battery_j)
+    bw = w_rng.uniform(lp.bw_min_bps, lp.bw_max_bps, n)
+    p_tx = w_rng.uniform(pw.p_tx_min, pw.p_tx_max, n)
+    activity = np.tile(np.asarray(cfg.activity, dtype=np.float64), (n, 1))
+    side_queue = 0.0      # env-style background jobs on the server
+    backlog_s = 0.0       # fleet-induced tail work awaiting service
+    free_at = np.zeros(n)     # absolute time each device drains its FIFO
+    obs_rate = np.full(n, trace.mean_rps)
+    # load normalization must match what the controller trained on:
+    # cfg.peak_rps when the stability-aware env is in play, else a
+    # 2x-mean heuristic for paper-faithful (Bernoulli-task) policies
+    norm_rps = fleet.load_norm_rps or (
+        cfg.peak_rps if cfg.peak_rps > 0 else max(2.0 * trace.mean_rps,
+                                                  1e-9))
+
+    stream = trace.stream(t_rng, n, cfg.slot_seconds)
+    metrics = FleetMetrics(slo_s=fleet.slo_s)
+    hist = np.zeros((tables.n_models, tables.n_versions, tables.n_cuts),
+                    dtype=np.int64)
+    epoch_log = EpochLog(stride=fleet.log_stride, cap=fleet.log_cap)
+    decide_s = []
+    served = 0
+    epoch = 0
+    t_now = 0.0
+
+    while served < n_requests and epoch < fleet.max_epochs:
+        counts = np.asarray(next(stream), dtype=np.int64)
+        alive = battery > 0.0
+        if not alive.any():
+            break
+        queue_jobs = side_queue + backlog_s / lp.job_service_s
+        srv_wait = queue_jobs * lp.job_service_s
+        obs_queue = min(queue_jobs, fleet.queue_obs_clip)
+        load = np.clip(obs_rate / norm_rps, 0.0, 1.0)
+
+        # 1) decide from measured state, on the tables' device; one copy
+        #    of the actions back to the host
+        t_decide = time.perf_counter()
+        state = measured_state(
+            cfg, tables, battery_j=battery, bandwidth=bw, p_tx=p_tx,
+            queue_jobs=obs_queue, load=load,
+            model_id=model_ids, activity=activity, t=epoch)
+        actions = policy.act(state, generator).cpu().numpy()
+        decide_s.append(time.perf_counter() - t_decide)
+
+        # 2) price this epoch's actions
+        pr = backend.price(model_ids, actions, bw, p_tx)
+
+        # 3) flow requests through device FIFOs (Lindley recursion).
+        # Everything outside the queueing recursion itself is shared by
+        # both engines as vectorized expressions: same float summation
+        # order, so the engines stay bit-identical.
+        sel = alive & (counts > 0)
+        dropped = int(counts[~alive].sum())
+        if dropped:
+            metrics.drop(dropped)
+        tail_in_s = float(np.where(sel & pr.offloaded, counts * pr.tail_s, 0.0).sum())
+        queues = megafleet.numpy_queues if fleet.engine == "vectorized" else _queues_loop
+        slo_hits = queues(counts, alive, free_at, pr, srv_wait, t_now,
+                          cfg.slot_seconds, w_rng, metrics, fleet.slo_s)
+        # one scatter-add per epoch instead of a per-device increment
+        np.add.at(hist, (model_ids[sel], actions[sel, 0],
+                         actions[sel, 1]), counts[sel])
+        if sel.any():
+            d0 = int(np.argmax(sel))
+            backend.maybe_execute(int(model_ids[d0]), int(actions[d0, 0]),
+                                  int(actions[d0, 1]))
+
+        # 4) world dynamics (mirrors env_step, on the world rng)
+        kin_p = _kinetic_power(pw, activity)
+        drain = np.where(alive, kin_p * cfg.slot_seconds
+                         + counts * pr.energy_j, 0.0)
+        battery = np.maximum(battery - drain, 0.0)
+        bw = np.clip(bw * np.exp(w_rng.normal(size=n) * 0.15),
+                     lp.bw_min_bps, lp.bw_max_bps)
+        p_tx = np.clip(p_tx + w_rng.normal(size=n) * 0.05,
+                       pw.p_tx_min, pw.p_tx_max)
+        activity = np.clip(activity + w_rng.normal(size=(n, 3))
+                           * cfg.activity_jitter, 0.0, 1.0)
+        activity /= np.maximum(activity.sum(-1, keepdims=True), 1.0)
+        side_queue = max(
+            side_queue + float(w_rng.poisson(cfg.queue_arrival_rate))
+            - cfg.queue_service_per_slot, 0.0)
+        backlog_s = max(backlog_s + tail_in_s - cfg.slot_seconds, 0.0)
+        obs_rate = (1.0 - fleet.ewma) * obs_rate \
+            + fleet.ewma * counts / cfg.slot_seconds
+
+        served += int(counts.sum())
+        t_now += cfg.slot_seconds
+        if fleet.record_epochs:
+            epoch_log.append({
+                "epoch": epoch, "arrivals": int(counts.sum()),
+                "queue_jobs": float(queue_jobs), "backlog_s": float(backlog_s),
+                "dropped": dropped, "slo_hits": slo_hits,
+                "alive": int(alive.sum()), "regime": 0,
+            })
+        epoch += 1
+
+    summary = metrics.summary(duration_s=t_now)
+    summary["epochs"] = epoch
+    summary["requests"] = served
+    return SimResult(summary=summary, metrics=metrics, selection_hist=hist,
+                     epochs=epoch, served=served, duration_s=t_now,
+                     cross_check=backend.cross_check(), epoch_log=epoch_log,
+                     decide_s=np.asarray(decide_s))

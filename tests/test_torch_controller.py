@@ -300,7 +300,8 @@ def test_baselines_match_the_reference(kind):
 
 
 def test_policy_registry():
-    assert policy_names() == ("device_only", "full_offload", "greedy_oracle", "random")
+    assert policy_names() == ("a2c", "device_only", "full_offload", "greedy_oracle",
+                              "random")
     with pytest.raises(KeyError, match="greedy_oracle"):
         build_policy("no-such-policy", *T.make_paper_env(device="cpu"))
 
@@ -335,7 +336,7 @@ def test_core_exports_the_reference_names():
         assert getattr(T, name) is not None
     cfg, tables = T.make_paper_env(device="cpu")
     assert T.make_task_sampler(cfg, None, 0) is None
-    with pytest.raises(NotImplementedError, match="fleet loop"):
+    with pytest.raises(ValueError, match="peak_rps"):
         T.make_task_sampler(cfg, object(), 0)
 
 
