@@ -69,6 +69,25 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    the CPU, each sample's wall time and
    the latency ratios (reported, not checked), the card's name and power
    limit.
+3d. Drift loop: PPO (``core/ppo``) trains on the card on phase 3a's env (60
+   updates of 8 envs, 4 surrogate passes each; losses finite, mean reward
+   of the last 15 updates above the first 15, time per update printed); its
+   decisions equal the CPU's on 16 measured states and 6 of them are served
+   through phase 3's engine as in 3a (a w8 slot always). Then phase 3c's
+   world (2 devices at full width, Poisson 100 rps a device, 1 s slots,
+   analytical pricing) under ``link-brownout`` (onset epoch 30, recovery
+   60, 18,000 requests): device_only, full_offload, greedy_oracle and 3c's
+   A2C frozen, card = CPU bit for bit with ``adaptation`` (per-regime
+   reward, oracle, regret, recovery epochs); the same A2C adapted online at
+   the preset's ``OnlineConfig`` on the card and on the CPU: updates > 0,
+   decisions equal through the first update, the parameters after it
+   within 1e-5 (absolute plus relative), the frozen agent untouched; the
+   rest and the ms per online update and per decide, card and CPU,
+   reported. Host synchronizations an epoch are counted by torch's sync
+   debug mode over an always-adapting run. The adapted agent of the
+   brownout and of the recovered regime each decides a measured state
+   drawn within that regime's bounds, served through phase 3's engine
+   (bytes exact, launches counted); whether the cut moves is printed.
 3b. Decode serving: ``ServingEngine`` generates 64 tokens greedily for
    8 x 512-token prompts (cache_len 576), 24 flash_attention launches per
    prefill and 24 flash_decode launches per decode step; one more generate
@@ -212,6 +231,17 @@ LOOP_PRICE_TOL = 1e-6
 # A2C trained on the card for FLEET_EPISODES updates of FLEET_ENVS envs (the
 # path, not learning)
 FLEET_DEVICES, FLEET_EPISODES, FLEET_ENVS = 2, 30, 8
+# the drift loop (phase 3d): PPO on phase 3a's env (LOOP_EPISODES updates of
+# LOOP_ENVS envs, PPO_EPOCHS surrogate passes each); then phase 3c's world under
+# link-brownout, its onset and recovery inside DRIFT_REQUESTS requests (200 an
+# epoch); the online learner's first update on the card held against the CPU's
+# within DRIFT_PARAM_TOL (absolute plus relative, as np.allclose);
+# SYNC_REQUESTS requests of an always-adapting run counted for host
+# synchronizations
+PPO_EPOCHS = 4
+DRIFT_ONSET, DRIFT_RECOVER, DRIFT_REQUESTS = 30, 60, 18_000
+DRIFT_PARAM_TOL = 1e-5
+SYNC_REQUESTS = 2_000
 # card vs CPU, f32 logits of order 1: sums run in other orders on the two
 # devices through 24 blocks, hence 1e-3 for bf16 and w4. In w8 such a
 # difference can also flip an int8 activation code (x / scale within
@@ -766,6 +796,54 @@ def phase_main_path(dev):
     return cfg, model, eng, batch, launches, times
 
 
+def _serve_one(cfg, eng, batch, env_cfg, tables, state, actions, what, records):
+    """Serve device 0's action through phase 3's engine
+    (``launch/split_serving.serve_slot``) and hold it: bytes at the cut
+    equal to the table's, logits finite, and 24 flash_attention launches
+    (168 quant_matmul for w8, else 0) for the infer."""
+    from repro_torch.core import pricing, transformer_profile
+    from repro_torch.launch import split_serving as loop
+    before = _counts()
+    rec = loop.serve_slot(eng, cfg, transformer_profile(cfg, seq_len=SEQ), env_cfg, tables,
+                          state, actions, batch, pricing.numpy_tables(tables).cut_bytes)
+    delta = {k: v - before[k] for k, v in _counts().items()}
+    want = _launches(flash_attention=cfg.n_layers,
+                     quant_matmul=7 * cfg.n_layers if rec["version"] == "w8" else 0)
+    check(not rec["terminal"] and rec["measured_bytes"] == rec["expected_bytes"]
+          and rec["logits_finite"] and rec["logits_shape"] == (BATCH, SEQ, cfg.vocab_size)
+          and delta == want,
+          f"{loop.format_slot(len(records), rec)}  {what}, launches {delta}")
+    records.append(rec)
+    return rec
+
+
+def _serve_slots(cfg, eng, batch, env_cfg, tables, decide_fn, what):
+    """LOOP_SLOTS slots of ``decide_fn(state)`` -> ``_serve_one`` ->
+    ``env_step`` from an ``env_reset`` state (generator seed 7); when the
+    controller picked no w8, the w8 version at greedy_oracle's cut is
+    served too, so the w8 path (quant_matmul) runs on every run. Returns
+    the slots' records."""
+    import torch
+    from repro_torch.core import env_reset, env_step, transformer_profile
+    from repro_torch.core.baselines import greedy_oracle
+    from repro_torch.launch import split_serving as loop
+    gen = torch.Generator(device=tables.device).manual_seed(7)
+    state = env_reset(env_cfg, tables, gen)
+    print(f"  {loop.HEADER}")
+    records = []
+    for _ in range(LOOP_SLOTS):
+        actions = decide_fn(state)
+        _serve_one(cfg, eng, batch, env_cfg, tables, state, actions, what, records)
+        state, _, _ = env_step(env_cfg, tables, state, actions, gen)
+    if not any(rec["version"] == "w8" for rec in records):
+        actions = greedy_oracle(env_cfg, tables, state).clone()
+        actions[:, 0] = [v.version for v in transformer_profile(cfg, seq_len=SEQ).versions
+                         ].index("w8")
+        _serve_one(cfg, eng, batch, env_cfg, tables, state, actions,
+                   f"w8 at greedy_oracle's cut (the {what} chose no w8)", records)
+    return records
+
+
 def phase_closed_loop(dev, cfg, eng, batch):
     """3a. The paper's loop on the card: A2C trained on the transformer env
     of ``cfg`` at the served sequence length, its greedy decisions executed
@@ -774,11 +852,9 @@ def phase_closed_loop(dev, cfg, eng, batch):
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch.core import (A2CConfig, decide, env_reset, env_step, make_tpu_env,
-                                  measured_state, pricing, train_agent, transformer_profile)
+    from repro_torch.core import (A2CConfig, decide, make_tpu_env, measured_state, pricing,
+                                  train_agent)
     from repro_torch.core.actor_critic import Agent
-    from repro_torch.core.baselines import greedy_oracle
-    from repro_torch.launch import split_serving as loop
     print(f"== 3a. closed loop: A2C on the transformer env of full-width {cfg.name} "
           f"(seq {SEQ}), decisions served by SplitServingEngine on {BATCH} x {SEQ} tokens")
 
@@ -837,36 +913,9 @@ def phase_closed_loop(dev, cfg, eng, batch):
           f"|d| / ({LOOP_PRICE_TOL} + |numpy|) = {worst:.3g} (limit {LOOP_PRICE_TOL})")
 
     # serving: decide -> resolve -> infer -> price -> env_step
-    profile = transformer_profile(cfg, seq_len=SEQ)
-    cut_bytes = pricing.numpy_tables(tables).cut_bytes
-    gen = torch.Generator(device=dev).manual_seed(7)
-    state = env_reset(env_cfg, tables, gen)
-    print(f"  {loop.HEADER}")
     _reset_counts()
-    records = []
-
-    def serve(state, actions, what):
-        before = _counts()
-        rec = loop.serve_slot(eng, cfg, profile, env_cfg, tables, state, actions, batch,
-                              cut_bytes)
-        delta = {k: v - before[k] for k, v in _counts().items()}
-        want = _launches(flash_attention=cfg.n_layers,
-                         quant_matmul=7 * cfg.n_layers if rec["version"] == "w8" else 0)
-        check(not rec["terminal"] and rec["measured_bytes"] == rec["expected_bytes"]
-              and rec["logits_finite"] and rec["logits_shape"] == (BATCH, SEQ, cfg.vocab_size)
-              and delta == want,
-              f"{loop.format_slot(len(records), rec)}  {what}, launches {delta}")
-        records.append(rec)
-
-    for _ in range(LOOP_SLOTS):
-        actions = decide(agent, env_cfg, tables, state)
-        serve(state, actions, "controller")
-        state, _, _ = env_step(env_cfg, tables, state, actions, gen)
-    if not any(rec["version"] == "w8" for rec in records):
-        # the w8 path (quant_matmul) runs in this phase on every run
-        actions = greedy_oracle(env_cfg, tables, state).clone()
-        actions[:, 0] = [v.version for v in profile.versions].index("w8")
-        serve(state, actions, "w8 at greedy_oracle's cut (the controller chose no w8)")
+    records = _serve_slots(cfg, eng, batch, env_cfg, tables,
+                           lambda state: decide(agent, env_cfg, tables, state), "controller")
     launches = _counts()
 
     decide_ms = []
@@ -1046,6 +1095,261 @@ def phase_fleet_loop(dev, cfg, eng, smi):
     print(f"    decide median {timing[mm.name]['decide_ms_median']:.3f} ms an epoch on the card, "
           f"{timing[mm.name]['cpu_decide_ms_median']:.3f} ms on the CPU")
     print(f"  fleet loop launches {launches}; card {smi}")
+    world = {"card": (env_cfg, tables, a2c), "cpu": (cpu_env, cpu_tables, cpu_a2c),
+             "scenario": sc, "model_ids": mids}
+    return launches, timing, world
+
+
+def _timed_updates(times):
+    """Patch ``OnlineLearner._update`` so each update step it builds is
+    timed between two card synchronizations (milliseconds into
+    ``times``); returns the original, to restore."""
+    import torch
+    from repro_torch.online.adapt import OnlineLearner
+    orig = OnlineLearner._update
+
+    def _update(self, n):
+        fn = orig(self, n)
+
+        def timed(*args, **kw):
+            if self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+    OnlineLearner._update = _update
+    return orig
+
+
+def _watch(policy):
+    """Record a policy's decisions and the agents it is handed: each
+    hot-swap's epoch (the number of decisions made so far) and a CPU copy
+    of the agent's parameters."""
+    log = {"decisions": [], "swaps": []}
+    act, set_params = policy.act, policy.set_params
+
+    def watched_act(state, generator=None):
+        out = act(state, generator)
+        log["decisions"].append(out.cpu().numpy().copy())
+        return out
+
+    def watched_set_params(agent):
+        log["swaps"].append((len(log["decisions"]) - 1, {
+            k: v.detach().cpu().clone() for k, v in agent.flat_params().items()}))
+        return set_params(agent)
+    policy.act, policy.set_params = watched_act, watched_set_params
+    return log
+
+
+def phase_drift_loop(dev, cfg, eng, batch, world):
+    """3d. PPO on the card over phase 3a's env, its decisions served by
+    phase 3's engine; then phase 3c's world at full width under
+    link-brownout: static policies and the frozen A2C card = CPU bit for
+    bit (adaptation included), the A2C adapted online at the preset's
+    OnlineConfig against its CPU run, and the adapted decisions of the
+    brownout and the recovered regime served by phase 3's engine."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.core import PPOConfig, decide, make_tpu_env, measured_state
+    from repro_torch.core import ppo
+    from repro_torch.core.actor_critic import Agent
+    from repro_torch.online import OnlineConfig, get_schedule
+    from repro_torch.online.adapt import OnlineLearner
+    from repro_torch.policies import A2CPolicy, build_policy
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.sim import FleetConfig, simulate
+    print(f"== 3d. drift loop: PPO on the transformer env of full-width {cfg.name} (seq {SEQ}), "
+          f"then phase 3c's world under link-brownout (onset {DRIFT_ONSET}, recovery "
+          f"{DRIFT_RECOVER}, {DRIFT_REQUESTS} requests) with online adaptation")
+    timing = {}
+
+    # (a) PPO on the card
+    env_cfg, tables = make_tpu_env([cfg.name], seq_len=SEQ, device=dev)
+    _, cpu_tables = make_tpu_env([cfg.name], seq_len=SEQ, device="cpu")
+    pc = PPOConfig(episodes=LOOP_EPISODES, batch_envs=LOOP_ENVS, epochs=PPO_EPOCHS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent, hist = ppo.train(env_cfg, tables, pc, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    rewards = [h["mean_reward"] for h in hist]
+    first, last = statistics.mean(rewards[:15]), statistics.mean(rewards[-15:])
+    finite = all(math.isfinite(h["loss"]) for h in hist)
+    check(finite and last > first,
+          f"PPO on the card: {LOOP_EPISODES} updates of {LOOP_ENVS} envs x "
+          f"{env_cfg.episode_len} slots, {PPO_EPOCHS} surrogate passes each, in {train_s:.2f} s "
+          f"({train_s / LOOP_EPISODES * 1e3:.1f} ms an update), losses finite={finite}, "
+          f"mean reward first 15 {first:+.5f} -> last 15 {last:+.5f}")
+    cpu_agent = Agent({k: v.detach().cpu() for k, v in agent.flat_params().items()})
+    r = np.random.default_rng(12)
+    lp, pw = env_cfg.latency, env_cfg.power
+    same = 0
+    for _ in range(LOOP_STATES):
+        kw = dict(battery_j=r.uniform(0.0, pw.battery_j, 1),
+                  bandwidth=r.uniform(lp.bw_min_bps, lp.bw_max_bps, 1),
+                  p_tx=r.uniform(pw.p_tx_min, pw.p_tx_max, 1),
+                  queue_jobs=float(r.uniform(0.0, 15.0)), load=r.uniform(0.0, 1.0, 1))
+        same += bool(torch.equal(
+            decide(agent, env_cfg, tables, measured_state(env_cfg, tables, **kw)).cpu(),
+            decide(cpu_agent, env_cfg, cpu_tables, measured_state(env_cfg, cpu_tables, **kw))))
+    check(same == LOOP_STATES, f"{LOOP_STATES} measured states: the PPO controller decides on "
+          f"the card as on the CPU ({same}/{LOOP_STATES})")
+    _reset_counts()
+    records = _serve_slots(cfg, eng, batch, env_cfg, tables,
+                           lambda state: decide(agent, env_cfg, tables, state), "PPO controller")
+    timing.update(ppo_train_s=train_s, ppo_ms_per_update=train_s / LOOP_EPISODES * 1e3,
+                  ppo_reward_first15=first, ppo_reward_last15=last,
+                  ppo_slots=[(rec["version"], rec["cut"][1]) for rec in records])
+
+    # (b) the drifting world: static policies and the frozen A2C, card = CPU
+    sc = world["scenario"]
+    mids = world["model_ids"]
+    (w_env, w_tables, a2c), (c_env, c_tables, cpu_a2c) = world["card"], world["cpu"]
+    sched = get_schedule("link-brownout", onset=DRIFT_ONSET, recover=DRIFT_RECOVER)
+    regimes = sched.compile(w_env)
+    fleet = FleetConfig(slo_s=sc.slo_s)
+    kw = dict(n_requests=DRIFT_REQUESTS, seed=sc.seeds[0], fleet=fleet, model_ids=mids,
+              schedule=sched)
+    timing["policies"] = {}
+
+    def regimes_of(res):
+        return [{k: reg[k] for k in ("name", "start_epoch", "epochs", "mean_reward",
+                                     "oracle_reward", "regret", "recovery_epochs")}
+                for reg in res.adaptation["regimes"]]
+
+    for name in ("device_only", "full_offload", "greedy_oracle", "a2c"):
+        pc_, ph_ = ((a2c, cpu_a2c) if name == "a2c" else
+                    (build_policy(name, w_env, w_tables), build_policy(name, c_env, c_tables)))
+        t0 = time.perf_counter()
+        res = simulate(w_env, w_tables, pc_, sc.build_trace(), **kw)
+        wall = time.perf_counter() - t0
+        ref = simulate(c_env, c_tables, ph_, sc.build_trace(), **kw)
+        check(same_sim_result(res, ref) and res.adaptation == ref.adaptation
+              and len(res.adaptation["regimes"]) == 3,
+              f"{name} under link-brownout: {res.epochs} epochs, {res.served} requests in "
+              f"{wall:.3f} s, card = CPU bit for bit (summary, selection_hist, epoch_log, "
+              f"latencies, adaptation); regimes " + json.dumps(regimes_of(res)))
+        timing["policies"][name] = {"regimes": regimes_of(res), "wall_s": wall,
+                                    "decide_ms_median": 1e3 * float(np.median(res.decide_s)),
+                                    "cpu_decide_ms_median": 1e3 * float(np.median(ref.decide_s))}
+
+    # the A2C adapted online (the preset's OnlineConfig), on the card and on the CPU,
+    # from the frozen agent; the learner must leave that agent as it was
+    oc = get_scenario("link-brownout").build_online("a2c")
+    frozen = {k: v.detach().clone() for k, v in a2c.params.flat_params().items()}
+    runs, update_ms = {}, {}
+    for where, (env_, tables_, base) in (("card", (w_env, w_tables, a2c)),
+                                         ("cpu", (c_env, c_tables, cpu_a2c))):
+        pol = A2CPolicy(env_, tables_).set_params(base.params)
+        log = _watch(pol)
+        update_ms[where] = []
+        orig = _timed_updates(update_ms[where])
+        try:
+            t0 = time.perf_counter()
+            res = simulate(env_, tables_, pol, sc.build_trace(), online=oc, **kw)
+            wall = time.perf_counter() - t0
+        finally:
+            OnlineLearner._update = orig
+        runs[where] = (res, log, pol, wall)
+    (res, log, pol, wall), (ref, cpu_log, cpu_pol, _) = runs["card"], runs["cpu"]
+    on, cpu_on = res.adaptation["online"], ref.adaptation["online"]
+    first_up = log["swaps"][0][0] if log["swaps"] else None
+    cpu_first_up = cpu_log["swaps"][0][0] if cpu_log["swaps"] else None
+    n_same = next((i for i, (x, y) in enumerate(zip(log["decisions"], cpu_log["decisions"]))
+                   if not np.array_equal(x, y)), min(len(log["decisions"]),
+                                                     len(cpu_log["decisions"])))
+    param_err = None
+    if first_up is not None and cpu_first_up == first_up:
+        p_card, p_cpu = log["swaps"][0][1], cpu_log["swaps"][0][1]
+        param_err = max(float(((p_card[k] - p_cpu[k]).abs() / (1.0 + p_cpu[k].abs())).max())
+                        for k in p_cpu)
+    check(on["updates"] > 0 and first_up is not None and first_up == cpu_first_up
+          and n_same > first_up and param_err is not None and param_err <= DRIFT_PARAM_TOL
+          and all(torch.equal(v, frozen[k]) for k, v in a2c.params.flat_params().items()),
+          f"a2c+online (gate {oc.gate}, explore_eps {oc.explore_eps}, window {oc.window}): "
+          f"{res.epochs} epochs in {wall:.3f} s, learner {on} on the card, {cpu_on} on the CPU; "
+          f"first update at epoch {first_up} (CPU {cpu_first_up}); decisions card = CPU for "
+          f"the first {n_same} of {len(log['decisions'])} epochs; parameters after the first "
+          f"update: worst |card - CPU| / (1 + |CPU|) = {param_err} (limit "
+          f"{DRIFT_PARAM_TOL}); the frozen agent untouched")
+    print(f"    a2c+online regimes on the card: {json.dumps(regimes_of(res))}")
+    print(f"    a2c+online regimes on the CPU: {json.dumps(regimes_of(ref))}")
+    print(f"    SimResult card = CPU after the first update (reported, not checked): "
+          f"{same_sim_result(res, ref)}")
+    timing["policies"]["a2c+online"] = {
+        "regimes": regimes_of(res), "cpu_regimes": regimes_of(ref), "online": on,
+        "cpu_online": cpu_on, "first_update_epoch": first_up,
+        "decisions_equal_epochs": n_same, "epochs": res.epochs,
+        "first_update_param_err": param_err, "wall_s": wall,
+        "update_ms_median": statistics.median(update_ms["card"]) if update_ms["card"] else None,
+        "cpu_update_ms_median": statistics.median(update_ms["cpu"]) if update_ms["cpu"] else None,
+        "decide_ms_median": 1e3 * float(np.median(res.decide_s)),
+        "cpu_decide_ms_median": 1e3 * float(np.median(ref.decide_s))}
+    print(f"    online update (between two synchronizations) median "
+          f"{timing['policies']['a2c+online']['update_ms_median']} ms on the card, "
+          f"{timing['policies']['a2c+online']['cpu_update_ms_median']} ms on the CPU; decide "
+          f"median {timing['policies']['a2c+online']['decide_ms_median']:.3f} ms on the card, "
+          f"{timing['policies']['a2c+online']['cpu_decide_ms_median']:.3f} ms on the CPU")
+
+    # host synchronizations an epoch, counted by torch's sync debug mode over an
+    # always-adapting run (updates from the fourth epoch)
+    spol = A2CPolicy(w_env, w_tables).set_params(a2c.params)
+    marks = []
+    act = spol.act
+
+    def marked_act(state, generator=None):
+        marks.append(len(caught))
+        return act(state, generator)
+    spol.act = marked_act
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            simulate(w_env, w_tables, spol, sc.build_trace(), n_requests=SYNC_REQUESTS,
+                     seed=sc.seeds[0], fleet=fleet, model_ids=mids, schedule=sched,
+                     online=OnlineConfig(gate="always", window=16, min_window=4))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [b - a for a, b in zip(marks, marks[1:])]
+    timing["syncs_per_epoch"] = {"no_update": syncs[:3], "update": syncs[3:]}
+    print(f"  host synchronizations an epoch (torch sync debug mode, from one decide to the "
+          f"next): {syncs} (epochs 0-2 capture only, from epoch 3 an update too)")
+
+    # (c) the adapted decisions served: the agent of the last update before the
+    # recovery, on a measured state within the brownout's bounds; the final agent
+    # on one within the recovered regime's
+    brown = [p for e, p in log["swaps"] if e < DRIFT_RECOVER]
+    served = {}
+    r = np.random.default_rng(13)
+    for what, params, reg in (("brownout", brown[-1] if brown else None, regimes[1]),
+                              ("recovered", log["swaps"][-1][1] if log["swaps"] else None,
+                               regimes[2])):
+        check(params is not None, f"an adapted agent of the {what} regime")
+        if params is None:
+            continue
+        adapted = Agent({k: v.to(dev) for k, v in params.items()})
+        lp_, pw_ = reg.env_cfg.latency, reg.env_cfg.power
+        state = measured_state(w_env, w_tables, battery_j=r.uniform(0.0, pw_.battery_j, 2),
+                               bandwidth=r.uniform(lp_.bw_min_bps, lp_.bw_max_bps, 2),
+                               p_tx=r.uniform(pw_.p_tx_min, pw_.p_tx_max, 2),
+                               queue_jobs=float(r.uniform(0.0, 15.0)),
+                               load=r.uniform(0.0, 1.0, 2), model_id=mids)
+        actions = decide(adapted, w_env, w_tables, state)
+        rec = _serve_one(cfg, eng, batch, reg.env_cfg, w_tables, state, actions,
+                         f"adapted a2c in the {what} regime (bandwidth "
+                         f"{float(state['bandwidth'][0]):.4g} b/s)", records)
+        served[what] = (rec["version"], rec["cut"][1])
+    moved = None if len(served) < 2 else served["brownout"][1] != served["recovered"][1]
+    print(f"  adapted (version, cut): brownout {served.get('brownout')}, recovered "
+          f"{served.get('recovered')}; the cut moves: {moved}")
+    timing.update(adapted_served=served, cut_moved=moved)
+    launches = _counts()
+    print(f"  drift loop launches {launches}")
     return launches, timing
 
 
@@ -1935,7 +2239,8 @@ def main() -> int:
     qmm_err, ms_err, rs_err = phase_kernel_checks(dev)
     cfg, model, eng, batch, launches, times = phase_main_path(dev)
     loop_launches, loop_timing = phase_closed_loop(dev, cfg, eng, batch)
-    fleet_launches, fleet_timing = phase_fleet_loop(dev, cfg, eng, smi)
+    fleet_launches, fleet_timing, fleet_world = phase_fleet_loop(dev, cfg, eng, smi)
+    drift_launches, drift_timing = phase_drift_loop(dev, cfg, eng, batch, fleet_world)
     dec_launches, dec_timing = phase_decode_serving(cfg, model, batch)
     phase_split_equals_full(cfg, model, batch)
     cpu_model = phase_card_vs_cpu(cfg, model, eng, batch)
@@ -1958,11 +2263,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels = phase_timing(dev, qmm_err, ms_err, rs_err, {
-        **{k: launches[k] + loop_launches[k] + fleet_launches[k] for k in launches},
+        **{k: launches[k] + loop_launches[k] + fleet_launches[k] + drift_launches[k]
+           for k in launches},
         "flash_decode": dec_launches["flash_decode"],
         "mamba_scan": fm_launches["mamba_scan"], "rglru_scan": rg_launches["rglru_scan"]})
     paths = {f"{cfg.name} split": launches, f"{cfg.name} closed loop": loop_launches,
              f"{cfg.name} fleet loop": fleet_launches,
+             f"{cfg.name} drift loop": drift_launches,
              f"{cfg.name} decode": dec_launches,
              f"{FM_ARCH} split": fm_launches, f"{FM_ARCH} decode": fm_dec_launches,
              f"{RG_ARCH} split": rg_launches, f"{RG_ARCH} decode": rg_dec_launches}
@@ -1973,6 +2280,7 @@ def main() -> int:
         {k: statistics.median(v) for k, v in times.items()}))
     print(f"{cfg.name} closed loop: " + json.dumps(loop_timing))
     print(f"{cfg.name} fleet loop: " + json.dumps(fleet_timing))
+    print(f"{cfg.name} drift loop: " + json.dumps(drift_timing))
     print(f"{cfg.name} decode serving: " + json.dumps(dec_timing))
     print(f"{FM_ARCH} per-infer ms (median of 3), {FM_BATCH} x {FM_SEQ} tokens: " + json.dumps(
         {k: statistics.median(v) for k, v in fm_times.items()}))

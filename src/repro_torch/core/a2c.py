@@ -124,18 +124,13 @@ def train(env_cfg: EnvConfig, tables: ProfileTables, ac: A2CConfig,
     n_uavs)`` array, when given, supplies each env's offered-load sequence
     (episode indices ep*E .. ep*E+E-1). Returns (agent, history): one dict
     of floats per update."""
-    import numpy as np
-
     agent = init_agent(env_cfg, tables, ac, generator)
     opt_state = adamw_init(agent.flat_params())
     step = make_train_episode(env_cfg, tables, ac, model_ids=model_ids)
     E = max(int(ac.batch_envs), 1)
     history = []
     for ep in range(ac.episodes):
-        seq = None
-        if task_sampler is not None:
-            seq = np.stack([np.asarray(task_sampler(ep * E + e), dtype=np.float32)
-                            for e in range(E)])
+        seq = None if task_sampler is None else net.stack_task_seqs(task_sampler, ep, E)
         agent, opt_state, stats = step(agent, opt_state, generator, seq)
         # one copy to the host per update
         history.append(dict(zip(stats, torch.stack(list(stats.values())).tolist())))

@@ -7,13 +7,16 @@
   the reference's leaf paths (``actor/l1/w``, ...), and their sampling /
   log-prob / entropy math;
 - ``make_rollout``: one episode of the env as a loop over
-  ``episode_len`` slots;
+  ``episode_len`` slots, optionally recording the behavior policy's
+  logp/value (PPO's surrogate needs them, A2C recomputes);
 - ``run_batched_episodes``: ``batch_envs`` independent env instances
   stepped at once along a leading batch axis;
+- ``stack_task_seqs``: one update's trace-driven load sequences;
 - ``discounted_returns`` / ``gae``: the two return estimators.
 
 Every network function takes leading batch axes on ``obs_flat``.
-Sampling draws Gumbel noise from the caller's ``torch.Generator``.
+Sampling draws Gumbel noise from the caller's ``torch.Generator``, on the
+generator's device.
 """
 from __future__ import annotations
 
@@ -142,9 +145,11 @@ def mask_logits(logits, valid):
 
 
 def _categorical(logits, generator):
-    """One draw per row of the last axis (Gumbel-max)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+    """One draw per row of the last axis (Gumbel-max). The uniforms come
+    from ``generator`` on its own device, so a host generator gives the
+    card and the CPU the same draws."""
+    u = torch.rand(logits.shape, generator=generator, device=generator.device)
+    return torch.argmax(logits - torch.log(-torch.log(u.to(logits.device))), dim=-1)
 
 
 def sample_actions(agent: Agent, obs_flat, valid_v, generator: torch.Generator):
@@ -197,12 +202,15 @@ def valid_versions(tables, state):
 # rollouts
 # --------------------------------------------------------------------------
 
-def make_rollout(env_cfg, tables):
+def make_rollout(env_cfg, tables, *, record_policy=False):
     """Returns ``rollout(agent, state0, generator, task_seq=None) ->
     (state_T, traj)``: one episode of ``episode_len`` slots; ``traj``
-    leaves have the time axis after the state's batch axes. ``task_seq``,
-    when given, is (..., episode_len, n) per-slot offered load fed
-    through env_step's ``next_task`` hook."""
+    leaves have the time axis after the state's batch axes. With
+    ``record_policy`` the behavior policy's per-step logp (summed over
+    the devices) and the critic's value are recorded too (PPO's clipped
+    surrogate needs them fixed at sampling time). ``task_seq``, when
+    given, is (..., episode_len, n) per-slot offered load fed through
+    env_step's ``next_task`` hook."""
 
     @torch.no_grad()
     def rollout(agent, state0, generator, task_seq=None):
@@ -212,12 +220,15 @@ def make_rollout(env_cfg, tables):
             obs = observe(env_cfg, tables, state).flatten(lead)
             valid = valid_versions(tables, state)
             actions = sample_actions(agent, obs, valid, generator)
+            step = {"obs": obs, "actions": actions, "valid": valid}
+            if record_policy:
+                step["logp"] = logp_entropy(agent, obs, actions, valid)[0]
+                step["value"] = critic_apply(agent, obs)
             nxt = None if task_seq is None else task_seq[..., t, :]
             state, r, info = env_step(env_cfg, tables, state, actions,
                                       generator, next_task=nxt)
-            steps.append({"obs": obs, "actions": actions, "valid": valid,
-                          "reward": r, "alive": info["alive"],
-                          "battery": info["battery"]})
+            step.update(reward=r, alive=info["alive"], battery=info["battery"])
+            steps.append(step)
         traj = {k: torch.stack([s[k] for s in steps], dim=lead) for k in steps[0]}
         return state, traj
 
@@ -241,6 +252,15 @@ def run_batched_episodes(env_cfg, tables, rollout, agent, generator,
     with torch.no_grad():
         bootstrap = critic_apply(agent, observe(env_cfg, tables, state_T).flatten(1))
     return state_T, traj, bootstrap
+
+
+def stack_task_seqs(task_sampler, episode, batch_envs):
+    """One update's offered-load sequences from a task_sampler: episode
+    indices ``episode*E .. episode*E+E-1`` (per-env domain
+    randomization), stacked to (E, T, n) float32 numpy. Shared by the A2C
+    and PPO training loops so the indexing convention cannot diverge."""
+    return np.stack([np.asarray(task_sampler(episode * batch_envs + e), dtype=np.float32)
+                     for e in range(batch_envs)])
 
 
 def prepare_task_seq(task_seq, batch_envs, device):

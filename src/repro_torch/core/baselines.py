@@ -42,12 +42,12 @@ def full_offload(cfg: EnvConfig, tables: ProfileTables, state, generator=None):
 def random_policy(cfg: EnvConfig, tables: ProfileTables, state,
                   generator: torch.Generator):
     """Uniform over each device's valid versions and all cuts (and, in
-    cluster mode, servers)."""
+    cluster mode, servers); drawn on the generator's device."""
     n, dev = cfg.n_uavs, tables.device
     nv = tables.version_valid[state["model_id"]].sum(-1)
 
     def uniform_int(high):
-        u = torch.rand(n, generator=generator, device=dev)
+        u = torch.rand(n, generator=generator, device=generator.device).to(dev)
         return torch.clamp((u * high).long(), max=torch.as_tensor(high, device=dev).long() - 1)
 
     a = torch.stack([uniform_int(nv), uniform_int(float(tables.n_cuts))], -1)

@@ -21,6 +21,16 @@ names another.
     PYTHONPATH=src python -m repro_torch.launch.simulate --scenario diurnal-fleet \\
         --compare a2c,device_only --load-policy controller.npz
 
+    # nonstationary world + closed-loop adaptation: the preset pairs the
+    # online-adapted controller against the same controller frozen at
+    # its pre-drift parameters (repro_torch.online)
+    PYTHONPATH=src python -m repro_torch.launch.simulate --scenario link-brownout \\
+        --device cpu --requests 4000
+
+    # apply a named drift schedule + online adaptation to any preset
+    PYTHONPATH=src python -m repro_torch.launch.simulate --scenario diurnal-fleet \\
+        --drift-schedule link-brownout --online
+
     # cross-check the analytical backend against real SplitServingEngine
     # execution on a reduced transformer, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.simulate --scenario tpu-execute --device cpu
@@ -34,6 +44,7 @@ import argparse
 import json
 import os
 
+from repro_torch import obs
 from repro_torch.policies import get_policy_spec
 from repro_torch.scenarios import (get_scenario, run_scenario, scenario_names,
                                    split_policy_name)
@@ -42,14 +53,11 @@ from repro_torch.scenarios import (get_scenario, run_scenario, scenario_names,
 # what it waits for)
 _ITEM3 = "ROADMAP section 1, item 3"
 REFUSED = {
-    "--online": (False, f"online adaptation, repro.online ({_ITEM3})"),
-    "--drift-schedule": (True, f"drift schedules, repro.online ({_ITEM3})"),
     "--pool": (True, f"server pools, repro.cluster ({_ITEM3})"),
     "--topology": (True, f"topologies, repro.cluster ({_ITEM3})"),
     "--autoscale": (True, f"the autoscaler, repro.cluster ({_ITEM3})"),
     "--trace-out": (True, f"obs event recording, repro.obs ({_ITEM3})"),
     "--timeline-out": (True, f"the flight-recorder timeline, repro.obs ({_ITEM3})"),
-    "--verbose": (False, f"obs verbosity levels, repro.obs ({_ITEM3})"),
     **{flag: (True, f"ad-hoc scenarios assembled from flags ({_ITEM3}, with the "
                     "reference CLI's remaining flags); use --scenario")
        for flag in ("--trace", "--devices", "--slo-ms", "--slot-seconds", "--rate",
@@ -78,6 +86,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seeds",
                     help="comma-separated sim seeds; metrics average "
                     "over them (same seed = same request stream)")
+    ap.add_argument("--online", action="store_true",
+                    help="run every trainable policy in the roster with "
+                    "online adaptation ('name+online') alongside its "
+                    "frozen variant (repro_torch.online)")
+    ap.add_argument("--drift-schedule", metavar="NAME",
+                    help="apply a named WorldSchedule (link-brownout, "
+                    "battery-cliff, flash-crowd, device-churn) to the "
+                    "scenario; overrides a preset's own drift")
     ap.add_argument("--episodes", type=int,
                     help="training budget for trainable policies")
     ap.add_argument("--train-seed", type=int)
@@ -95,12 +111,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--exec-seq", type=int)
     ap.add_argument("--json", help="write results JSON here")
     ap.add_argument("--quiet", action="store_true",
-                    help="print nothing but errors")
+                    help="warnings only on the console")
+    ap.add_argument("-v", "--verbose", action="count",
+                    help="more console detail (-v: debug narration)")
     ap.add_argument("--device",
                     help="torch device; default: the current CUDA card")
     for flag, (takes_value, _) in REFUSED.items():
-        names = (flag, "-v") if flag == "--verbose" else (flag,)
-        ap.add_argument(*names, action="store" if takes_value else "store_true",
+        ap.add_argument(flag, action="store" if takes_value else "store_true",
                         help=argparse.SUPPRESS)
     return ap
 
@@ -115,13 +132,24 @@ def artifact_path(path: str, name: str, multi: bool) -> str:
 
 
 def main(argv=None):
+    """Parse ``argv`` and run; returns the ComparisonReport (None for
+    ``--list-scenarios``). The console verbosity it sets (0 with
+    ``--quiet``, 1, 2 with ``-v``) is restored on return."""
     ap = build_parser()
     provided = vars(ap.parse_args(argv))
     for flag, (_, waits_for) in REFUSED.items():
         if flag[2:].replace("-", "_") in provided:
             ap.error(f"{flag} is not ported yet: it waits for {waits_for}")
-    say = (lambda *a, **k: None) if provided.get("quiet") else print
+    before = obs.get_verbosity()
+    obs.set_verbosity(0 if provided.get("quiet") else 1 + provided.get("verbose", 0))
+    try:
+        return _run(ap, provided)
+    finally:
+        obs.set_verbosity(before)
 
+
+def _run(ap, provided):
+    say = obs.info
     if provided.get("list_scenarios"):
         for name in scenario_names():
             sc = get_scenario(name)
@@ -144,10 +172,18 @@ def main(argv=None):
     repl = {field: provided[flag] for flag, field in direct.items() if flag in provided}
     if "seeds" in provided:
         repl["seeds"] = tuple(int(s) for s in provided["seeds"].split(","))
+    if "drift_schedule" in provided:
+        repl["drift"] = provided["drift_schedule"]
+        if provided["drift_schedule"] != sc.drift:
+            repl["drift_kw"] = {}    # new kind: factory defaults
     sc = sc.replace(**repl)
     if sc.execute and sc.env != "tpu":
         ap.error("--execute needs a tpu-env scenario (the executable engine "
                  "serves the transformer stack)")
+    try:
+        sc.build_schedule()
+    except KeyError as e:
+        ap.error(str(e.args[0]))
 
     if "compare" in provided:
         names = tuple(provided["compare"].split(","))
@@ -156,21 +192,33 @@ def main(argv=None):
     else:
         names = sc.policies
     try:
-        specs = [get_policy_spec(split_policy_name(n)[0]) for n in names]
+        parsed = [split_policy_name(n) for n in names]
+        specs = [get_policy_spec(base) for base, _ in parsed]
     except KeyError as e:
         ap.error(str(e.args[0]))
-    trainable = sorted({n for n, s in zip(names, specs) if s.trainable})
+    if provided.get("online"):
+        # every trainable roster entry gains its '+online' adapted
+        # variant (before the frozen one, matching the preset layout)
+        expanded = []
+        adapted = {b for (b, o) in parsed if o}
+        for n, (base, is_online), spec in zip(names, parsed, specs):
+            if spec.trainable and not is_online and base not in adapted:
+                expanded.append(f"{base}+online")
+            expanded.append(n)
+        names = tuple(dict.fromkeys(expanded))
+    trainable = sorted({split_policy_name(n)[0] for n in names
+                        if get_policy_spec(split_policy_name(n)[0]).trainable})
     save, load = provided.get("save_policy"), provided.get("load_policy")
     if (save or load) and not trainable:
         ap.error("--save-policy/--load-policy need a trainable policy "
-                 f"(a2c) in the roster; got {','.join(names)}")
+                 f"(a2c, ppo) in the roster; got {','.join(names)}")
     multi = len(trainable) > 1
     save_map = {n: artifact_path(save, n, multi) for n in trainable} if save else None
     load_map = {n: artifact_path(load, n, multi) for n in trainable} if load else None
 
     report = run_scenario(sc, names, device=provided.get("device"),
                           save_policies=save_map, load_policies=load_map,
-                          verbose=not provided.get("quiet"))
+                          verbose=True)
     cross = next((r.cross_check for r in report.results.values()
                   if r.cross_check), None)
     if cross:

@@ -6,9 +6,9 @@ build_trace/build_env/build_policy by hand (port of
 ``repro.scenarios.base``).
 
 Every field of the reference is declared, so its presets register here
-unchanged. The fields whose machinery is not ported yet (``drift``,
-``online_kw``, ``pool``, ``autoscale``) raise ``NotImplementedError``
-from their ``build_*`` methods when set.
+unchanged. The fields whose machinery is not ported yet (``pool``,
+``autoscale``) raise ``NotImplementedError`` from their ``build_*``
+methods when set.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ from repro_torch.sim.traces import Trace
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP section 1, item 3)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP section 1, item 3, "
+                               "cluster/)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,11 +71,16 @@ class Scenario:
     trace: str = "mmpp"
     trace_kw: Dict = dataclasses.field(default_factory=dict)
 
-    # --- nonstationarity (reference: repro.online; not ported yet) ---------
+    # --- nonstationarity / online adaptation (repro_torch.online) ----------
+    # named WorldSchedule factory (drift.get_schedule) + kwargs; None
+    # keeps the world stationary
     drift: Optional[str] = None
     drift_kw: Dict = dataclasses.field(default_factory=dict)
+    # OnlineConfig overrides for "+online" roster entries (the algo is
+    # taken from the policy spec: a2c -> a2c objective, ppo -> ppo)
     online_kw: Dict = dataclasses.field(default_factory=dict)
-    # device battery override (Wh; paper env only)
+    # device battery override (Wh); nonstationary runs need the fleet
+    # to outlive the drift-recover cycle (paper env only)
     battery_wh: Optional[float] = None
 
     # --- evaluation -------------------------------------------------------
@@ -110,14 +116,18 @@ class Scenario:
         return get_trace(self.trace, **self.trace_kw)
 
     def build_schedule(self):
-        """None when stationary; a drift schedule raises until ported."""
+        """The scenario's WorldSchedule, or None when stationary."""
         if self.drift is None:
             return None
-        raise _not_ported(f"scenario {self.name!r}: drift schedule {self.drift!r} "
-                          "(repro.online)")
+        from repro_torch.online import get_schedule
+        return get_schedule(self.drift, **self.drift_kw)
 
     def build_online(self, algo: str = "a2c"):
-        raise _not_ported(f"scenario {self.name!r}: online adaptation (repro.online)")
+        """OnlineConfig for a '+online' roster entry; ``algo`` comes
+        from the policy spec so A2C and PPO adapt with their own
+        objective on the shared incremental-update machinery."""
+        from repro_torch.online import OnlineConfig
+        return OnlineConfig(algo=algo, **self.online_kw)
 
     def build_cluster(self):
         """None without a pool; a server pool raises until ported."""

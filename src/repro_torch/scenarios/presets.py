@@ -3,10 +3,9 @@
 
 Each preset is a complete operating regime; ``python -m
 repro_torch.launch.simulate --scenario <name>`` (flags still override
-individual fields) and ``run_scenario`` consume them. The drift and
-cluster presets register too, so the two packages list the same names;
-running one raises until ``repro.online`` and ``repro.cluster`` are
-ported (ROADMAP section 1, item 3).
+individual fields) and ``run_scenario`` consume them. The cluster
+presets register too, so the two packages list the same names; running
+one raises until ``repro.cluster`` is ported (ROADMAP section 1, item 3).
 """
 from __future__ import annotations
 
@@ -90,7 +89,7 @@ register_scenario(Scenario(
     policies=("a2c", "device_only", "full_offload"),
     episodes=400))
 
-# -- nonstationary worlds (repro.online): each preset pairs the online-
+# -- nonstationary worlds (repro_torch.online): each preset pairs the online-
 # -- adapted controller against the same controller frozen at its
 # -- pre-drift parameters, under a timed WorldSchedule ---------------------
 

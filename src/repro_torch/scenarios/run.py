@@ -7,9 +7,16 @@ saved artifact, where the spec is trainable), and simulates each policy
 over the *same* seeds, so comparisons are paired by construction: two
 policies under one seed face the identical request stream.
 
-The reference's ``"<name>+online"`` roster entries (closed-loop online
-adaptation) and its flight-recorder timeline raise until
-``repro.online`` and ``repro.obs`` are ported (ROADMAP section 1, item 3).
+Nonstationary scenarios (``scenario.drift``) run every policy under the
+same ``WorldSchedule``. A roster entry ``"<name>+online"`` (e.g.
+``"a2c+online"``) runs the trainable policy with closed-loop online
+adaptation (``repro_torch.online``): it shares the pre-drift trained
+agent with its frozen sibling (train once; the learner adapts a copy),
+restarts from it for every seed, and reports per-regime adaptation
+metrics (regret vs the per-regime greedy oracle and recovery time) in
+its ``PolicyResult.adaptation``. The reference's flight-recorder
+timeline raises until the obs reporting half is ported (ROADMAP section
+1, item 3).
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.device import DeviceLike
 from repro_torch.policies import get_policy_spec
 from repro_torch.scenarios.base import Scenario
@@ -50,6 +58,10 @@ class PolicyResult:
     loaded_from: Optional[str] = None
     saved_to: Optional[str] = None
     cross_check: Optional[Dict] = None
+    # seed-averaged drift/adaptation metrics (nonstationary scenarios):
+    # per-regime mean reward / oracle / regret / recovery_epochs, plus
+    # online-learner counters for "+online" entries
+    adaptation: Optional[Dict] = None
 
     def row(self) -> str:
         m = self.mean
@@ -67,15 +79,41 @@ class ComparisonReport:
     n_requests: int
     trace: str
     results: Dict[str, PolicyResult]     # insertion-ordered
+    schedule: Optional[str] = None       # drift schedule name, if any
 
     def table(self) -> str:
         return "\n".join([_TABLE_HEADER]
                          + [r.row() for r in self.results.values()])
+    def adaptation_table(self) -> str:
+        """Per-regime adaptation metrics for every policy that has them
+        (empty string for stationary scenarios)."""
+        lines = []
+        for r in self.results.values():
+            if not r.adaptation:
+                continue
+            lines.append(f"{r.name}: mean_reward="
+                         f"{r.adaptation['mean_reward']:+.3f} "
+                         f"regret={r.adaptation['regret']:.3f}"
+                         + (f" updates={r.adaptation['online']['updates']}"
+                            f" bursts={r.adaptation['online']['bursts']}"
+                            if r.adaptation.get("online") else ""))
+            for reg in r.adaptation["regimes"]:
+                rec = reg["recovery_epochs"]
+                lines.append(
+                    f"  regime {reg['regime']} ({reg['name']}): "
+                    f"reward={reg['mean_reward']:+.3f} "
+                    f"oracle={reg['oracle_reward']:+.3f} "
+                    f"regret={reg['regret']:.3f} recovery="
+                    + ("never" if rec is None else f"{rec:.0f} epochs"))
+        return "\n".join(lines)
+
 
     def to_json(self) -> Dict:
         out = {"scenario": self.scenario, "seeds": list(self.seeds),
                "n_requests": self.n_requests, "trace": self.trace,
                "policies": {}}
+        if self.schedule:
+            out["schedule"] = self.schedule
         for name, r in self.results.items():
             entry = {"mean": r.mean, "per_seed": r.per_seed,
                      "trained": r.trained}
@@ -83,12 +121,61 @@ class ComparisonReport:
                 entry["loaded_from"] = r.loaded_from
             if r.saved_to:
                 entry["saved_to"] = r.saved_to
+            if r.adaptation:
+                entry["adaptation"] = r.adaptation
             if r.cross_check:
                 entry["cross_check"] = {k: v for k, v in
                                         r.cross_check.items()
                                         if k != "records"}
             out["policies"][name] = entry
         return out
+
+
+def _strip_series(adapt: Dict) -> Dict:
+    """Per-seed adaptation dict without the per-epoch reward series
+    (SimResult keeps them; the report stores summaries)."""
+    out = dict(adapt)
+    out["regimes"] = [{k: v for k, v in reg.items()
+                       if k not in ("rewards", "oracle")}
+                      for reg in adapt["regimes"]]
+    return out
+
+
+def _mean_adaptation(per_seed: List[Dict]) -> Dict:
+    """Seed-average the adaptation summaries: scalar fields averaged,
+    per-regime entries averaged by regime index, recovery averaged over
+    the seeds that recovered (None if none did)."""
+    out = {k: float(np.mean([a[k] for a in per_seed]))
+           for k in ("mean_reward", "oracle_reward", "regret")}
+    out["schedule"] = per_seed[0].get("schedule")
+    regimes = []
+    # regimes reached differ per seed (epoch count to serve n_requests
+    # is seed-dependent): aggregate over the union, averaging each
+    # regime over the seeds that reached it
+    n_regimes = max(len(a["regimes"]) for a in per_seed)
+    for i in range(n_regimes):
+        regs = [a["regimes"][i] for a in per_seed
+                if i < len(a["regimes"])]
+        entry = {"regime": regs[0]["regime"], "name": regs[0]["name"],
+                 "start_epoch": regs[0]["start_epoch"],
+                 "seeds_reached": len(regs)}
+        for k in ("mean_reward", "oracle_reward", "regret"):
+            entry[k] = float(np.mean([r[k] for r in regs]))
+        recs = [r["recovery_epochs"] for r in regs
+                if r["recovery_epochs"] is not None]
+        entry["recovery_epochs"] = float(np.mean(recs)) if recs else None
+        entry["recovered_seeds"] = len(recs)
+        regimes.append(entry)
+    out["regimes"] = regimes
+    online = [a["online"] for a in per_seed if a.get("online")]
+    if online:
+        out["online"] = dict(
+            online[0],
+            updates=float(np.mean([o["updates"] for o in online])),
+            triggers=float(np.mean([o["triggers"] for o in online])),
+            bursts=float(np.mean([o["bursts"] for o in online])))
+    out["per_seed"] = [_strip_series(a) for a in per_seed]
+    return out
 
 
 def run_scenario(scenario: Scenario,
@@ -109,40 +196,48 @@ def run_scenario(scenario: Scenario,
     a mapped trainable policy loads instead of training (identical
     paired-seed metrics to the run that saved it, no retraining), and
     saves right after training. ``n_requests``/``seeds``/``episodes``
-    override the scenario without mutating it. ``verbose`` prints the
-    narration and the table.
+    override the scenario without mutating it. ``verbose`` routes the
+    narration and the tables through ``obs.info`` (else ``obs.debug``).
     """
     names = tuple(policies) if policies else scenario.policies
     parsed = [split_policy_name(n) for n in names]
     specs = [get_policy_spec(b) for b, _ in parsed]   # fail fast on typos
-    online = [n for n, (_, is_online) in zip(names, parsed) if is_online]
-    if online:
-        raise NotImplementedError(
-            f"{', '.join(online)}: online adaptation (repro.online) is not "
-            "ported yet (ROADMAP section 1, item 3)")
+    for (base, is_online), spec in zip(parsed, specs):
+        if is_online and not spec.trainable:
+            raise KeyError(f"policy {base!r} is not trainable; '+online' "
+                           "adaptation needs a trainable policy (a2c, ppo)")
     if timeline:
         raise NotImplementedError("the flight-recorder timeline (repro.obs.timeline) "
-                                  "is not ported yet (ROADMAP section 1, item 3)")
+                                  "is not ported yet (ROADMAP section 1, item 3, "
+                                  "the obs reporting half)")
     seeds = tuple(seeds) if seeds is not None else scenario.seeds
     n_req = int(n_requests) if n_requests is not None \
         else scenario.n_requests
     eps = int(episodes) if episodes is not None else scenario.episodes
 
-    env_cfg, tables, model_ids, backend_factory = scenario.build_env(device)
-    trace = scenario.build_trace()
-    schedule = scenario.build_schedule()
-    autoscaler = scenario.build_autoscaler()
+    with obs.span("scenario.build", scenario=scenario.name):
+        env_cfg, tables, model_ids, backend_factory = scenario.build_env(device)
+        trace = scenario.build_trace()
+        schedule = scenario.build_schedule()
+        autoscaler = scenario.build_autoscaler()
     fleet = FleetConfig(slo_s=scenario.slo_s, engine=scenario.engine)
 
-    say = print if verbose else (lambda *a, **k: None)
+    # verbose routes the narration at info level (console by default);
+    # non-verbose runs still record it at debug, so a traced run keeps
+    # its story either way
+    say = obs.info if verbose else obs.debug
     say(f"scenario {scenario.name}: {scenario.devices} devices "
         f"({scenario.env} env, on {tables.device}), trace={trace.name} "
         f"(mean {trace.mean_rps:.1f} rps/device), "
-        f"slo={scenario.slo_s}s, requests={n_req} x seeds {list(seeds)}")
+        f"slo={scenario.slo_s}s, requests={n_req} x seeds {list(seeds)}"
+        + (f", drift={schedule.name} "
+           f"(boundaries {list(schedule.boundaries)})"
+           if schedule else ""))
 
     results: Dict[str, PolicyResult] = {}
+    trained_params: Dict[str, object] = {}   # base name -> pre-drift agent
     header_printed = False
-    for name, spec in zip(names, specs):
+    for name, (base, is_online), spec in zip(names, parsed, specs):
         kw = {}
         if spec.trainable:
             kw = dict(episodes=eps, entropy_coef=scenario.entropy_coef,
@@ -150,41 +245,74 @@ def run_scenario(scenario: Scenario,
         policy = spec.build(env_cfg, tables, **kw)
         trained, loaded_from, saved_to = False, None, None
         if spec.trainable:
-            loaded_from = (load_policies or {}).get(name)
-            if loaded_from:
+            loaded_from = (load_policies or {}).get(name) \
+                or (load_policies or {}).get(base)
+            if base in trained_params:
+                # the frozen and "+online" variants of one controller
+                # share a single pre-drift training run by construction
+                policy.set_params(trained_params[base])
+                loaded_from = loaded_from or f"(shared: {base})"
+                say(f"{name}: sharing {base}'s trained parameters")
+            elif loaded_from:
                 policy.load(loaded_from)
                 say(f"{name}: loaded artifact {loaded_from}")
             else:
                 say(f"{name}: training ({eps} episodes) ...")
-                hist = policy.train(seed=scenario.train_seed,
-                                    trace=scenario.build_train_trace())
+                with obs.span("scenario.train", policy=name, episodes=eps):
+                    hist = policy.train(seed=scenario.train_seed,
+                                        trace=scenario.build_train_trace())
                 trained = True
                 last = np.mean([h["mean_reward"] for h in hist[-15:]])
                 say(f"  trained: mean reward (last 15 episodes) = "
                     f"{last:+.3f}")
-            saved_to = (save_policies or {}).get(name)
+            shared = base in trained_params and not trained \
+                and (loaded_from or "").startswith("(shared")
+            trained_params.setdefault(base, policy.params)
+            saved_to = (save_policies or {}).get(name) \
+                or (save_policies or {}).get(base)
+            if saved_to and shared:
+                saved_to = None      # the sibling entry owns the artifact
             if saved_to:
                 policy.save(saved_to)
                 say(f"{name}: saved artifact {saved_to}")
 
-        per_seed, cross = [], None
+        online_cfg = scenario.build_online(
+            algo=getattr(policy, "algo", "a2c")) if is_online else None
+        # the learner adapts a copy, so this agent stays the pre-drift one
+        snapshot = policy.params if spec.trainable else None
+        per_seed, per_adapt, cross = [], [], None
         for seed in seeds:
-            res = simulate(env_cfg, tables, policy, trace,
-                           n_requests=n_req, seed=seed, fleet=fleet,
-                           backend=backend_factory(), model_ids=model_ids,
-                           schedule=schedule, autoscaler=autoscaler)
+            if is_online and snapshot is not None:
+                # every seed adapts from the same pre-drift parameters
+                policy.set_params(snapshot)
+            with obs.span("scenario.simulate", policy=name, seed=seed):
+                res = simulate(env_cfg, tables, policy, trace,
+                               n_requests=n_req, seed=seed, fleet=fleet,
+                               backend=backend_factory(), model_ids=model_ids,
+                               schedule=schedule, online=online_cfg,
+                               autoscaler=autoscaler)
             per_seed.append(res.summary)
+            if res.adaptation is not None:
+                per_adapt.append(res.adaptation)
             cross = res.cross_check or cross
+        if is_online and snapshot is not None:
+            policy.set_params(snapshot)      # leave pre-drift params
         mean = {k: float(np.mean([s[k] for s in per_seed]))
                 for k in per_seed[0] if k != "unit"}
         results[name] = PolicyResult(
             name=name, mean=mean, per_seed=per_seed, trained=trained,
-            loaded_from=loaded_from, saved_to=saved_to, cross_check=cross)
+            loaded_from=loaded_from, saved_to=saved_to, cross_check=cross,
+            adaptation=_mean_adaptation(per_adapt) if per_adapt else None)
         if not header_printed:
             say("\n" + _TABLE_HEADER)
             header_printed = True
         say(results[name].row())
 
-    return ComparisonReport(scenario=scenario.name, seeds=seeds,
-                            n_requests=n_req, trace=trace.name,
-                            results=results)
+    report = ComparisonReport(scenario=scenario.name, seeds=seeds,
+                              n_requests=n_req, trace=trace.name,
+                              results=results,
+                              schedule=schedule.name if schedule else None)
+    if schedule:
+        say("\nadaptation metrics (per regime):")
+        say(report.adaptation_table())
+    return report

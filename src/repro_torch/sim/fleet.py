@@ -1,6 +1,6 @@
 """Discrete-event trace-driven fleet simulator (port of
 ``repro.sim.fleet``: the ``"loop"`` and ``"vectorized"`` engines over a
-stationary single-server world).
+single-server world, stationary or drifting, with online adaptation).
 
 Each decision epoch (one env slot):
 
@@ -23,11 +23,21 @@ Per-request end-to-end latency, SLO attainment, goodput and energy
 accumulate in ``FleetMetrics``; device backlogs carry across epochs, so
 bursts (MMPP) really queue instead of averaging away.
 
+Nonstationary worlds (``repro_torch.online``): a ``WorldSchedule``
+switches the *physics* (pricing config, world-dynamics bounds, trace
+scale, battery/churn side effects) at its regime boundaries, while the
+controller's observation normalization keeps the base-regime constants
+(sensors don't learn the world's config file changed). An
+``OnlineConfig`` additionally closes the loop: the fleet captures each
+epoch's measured transition, prices its reward under the *current*
+regime, and lets an ``OnlineLearner`` incrementally update and hot-swap
+the policy's agent mid-run.
+
 The world and the trace draw from numpy PCG64 as in the reference, so a
-deterministic policy gives the reference's ``SimResult`` bit for bit.
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: the ``"scan"`` engine, drift schedules and online
-adaptation, cluster envs and their autoscaler, and the flight-recorder
+deterministic policy gives the reference's ``SimResult`` bit for bit,
+``adaptation`` included. Not ported yet, each raising
+``NotImplementedError`` that names its ROADMAP item: the ``"scan"``
+engine, cluster envs and their autoscaler, and the flight-recorder
 timeline.
 """
 from __future__ import annotations
@@ -39,9 +49,10 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.env import EnvConfig, ProfileTables
 from repro_torch.sim import megafleet
-from repro_torch.sim.backends import AnalyticalBackend
+from repro_torch.sim.backends import AnalyticalBackend, ExecuteBackend
 from repro_torch.sim.metrics import EpochLog, FleetMetrics
 from repro_torch.sim.traces import Trace
 
@@ -89,6 +100,9 @@ class SimResult:
     duration_s: float
     cross_check: Optional[Dict] = None
     epoch_log: object = dataclasses.field(default_factory=list)   # EpochLog
+    # drift/adaptation metrics (runs with a schedule or an OnlineConfig):
+    # per-regime reward/oracle/regret/recovery + online-learner counters
+    adaptation: Optional[Dict] = None
     # wall seconds of each epoch's decide: measured_state, act and the
     # actions' copy to the host (the port's own; not in the reference)
     decide_s: np.ndarray = dataclasses.field(
@@ -150,20 +164,19 @@ def _queues_loop(counts, alive, free_at, pr, srv_wait, t_now,
     return slo_hits
 
 
-def _check_supported(env_cfg, fleet, schedule, online, autoscaler):
+def _check_supported(env_cfg, fleet, autoscaler):
     if fleet.engine not in ENGINES + ("scan",):
         raise ValueError(f"unknown fleet engine {fleet.engine!r}; "
                          f"valid engines: {', '.join(ENGINES)}")
     if fleet.engine == "scan":
-        raise _not_ported("engine='scan' (a compiled GPU epoch loop)", "item 3")
-    if schedule is not None or online is not None:
-        raise _not_ported("drift schedules and online adaptation (repro.online)",
-                          "item 3")
+        raise _not_ported("engine='scan' (a compiled GPU epoch loop)",
+                          "item 3, simulate_scan")
     if env_cfg.cluster is not None or autoscaler is not None:
         raise _not_ported("cluster envs and their ServerPool and autoscaler",
-                          "item 3")
+                          "item 3, cluster/")
     if fleet.timeline:
-        raise _not_ported("the flight-recorder timeline (obs.timeline)", "item 3")
+        raise _not_ported("the flight-recorder timeline (obs.timeline)",
+                          "item 3, the obs reporting half")
 
 
 def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
@@ -177,16 +190,25 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
     ``policy`` is a ``repro_torch.policies.Policy`` built against this
     same (env_cfg, tables) world: ``act(state, generator) -> (n, 2)``
     on the tables' device. Each epoch it gets the measured state and a
-    ``torch.Generator`` seeded with ``seed`` on the tables' device, which
-    only sampling policies read.
+    host ``torch.Generator`` seeded with ``seed``, which only sampling (and
+    exploring) policies read: their draws are made on the host and copied
+    to the card, so a run on the card draws what the CPU run draws.
+
+    ``schedule`` (``repro_torch.online.WorldSchedule``) switches the
+    physics regime at its patch epochs; ``online``
+    (``repro_torch.online.OnlineConfig``) enables closed-loop adaptation
+    of a trainable policy. Either one turns on per-regime adaptation
+    metrics (``SimResult.adaptation``).
 
     The trace and the world dynamics draw from independent numpy
     generators spawned off one seed, and the draw order is
-    policy-independent, so two policies simulated with the same seed face
-    the *identical* request stream, and the whole run is
-    bit-reproducible. ``schedule``, ``online`` and ``autoscaler`` are the
-    reference's; they raise until ported.
+    policy-independent (drift patches and trace scaling fire on the
+    epoch clock, never on policy-driven state), so two policies simulated
+    with the same seed face the *identical* request stream, and the whole
+    run, online updates included, is bit-reproducible. ``autoscaler`` is
+    the reference's; it raises until ported.
     """
+    from repro_torch.core import pricing
     from repro_torch.core.controller import measured_state
 
     if policy.env_cfg is not env_cfg or policy.tables is not tables:
@@ -195,21 +217,44 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
             "(env_cfg, tables) world than this simulation; its decisions "
             "would silently score under the wrong physics; build it from "
             "the same objects (run_scenario does this for you)")
-    _check_supported(env_cfg, fleet, schedule, online, autoscaler)
+    _check_supported(env_cfg, fleet, autoscaler)
     cfg = env_cfg
     n = cfg.n_uavs
     backend = backend if backend is not None else AnalyticalBackend(cfg, tables)
-    lp, pw = cfg.latency, cfg.power
+    if model_ids is None:
+        model_ids = np.arange(n, dtype=np.int32) % tables.n_models
+    model_ids = np.asarray(model_ids, dtype=np.int32)
+
+    # -- nonstationarity + online adaptation --------------------------------
+    regimes, learner, tracker, np_t = None, None, None, None
+    if schedule is not None:
+        if isinstance(backend, ExecuteBackend):
+            raise ValueError("drift schedules price through the analytical "
+                             "backend; the execute cross-check assumes one "
+                             "stationary table world")
+        # compile() caches one AnalyticalBackend per patched regime, so
+        # switches inside the epoch loop never rebuild table snapshots
+        regimes = schedule.compile(cfg, tables)
+    if online is not None or schedule is not None:
+        from repro_torch.online.monitor import AdaptationTracker, oracle_reward
+        tracker = AdaptationTracker()
+        np_t = pricing.numpy_tables(tables)
+    if online is not None:
+        from repro_torch.online.adapt import OnlineLearner
+        learner = OnlineLearner(policy, online, model_ids)
+    regime_idx = 0
+    reg = regimes[0] if regimes else None
+    phys = cfg                    # current regime's physics config
+    phys_backend = backend
+    lp, pw = phys.latency, phys.power
 
     ss = np.random.SeedSequence(seed)
     s_trace, s_world = ss.spawn(2)
     t_rng = np.random.default_rng(s_trace)
     w_rng = np.random.default_rng(s_world)
-    generator = torch.Generator(device=tables.device).manual_seed(seed)
-
-    if model_ids is None:
-        model_ids = np.arange(n, dtype=np.int32) % tables.n_models
-    model_ids = np.asarray(model_ids, dtype=np.int32)
+    # decide-time draws (sampling and exploring policies) on the host, so
+    # a run on the card draws what the same run on the CPU draws
+    generator = torch.Generator().manual_seed(seed)
 
     # world state (mirrors env_reset means, drawn from the world rng)
     battery = np.full(n, pw.battery_j)
@@ -222,7 +267,9 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
     obs_rate = np.full(n, trace.mean_rps)
     # load normalization must match what the controller trained on:
     # cfg.peak_rps when the stability-aware env is in play, else a
-    # 2x-mean heuristic for paper-faithful (Bernoulli-task) policies
+    # 2x-mean heuristic for paper-faithful (Bernoulli-task) policies.
+    # Fixed at the base regime: the controller's sensor calibration does
+    # not track drift.
     norm_rps = fleet.load_norm_rps or (
         cfg.peak_rps if cfg.peak_rps > 0 else max(2.0 * trace.mean_rps,
                                                   1e-9))
@@ -238,7 +285,36 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
     t_now = 0.0
 
     while served < n_requests and epoch < fleet.max_epochs:
+      with obs.span("fleet.epoch", epoch=epoch, regime=regime_idx):
         counts = np.asarray(next(stream), dtype=np.int64)
+
+        # -- regime switch (epoch-clock driven, policy-independent) --------
+        if regimes is not None:
+            r = schedule.regime_at(epoch)
+            if r != regime_idx:
+                regime_idx, reg = r, regimes[r]
+                obs.event("drift.regime_switch", epoch=epoch,
+                          regime=regime_idx, name=reg.name)
+                phys = reg.env_cfg
+                lp, pw = phys.latency, phys.power
+                phys_backend = backend if phys is cfg \
+                    else (reg.backend or AnalyticalBackend(phys, tables))
+                if reg.battery_scale is not None:
+                    battery = battery * reg.battery_scale
+                for d in reg.kill_devices:
+                    battery[d] = 0.0
+                for d in reg.revive_devices:
+                    battery[d] = pw.battery_j
+                    free_at[d] = t_now
+                # world variables snap into the new regime's bounds
+                bw = np.clip(bw, lp.bw_min_bps, lp.bw_max_bps)
+                p_tx = np.clip(p_tx, pw.p_tx_min, pw.p_tx_max)
+            if reg.trace_scale != 1.0:
+                from repro_torch.online.drift import scale_counts
+                counts = np.asarray(
+                    scale_counts(t_rng, counts, reg.trace_scale),
+                    dtype=np.int64)
+
         alive = battery > 0.0
         if not alive.any():
             break
@@ -247,18 +323,19 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
         obs_queue = min(queue_jobs, fleet.queue_obs_clip)
         load = np.clip(obs_rate / norm_rps, 0.0, 1.0)
 
-        # 1) decide from measured state, on the tables' device; one copy
-        #    of the actions back to the host
-        t_decide = time.perf_counter()
-        state = measured_state(
-            cfg, tables, battery_j=battery, bandwidth=bw, p_tx=p_tx,
-            queue_jobs=obs_queue, load=load,
-            model_id=model_ids, activity=activity, t=epoch)
-        actions = policy.act(state, generator).cpu().numpy()
-        decide_s.append(time.perf_counter() - t_decide)
+        # 1) decide from measured state (obs normalization: base regime),
+        #    on the tables' device; one copy of the actions to the host
+        with obs.span("fleet.decide", policy=policy.name):
+            t_decide = time.perf_counter()
+            state = measured_state(
+                cfg, tables, battery_j=battery, bandwidth=bw, p_tx=p_tx,
+                queue_jobs=obs_queue, load=load,
+                model_id=model_ids, activity=activity, t=epoch)
+            actions = policy.act(state, generator).cpu().numpy()
+            decide_s.append(time.perf_counter() - t_decide)
 
-        # 2) price this epoch's actions
-        pr = backend.price(model_ids, actions, bw, p_tx)
+        # 2) price this epoch's actions under the current regime
+        pr = phys_backend.price(model_ids, actions, bw, p_tx)
 
         # 3) flow requests through device FIFOs (Lindley recursion).
         # Everything outside the queueing recursion itself is shared by
@@ -270,45 +347,88 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
             metrics.drop(dropped)
         tail_in_s = float(np.where(sel & pr.offloaded, counts * pr.tail_s, 0.0).sum())
         queues = megafleet.numpy_queues if fleet.engine == "vectorized" else _queues_loop
-        slo_hits = queues(counts, alive, free_at, pr, srv_wait, t_now,
-                          cfg.slot_seconds, w_rng, metrics, fleet.slo_s)
+        with obs.span("fleet.queues", engine=fleet.engine):
+            slo_hits = queues(counts, alive, free_at, pr, srv_wait, t_now,
+                              cfg.slot_seconds, w_rng, metrics, fleet.slo_s)
         # one scatter-add per epoch instead of a per-device increment
         np.add.at(hist, (model_ids[sel], actions[sel, 0],
                          actions[sel, 1]), counts[sel])
         if sel.any():
             d0 = int(np.argmax(sel))
-            backend.maybe_execute(int(model_ids[d0]), int(actions[d0, 0]),
-                                  int(actions[d0, 1]))
+            phys_backend.maybe_execute(int(model_ids[d0]), int(actions[d0, 0]),
+                                       int(actions[d0, 1]))
 
-        # 4) world dynamics (mirrors env_step, on the world rng)
-        kin_p = _kinetic_power(pw, activity)
-        drain = np.where(alive, kin_p * cfg.slot_seconds
-                         + counts * pr.energy_j, 0.0)
-        battery = np.maximum(battery - drain, 0.0)
-        bw = np.clip(bw * np.exp(w_rng.normal(size=n) * 0.15),
-                     lp.bw_min_bps, lp.bw_max_bps)
-        p_tx = np.clip(p_tx + w_rng.normal(size=n) * 0.05,
-                       pw.p_tx_min, pw.p_tx_max)
-        activity = np.clip(activity + w_rng.normal(size=(n, 3))
-                           * cfg.activity_jitter, 0.0, 1.0)
-        activity /= np.maximum(activity.sum(-1, keepdims=True), 1.0)
-        side_queue = max(
-            side_queue + float(w_rng.poisson(cfg.queue_arrival_rate))
-            - cfg.queue_service_per_slot, 0.0)
-        backlog_s = max(backlog_s + tail_in_s - cfg.slot_seconds, 0.0)
-        obs_rate = (1.0 - fleet.ewma) * obs_rate \
-            + fleet.ewma * counts / cfg.slot_seconds
+        # 3b) adaptation metrics + online update: the epoch's slot-level
+        # reward (Eq. 8 over the measured view) priced under the CURRENT
+        # regime, and the greedy oracle re-solved under the same regime
+        if tracker is not None:
+          with obs.span("fleet.adapt"):
+            view = pricing.StateView(
+                model_id=model_ids, bandwidth=bw, p_tx=p_tx,
+                queue=obs_queue, load=load)
+            br = pricing.price_actions(phys, np_t, view, actions, xp=np)
+            wts = phys.weights
+            per = (wts.w_acc * br.acc_score + wts.w_lat * br.lat_score
+                   + wts.w_energy * br.energy_score
+                   + wts.w_stab * br.stab_score)
+            amask = alive.astype(np.float64)
+            r_epoch = float((per * amask).sum() / max(amask.sum(), 1.0))
+            oracle_r = oracle_reward(phys, np_t, view, amask)
+            tracker.record(epoch, regime_idx,
+                           reg.name if reg is not None else "base",
+                           r_epoch, oracle_r)
+            if learner is not None:
+                learner.observe_transition(state, actions, per, amask,
+                                           regime_idx)
+                learner.step(epoch, r_epoch, oracle_reward=oracle_r)
+
+        # 4) world dynamics (mirrors env_step, on the world rng, under
+        #    the current regime's latency/power bounds)
+        with obs.span("fleet.dynamics"):
+            kin_p = _kinetic_power(pw, activity)
+            drain = np.where(alive, kin_p * cfg.slot_seconds
+                             + counts * pr.energy_j, 0.0)
+            battery = np.maximum(battery - drain, 0.0)
+            bw = np.clip(bw * np.exp(w_rng.normal(size=n) * 0.15),
+                         lp.bw_min_bps, lp.bw_max_bps)
+            p_tx = np.clip(p_tx + w_rng.normal(size=n) * 0.05,
+                           pw.p_tx_min, pw.p_tx_max)
+            activity = np.clip(activity + w_rng.normal(size=(n, 3))
+                               * cfg.activity_jitter, 0.0, 1.0)
+            activity /= np.maximum(activity.sum(-1, keepdims=True), 1.0)
+            side_queue = max(
+                side_queue + float(w_rng.poisson(phys.queue_arrival_rate))
+                - phys.queue_service_per_slot, 0.0)
+            backlog_s = max(backlog_s + tail_in_s - cfg.slot_seconds, 0.0)
+            obs_rate = (1.0 - fleet.ewma) * obs_rate \
+                + fleet.ewma * counts / cfg.slot_seconds
 
         served += int(counts.sum())
         t_now += cfg.slot_seconds
+        obs.inc("fleet.arrivals", int(counts.sum()), policy=policy.name)
+        if dropped:
+            obs.inc("fleet.dropped", dropped, policy=policy.name)
+        obs.inc("fleet.slo_hits", slo_hits, policy=policy.name)
+        obs.observe("fleet.queue_jobs", queue_jobs, policy=policy.name)
         if fleet.record_epochs:
             epoch_log.append({
                 "epoch": epoch, "arrivals": int(counts.sum()),
                 "queue_jobs": float(queue_jobs), "backlog_s": float(backlog_s),
                 "dropped": dropped, "slo_hits": slo_hits,
-                "alive": int(alive.sum()), "regime": 0,
+                "alive": int(alive.sum()), "regime": regime_idx,
             })
         epoch += 1
+
+    adaptation = None
+    if tracker is not None:
+        adaptation = tracker.summary(include_series=fleet.record_epochs)
+        adaptation["schedule"] = schedule.name if schedule is not None \
+            else None
+        if learner is not None:
+            adaptation["online"] = learner.summary()
+            # leave the policy in its serving (greedy) mode
+            if hasattr(policy, "set_explore"):
+                policy.set_explore(0.0)
 
     summary = metrics.summary(duration_s=t_now)
     summary["epochs"] = epoch
@@ -316,4 +436,4 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
     return SimResult(summary=summary, metrics=metrics, selection_hist=hist,
                      epochs=epoch, served=served, duration_s=t_now,
                      cross_check=backend.cross_check(), epoch_log=epoch_log,
-                     decide_s=np.asarray(decide_s))
+                     adaptation=adaptation, decide_s=np.asarray(decide_s))

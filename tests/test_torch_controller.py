@@ -301,7 +301,7 @@ def test_baselines_match_the_reference(kind):
 
 def test_policy_registry():
     assert policy_names() == ("a2c", "device_only", "full_offload", "greedy_oracle",
-                              "random")
+                              "ppo", "random")
     with pytest.raises(KeyError, match="greedy_oracle"):
         build_policy("no-such-policy", *T.make_paper_env(device="cpu"))
 

@@ -372,7 +372,8 @@ def test_a2c_policy_exploration_mixes_sampled_and_greedy_actions():
 
 
 def test_policy_roster():
-    assert policy_names() == ("a2c", "device_only", "full_offload", "greedy_oracle", "random")
+    assert policy_names() == ("a2c", "device_only", "full_offload", "greedy_oracle", "ppo",
+                              "random")
 
 
 # --------------------------------------------------------------------------
@@ -383,7 +384,7 @@ def test_unported_options_raise(worlds, tmp_path):
     w = worlds("paper-mmpp-burst")
     pol, trace = w.policies["device_only"], w.sc.build_trace()
     for kw in (dict(fleet=FleetConfig(engine="scan")), dict(fleet=FleetConfig(timeline=True)),
-               dict(schedule=object()), dict(online=object()), dict(autoscaler=object())):
+               dict(autoscaler=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             simulate(*w.env, pol, trace, n_requests=100, **kw)
     with pytest.raises(ValueError, match="unknown fleet engine"):
@@ -394,16 +395,14 @@ def test_unported_options_raise(worlds, tmp_path):
                           cluster=build_cluster(get_pool("hetero-4"), get_topology("near-far", 4, 4)))
     with pytest.raises(NotImplementedError, match="cluster"):
         simulate(*cl, build_policy("device_only", *cl), trace, n_requests=100)
-    for name in ("link-brownout", "edge-cluster"):       # a drift and a cluster preset
+    for name in ("edge-cluster", "cluster-brownout"):       # the cluster presets
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run_scenario(get_scenario(name), ["device_only"], device="cpu", n_requests=100)
     sc = get_scenario("tpu-submesh")
-    for kw in (dict(policies=["greedy_oracle+online"]), dict(timeline=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_scenario(sc, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_scenario(sc, device="cpu", timeline=True)
     assert split_policy_name("a2c+online") == ("a2c", True)
-    for build in (sc.replace(drift="flash-crowd").build_schedule, sc.build_online,
-                  sc.replace(pool="hetero-4").build_cluster,
+    for build in (sc.replace(pool="hetero-4").build_cluster,
                   sc.replace(autoscale="hysteresis").build_autoscaler):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build()
@@ -417,7 +416,7 @@ def test_unported_options_raise(worlds, tmp_path):
                        [SplitServingEngine(vlm, init(small, torch.Generator().manual_seed(0),
                                                      device="cpu"), device="cpu")],
                        seq_len=8)
-    for flag in (["--online"], ["--pool", "hetero-4"], ["--trace-out", "x"], ["-v"],
+    for flag in (["--pool", "hetero-4"], ["--trace-out", "x"], ["--timeline-out", "x"],
                  ["--trace", "mmpp"]):
         with pytest.raises(SystemExit):
             cli.main(["--scenario", "tpu-submesh", "--device", "cpu", *flag])
