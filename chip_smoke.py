@@ -242,6 +242,11 @@ PPO_EPOCHS = 4
 DRIFT_ONSET, DRIFT_RECOVER, DRIFT_REQUESTS = 30, 60, 18_000
 DRIFT_PARAM_TOL = 1e-5
 SYNC_REQUESTS = 2_000
+# the cluster loop (phase 3e): the edge-cluster preset's world, its routing A2C
+# trained on the card for CLUSTER_EPISODES updates (the preset's 400 cut, so
+# that the phase stays short: the path, not learning), CLUSTER_STATES measured
+# states decided card against CPU
+CLUSTER_EPISODES, CLUSTER_STATES = 60, 16
 # card vs CPU, f32 logits of order 1: sums run in other orders on the two
 # devices through 24 blocks, hence 1e-3 for bf16 and w4. In w8 such a
 # difference can also flip an int8 activation code (x / scale within
@@ -1353,6 +1358,226 @@ def phase_drift_loop(dev, cfg, eng, batch, world):
     return launches, timing
 
 
+def phase_cluster_loop(dev, smi):
+    """3e. The edge cluster: the edge-cluster preset's world (8 devices,
+    hetero-4 x near-far x hysteresis) built on the card, the routers and
+    baselines deciding on the card every epoch, card = CPU and vectorized =
+    loop bit for bit; a routing A2C trained on the card (60 updates, the
+    preset's 400 cut); then cluster-brownout at the preset's size, the
+    routers and that A2C frozen card = CPU bit for bit, and the A2C adapted
+    online against its CPU run. No kernel lies on this path: the routers
+    price through the pricing core in torch, as the reference's do through
+    ``jnp`` outside any Pallas kernel."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import measured_state
+    from repro_torch.core.actor_critic import Agent
+    from repro_torch.online.adapt import OnlineLearner
+    from repro_torch.policies import A2CPolicy, build_policy
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.sim import FleetConfig, simulate
+    t_phase = time.perf_counter()
+    sc = get_scenario("edge-cluster")
+    print(f"== 3e. cluster loop: the {sc.name} world ({sc.devices} devices, {sc.pool} x "
+          f"{sc.topology} x {sc.autoscale}, {sc.trace} {sc.trace_kw} rps a device, "
+          f"{sc.slot_seconds} s slots, SLO {sc.slo_s} s, {sc.n_requests} requests at seeds "
+          f"{list(sc.seeds)}); card {smi}")
+    _reset_counts()
+    env_cfg, tables, mids, _ = sc.build_env(device=dev)
+    cpu_env, cpu_tables, _, _ = sc.build_env(device="cpu")
+    arrays = [f.name for f in dataclasses.fields(tables)
+              if isinstance(getattr(tables, f.name), torch.Tensor)]
+    check(tables.device == dev and env_cfg == cpu_env and env_cfg.action_dim == 3 and all(
+        torch.equal(getattr(tables, k).cpu(), getattr(cpu_tables, k)) for k in arrays),
+        f"cluster env (S = {env_cfg.n_servers}, actions (version, cut, server)) built on the "
+        f"card, its tables equal the CPU's exactly ({', '.join(arrays)})")
+    timing = {"card": smi, "edge-cluster": {}, "cluster-brownout": {}}
+
+    def same_cluster_result(a, b):
+        return (same_sim_result(a, b) and np.array_equal(a.server_hist, b.server_hist)
+                and a.adaptation == b.adaptation)
+
+    def pool_of(res):
+        return {k: res.summary[k] for k in ("slo_attainment", "server_energy_j",
+                                            "scale_events", "mean_replicas")} | {
+            "server_hist": res.server_hist.tolist()}
+
+    def run_both(sc_, pols, envs, name, engines=("loop",), **kw):
+        """Each seed on the card (each engine) and on the CPU; returns the
+        card's loop runs, the wall seconds and whether every run equals."""
+        (c_env, c_tab), (h_env, h_tab) = envs
+        res, walls, same, dec_card, dec_cpu = [], [], True, [], []
+        for seed in sc_.seeds:
+            args = dict(n_requests=sc_.n_requests, seed=seed, model_ids=mids,
+                        schedule=sc_.build_schedule(), autoscaler=sc_.build_autoscaler(), **kw)
+            t0 = time.perf_counter()
+            a = simulate(c_env, c_tab, pols[0], sc_.build_trace(),
+                         fleet=FleetConfig(slo_s=sc_.slo_s), **args)
+            walls.append(time.perf_counter() - t0)
+            b = simulate(h_env, h_tab, pols[1], sc_.build_trace(),
+                         fleet=FleetConfig(slo_s=sc_.slo_s), **args)
+            same &= same_cluster_result(a, b)
+            for engine in engines[1:]:
+                v = simulate(c_env, c_tab, pols[0], sc_.build_trace(),
+                             fleet=FleetConfig(slo_s=sc_.slo_s, engine=engine), **args)
+                same &= same_cluster_result(a, v)
+            res.append(a)
+            dec_card.append(a.decide_s)
+            dec_cpu.append(b.decide_s)
+        epochs = sum(r.epochs for r in res)
+        served = sum(r.served for r in res)
+        t = {"wall_s": walls, "epochs_per_s": epochs / sum(walls),
+             "requests_per_s": served / sum(walls),
+             "decide_ms_median": 1e3 * float(np.median(np.concatenate(dec_card))),
+             "cpu_decide_ms_median": 1e3 * float(np.median(np.concatenate(dec_cpu))),
+             "per_seed": [pool_of(r) for r in res]}
+        timing[sc_.name][name] = t
+        print(f"    {name}: {epochs} epochs, {served} requests on the card in "
+              f"{sum(walls):.3f} s ({t['epochs_per_s']:.0f} epochs/s, "
+              f"{t['requests_per_s']:.0f} simulated requests/s); decide median "
+              f"{t['decide_ms_median']:.3f} ms an epoch on the card, "
+              f"{t['cpu_decide_ms_median']:.3f} ms on the CPU; per seed "
+              + json.dumps(t["per_seed"]))
+        return res, same
+
+    # (a) the routers and the baselines decide on the card every epoch
+    envs = ((env_cfg, tables), (cpu_env, cpu_tables))
+    for name in ("round_robin", "join_shortest_queue", "local_only", "device_only",
+                 "greedy_oracle"):
+        pols = (build_policy(name, env_cfg, tables), build_policy(name, cpu_env, cpu_tables))
+        res, same = run_both(sc, pols, envs, name, engines=("loop", "vectorized"))
+        check(same and all(r.server_hist.sum() > 0 for r in res),
+              f"{sc.name} {name} on seeds {list(sc.seeds)}: card = CPU and vectorized = loop "
+              f"bit for bit (summary with the pool's energy, events and replicas, "
+              f"selection_hist, server_hist, epoch_log, latencies)")
+
+    # (b) a routing A2C trained on the card
+    a2c = A2CPolicy(env_cfg, tables, episodes=CLUSTER_EPISODES, batch_envs=sc.batch_envs,
+                    entropy_coef=sc.entropy_coef)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = a2c.train(seed=sc.train_seed, trace=sc.build_train_trace())
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    finite = all(math.isfinite(h["loss"]) for h in hist)
+    cpu_a2c = A2CPolicy(cpu_env, cpu_tables).set_params(
+        Agent({k: v.detach().cpu() for k, v in a2c.params.flat_params().items()}))
+    r = np.random.default_rng(14)
+    lp, pw = env_cfg.latency, env_cfg.power
+    same, sampled = 0, set()
+    g = torch.Generator().manual_seed(0)
+    for t in range(CLUSTER_STATES):
+        kw = dict(battery_j=r.uniform(0.0, pw.battery_j, sc.devices),
+                  bandwidth=r.uniform(lp.bw_min_bps, lp.bw_max_bps, sc.devices),
+                  p_tx=r.uniform(pw.p_tx_min, pw.p_tx_max, sc.devices),
+                  queue_jobs=r.uniform(0.0, 25.0, env_cfg.n_servers),
+                  load=r.uniform(0.0, 1.0, sc.devices), model_id=mids, t=t)
+        s_card = measured_state(env_cfg, tables, **kw)
+        same += bool(torch.equal(a2c.act(s_card).cpu(),
+                                 cpu_a2c.act(measured_state(cpu_env, cpu_tables, **kw))))
+        a2c.set_explore(1.0)
+        sampled |= set(a2c.act(s_card, g)[:, 2].tolist())
+        a2c.set_explore(0.0)
+    check(finite and len(hist) == CLUSTER_EPISODES and len(sampled) > 1
+          and same == CLUSTER_STATES,
+          f"routing A2C on the card ({CLUSTER_EPISODES} updates of {sc.batch_envs} envs, "
+          f"entropy {sc.entropy_coef}; the preset trains 400) in {train_s:.2f} s "
+          f"({train_s / CLUSTER_EPISODES * 1e3:.1f} ms an update), losses finite={finite}, "
+          f"mean reward first 15 {statistics.mean(h['mean_reward'] for h in hist[:15]):+.5f} "
+          f"-> last 15 {statistics.mean(h['mean_reward'] for h in hist[-15:]):+.5f}; servers "
+          f"sampled {sorted(sampled)}; decides on the card as on the CPU on "
+          f"{same}/{CLUSTER_STATES} measured states")
+    timing["a2c_train_s"] = train_s
+    timing["a2c_ms_per_update"] = train_s / CLUSTER_EPISODES * 1e3
+    res, same = run_both(sc, (a2c, cpu_a2c), envs, "a2c")
+    check(same, f"{sc.name} a2c (trained on the card) on seeds {list(sc.seeds)}: card = CPU "
+          f"bit for bit")
+
+    # (c) cluster-brownout at the preset's size: routers and the A2C frozen
+    bo = get_scenario("cluster-brownout")
+    print(f"  {bo.name}: {bo.trace} {bo.trace_kw} rps a device, {bo.drift} {bo.drift_kw}, "
+          f"{bo.n_requests} requests at seeds {list(bo.seeds)}")
+    b_env, b_tables, b_mids, _ = bo.build_env(device=dev)
+    h_env, h_tables, _, _ = bo.build_env(device="cpu")
+    check(np.array_equal(b_mids, mids), f"{bo.name}: the fleet's models as {sc.name}'s")
+    b_envs = ((b_env, b_tables), (h_env, h_tables))
+    b_a2c = A2CPolicy(b_env, b_tables).set_params(a2c.params)
+    h_a2c = A2CPolicy(h_env, h_tables).set_params(cpu_a2c.params)
+    for name in ("round_robin", "join_shortest_queue", "local_only", "device_only", "a2c"):
+        pols = ((b_a2c, h_a2c) if name == "a2c" else
+                (build_policy(name, b_env, b_tables), build_policy(name, h_env, h_tables)))
+        res, same = run_both(bo, pols, b_envs, name)
+        regimes = [[reg["name"] for reg in x.adaptation["regimes"]] for x in res]
+        check(same and all(len(names) >= 2 for names in regimes),
+              f"{bo.name} {name}{' (frozen)' if name == 'a2c' else ''} on seeds "
+              f"{list(bo.seeds)}: card = CPU bit for bit, adaptation included (regimes "
+              f"reached {regimes})")
+
+    # the A2C adapted online (the '+online' roster's OnlineConfig), card and CPU
+    oc = bo.build_online("a2c")
+    frozen = {k: v.detach().clone() for k, v in b_a2c.params.flat_params().items()}
+    runs, update_ms = {}, {}
+    for where, (env_, tables_, base) in (("card", (b_env, b_tables, b_a2c)),
+                                         ("cpu", (h_env, h_tables, h_a2c))):
+        pol = A2CPolicy(env_, tables_).set_params(base.params)
+        log = _watch(pol)
+        update_ms[where] = []
+        orig = _timed_updates(update_ms[where])
+        try:
+            t0 = time.perf_counter()
+            res = simulate(env_, tables_, pol, bo.build_trace(), n_requests=bo.n_requests,
+                           seed=bo.seeds[0], model_ids=mids, fleet=FleetConfig(slo_s=bo.slo_s),
+                           schedule=bo.build_schedule(), autoscaler=bo.build_autoscaler(),
+                           online=oc)
+            wall = time.perf_counter() - t0
+        finally:
+            OnlineLearner._update = orig
+        runs[where] = (res, log, wall)
+    (res, log, wall), (ref, cpu_log, _) = runs["card"], runs["cpu"]
+    on, cpu_on = res.adaptation["online"], ref.adaptation["online"]
+    first_up = log["swaps"][0][0] if log["swaps"] else None
+    cpu_first_up = cpu_log["swaps"][0][0] if cpu_log["swaps"] else None
+    n_same = next((i for i, (x, y) in enumerate(zip(log["decisions"], cpu_log["decisions"]))
+                   if not np.array_equal(x, y)), min(len(log["decisions"]),
+                                                     len(cpu_log["decisions"])))
+    param_err = None
+    if first_up is not None and cpu_first_up == first_up:
+        p_card, p_cpu = log["swaps"][0][1], cpu_log["swaps"][0][1]
+        param_err = max(float(((p_card[k] - p_cpu[k]).abs() / (1.0 + p_cpu[k].abs())).max())
+                        for k in p_cpu)
+    check(on["updates"] > 0 and first_up is not None and first_up == cpu_first_up
+          and n_same > first_up and param_err is not None and param_err <= DRIFT_PARAM_TOL
+          and all(torch.equal(v, frozen[k]) for k, v in b_a2c.params.flat_params().items()),
+          f"{bo.name} a2c+online (gate {oc.gate}, explore_eps {oc.explore_eps}, window "
+          f"{oc.window}) seed {bo.seeds[0]}: {res.epochs} epochs in {wall:.3f} s, learner {on} "
+          f"on the card, {cpu_on} on the CPU; first update at epoch {first_up} (CPU "
+          f"{cpu_first_up}); decisions card = CPU for the first {n_same} of "
+          f"{len(log['decisions'])} epochs; parameters after the first update: worst "
+          f"|card - CPU| / (1 + |CPU|) = {param_err} (limit {DRIFT_PARAM_TOL}); the frozen "
+          f"agent untouched")
+    timing["cluster-brownout"]["a2c+online"] = {
+        "online": on, "cpu_online": cpu_on, "first_update_epoch": first_up,
+        "decisions_equal_epochs": n_same, "epochs": res.epochs, "wall_s": wall,
+        "first_update_param_err": param_err, **pool_of(res),
+        "update_ms_median": statistics.median(update_ms["card"]) if update_ms["card"] else None,
+        "cpu_update_ms_median": statistics.median(update_ms["cpu"]) if update_ms["cpu"] else None,
+        "decide_ms_median": 1e3 * float(np.median(res.decide_s)),
+        "cpu_decide_ms_median": 1e3 * float(np.median(ref.decide_s))}
+    t = timing["cluster-brownout"]["a2c+online"]
+    print(f"    a2c+online: slo_attainment {res.summary['slo_attainment']:.4f}, server_hist "
+          f"{res.server_hist.tolist()}; online update median {t['update_ms_median']} ms on "
+          f"the card, {t['cpu_update_ms_median']} ms on the CPU; decide median "
+          f"{t['decide_ms_median']:.3f} ms on the card, {t['cpu_decide_ms_median']:.3f} ms on "
+          f"the CPU; card {smi}")
+    launches = _counts()
+    check(launches == _launches(), f"cluster loop launches {launches}: no kernel lies on "
+          f"this path")
+    timing["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 3e took {timing['phase_s']:.1f} s")
+    return launches, timing
+
+
 def phase_decode_serving(cfg, model, batch):
     import numpy as np
     import torch
@@ -2241,6 +2466,7 @@ def main() -> int:
     loop_launches, loop_timing = phase_closed_loop(dev, cfg, eng, batch)
     fleet_launches, fleet_timing, fleet_world = phase_fleet_loop(dev, cfg, eng, smi)
     drift_launches, drift_timing = phase_drift_loop(dev, cfg, eng, batch, fleet_world)
+    cluster_launches, cluster_timing = phase_cluster_loop(dev, smi)
     dec_launches, dec_timing = phase_decode_serving(cfg, model, batch)
     phase_split_equals_full(cfg, model, batch)
     cpu_model = phase_card_vs_cpu(cfg, model, eng, batch)
@@ -2270,6 +2496,7 @@ def main() -> int:
     paths = {f"{cfg.name} split": launches, f"{cfg.name} closed loop": loop_launches,
              f"{cfg.name} fleet loop": fleet_launches,
              f"{cfg.name} drift loop": drift_launches,
+             "edge-cluster loop": cluster_launches,
              f"{cfg.name} decode": dec_launches,
              f"{FM_ARCH} split": fm_launches, f"{FM_ARCH} decode": fm_dec_launches,
              f"{RG_ARCH} split": rg_launches, f"{RG_ARCH} decode": rg_dec_launches}
@@ -2281,6 +2508,7 @@ def main() -> int:
     print(f"{cfg.name} closed loop: " + json.dumps(loop_timing))
     print(f"{cfg.name} fleet loop: " + json.dumps(fleet_timing))
     print(f"{cfg.name} drift loop: " + json.dumps(drift_timing))
+    print("edge-cluster loop: " + json.dumps(cluster_timing))
     print(f"{cfg.name} decode serving: " + json.dumps(dec_timing))
     print(f"{FM_ARCH} per-infer ms (median of 3), {FM_BATCH} x {FM_SEQ} tokens: " + json.dumps(
         {k: statistics.median(v) for k, v in fm_times.items()}))

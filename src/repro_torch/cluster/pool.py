@@ -1,5 +1,5 @@
-"""Heterogeneous edge-server pool, static side (port of
-``repro.cluster.pool``; numpy only, copied).
+"""Heterogeneous edge-server pool: static description + runtime state
+(port of ``repro.cluster.pool``; numpy only, copied).
 
 ``ServerSpec`` describes one server relative to the env's single-server
 baseline (``LatencyParams.server_flops`` / ``job_service_s``): a FLOPs
@@ -13,6 +13,14 @@ per device -> server link matrix of a topology. The pricing core
 (``core/pricing.py``) reads it to reprice the Eq. 2/3 transmission terms
 and the Eq. 4 queue/tail terms per chosen server when actions carry a
 server column.
+
+``ServerPool`` is the runtime object the fleet loop owns: live replica
+counts and DVFS levels (moved per epoch by the autoscaler,
+``repro_torch.cluster.autoscale``), the derived effective service arrays
+pricing and the per-server Lindley backlog use, and the replica-energy
+meter. A 1-server pool at uniform topology is bit-identical to the
+classic single-server fleet: every derived quantity is the baseline
+value multiplied by exactly 1.0.
 """
 from __future__ import annotations
 
@@ -20,6 +28,8 @@ import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
+
+from repro_torch.cluster.autoscale import Autoscaler
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +115,81 @@ def build_cluster(servers: Tuple[ServerSpec, ...], topology) -> ClusterParams:
         link_rtt_s=tuple(tuple(float(v) for v in row)
                          for row in topology.rtt_s),
         names=tuple(s.name for s in servers))
+
+
+@dataclasses.dataclass
+class PoolEffective:
+    """Live per-server service arrays at the pool's current replica /
+    DVFS state (all (S,) float64)."""
+    flops: np.ndarray         # tail FLOP/s the pricing core divides by
+    service_s: np.ndarray     # background-job service seconds
+    bg_drain: np.ndarray      # background jobs drained per slot
+    cap_scale: np.ndarray     # fleet-backlog drain multiplier
+
+
+class ServerPool:
+    """Runtime replica/DVFS state + replica-energy meter for one fleet
+    simulation. ``tick`` advances the autoscaler (if any) on measured
+    per-server queue depth and meters replica energy for the slot;
+    ``effective`` derives the live service arrays under the *current
+    regime's* physics (drift patches change ``lp`` mid-run)."""
+
+    def __init__(self, cluster: ClusterParams, autoscaler=None):
+        self.cluster = cluster
+        S = cluster.n_servers
+        self.replicas = np.asarray(cluster.replicas, dtype=np.int64)
+        self.dvfs_idx = np.asarray([len(d) - 1 for d in cluster.dvfs],
+                                   dtype=np.int64)
+        self.energy_j = 0.0
+        self.scale_events = 0
+        self._replica_slots = 0.0   # sum over epochs of active replicas
+        self._epochs = 0
+        # last tick's snapshot: the state the epoch actually ran at (taken
+        # *before* the autoscaler moves) plus its decisions
+        self.last_dvfs = self._dvfs()
+        self.last_replicas = self.replicas.copy()
+        self.last_power_w = np.zeros(S)
+        self.last_decisions: list = []
+        self.autoscaler = None if autoscaler is None else Autoscaler(autoscaler, S)
+
+    def _dvfs(self) -> np.ndarray:
+        return np.asarray([self.cluster.dvfs[s][self.dvfs_idx[s]]
+                           for s in range(self.cluster.n_servers)])
+
+    def effective(self, lp, env_cfg) -> PoolEffective:
+        # the reference's order of multiplication: a 1.0-scaled single
+        # server reproduces the classic fleet's values bit for bit
+        c = self.cluster
+        speed = self.replicas * self._dvfs()
+        flops = np.asarray(c.flops_scale) * speed * lp.server_flops
+        service = lp.job_service_s * np.asarray(c.service_scale) / speed
+        bg_drain = env_cfg.queue_service_per_slot \
+            * np.asarray(c.bg_service_scale) * speed
+        return PoolEffective(flops=flops, service_s=service,
+                             bg_drain=bg_drain, cap_scale=speed)
+
+    def tick(self, queue_jobs: np.ndarray, slot_seconds: float) -> None:
+        """One epoch: meter replica energy at the current state, then
+        let the autoscaler move replicas/DVFS for the next epoch."""
+        d = self._dvfs()
+        p = np.asarray(self.cluster.p_replica_w) * self.replicas * d ** 3
+        self.energy_j += float(p.sum()) * slot_seconds
+        self._replica_slots += float(self.replicas.sum())
+        self._epochs += 1
+        self.last_dvfs = d
+        self.last_replicas = self.replicas.copy()
+        self.last_power_w = p
+        self.last_decisions = []
+        if self.autoscaler is not None:
+            self.last_decisions = self.autoscaler.step(self, np.asarray(queue_jobs))
+            self.scale_events += len(self.last_decisions)
+
+    def summary(self) -> Dict[str, float]:
+        return {
+            "server_energy_j": self.energy_j,
+            "scale_events": float(self.scale_events),
+            "mean_replicas": self._replica_slots / max(self._epochs, 1),
+        }
 
 
 # --------------------------------------------------------------------------

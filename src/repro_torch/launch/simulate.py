@@ -35,6 +35,13 @@ names another.
     # execution on a reduced transformer, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.simulate --scenario tpu-execute --device cpu
 
+    # heterogeneous edge-server pool: learned (version, cut, server)
+    # routing against the classic routers (repro_torch.cluster)
+    PYTHONPATH=src python -m repro_torch.launch.simulate --scenario edge-cluster
+    PYTHONPATH=src python -m repro_torch.launch.simulate --scenario edge-cluster \
+        --pool uniform-4 --topology tiered --autoscale threshold \
+        --compare round_robin,join_shortest_queue,local_only --device cpu
+
 The reference script's other flags wait for modules not ported yet, and
 are refused naming their ROADMAP item.
 """
@@ -53,9 +60,6 @@ from repro_torch.scenarios import (get_scenario, run_scenario, scenario_names,
 # what it waits for)
 _ITEM3 = "ROADMAP section 1, item 3"
 REFUSED = {
-    "--pool": (True, f"server pools, repro.cluster ({_ITEM3})"),
-    "--topology": (True, f"topologies, repro.cluster ({_ITEM3})"),
-    "--autoscale": (True, f"the autoscaler, repro.cluster ({_ITEM3})"),
     "--trace-out": (True, f"obs event recording, repro.obs ({_ITEM3})"),
     "--timeline-out": (True, f"the flight-recorder timeline, repro.obs ({_ITEM3})"),
     **{flag: (True, f"ad-hoc scenarios assembled from flags ({_ITEM3}, with the "
@@ -94,6 +98,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="apply a named WorldSchedule (link-brownout, "
                     "battery-cliff, flash-crowd, device-churn) to the "
                     "scenario; overrides a preset's own drift")
+    ap.add_argument("--pool", metavar="NAME",
+                    help="server-pool preset (repro_torch.cluster: single, "
+                    "uniform-4, hetero-4); widens actions to (version, "
+                    "cut, server)")
+    ap.add_argument("--topology", metavar="NAME",
+                    help="device->server link topology preset (uniform, "
+                    "near-far, tiered); needs --pool")
+    ap.add_argument("--autoscale", choices=("threshold", "hysteresis"),
+                    help="pool autoscaler policy; needs --pool")
     ap.add_argument("--episodes", type=int,
                     help="training budget for trainable policies")
     ap.add_argument("--train-seed", type=int)
@@ -176,13 +189,20 @@ def _run(ap, provided):
         repl["drift"] = provided["drift_schedule"]
         if provided["drift_schedule"] != sc.drift:
             repl["drift_kw"] = {}    # new kind: factory defaults
+    for field in ("pool", "topology", "autoscale"):
+        if field in provided:
+            repl[field] = provided[field]
+            if provided[field] != getattr(sc, field):
+                repl[f"{field}_kw"] = {}    # new kind: preset defaults
     sc = sc.replace(**repl)
     if sc.execute and sc.env != "tpu":
         ap.error("--execute needs a tpu-env scenario (the executable engine "
                  "serves the transformer stack)")
     try:
         sc.build_schedule()
-    except KeyError as e:
+        sc.build_cluster()
+        sc.build_autoscaler()
+    except (KeyError, ValueError) as e:
         ap.error(str(e.args[0]))
 
     if "compare" in provided:

@@ -6,9 +6,7 @@ build_trace/build_env/build_policy by hand (port of
 ``repro.scenarios.base``).
 
 Every field of the reference is declared, so its presets register here
-unchanged. The fields whose machinery is not ported yet (``pool``,
-``autoscale``) raise ``NotImplementedError`` from their ``build_*``
-methods when set.
+unchanged.
 """
 from __future__ import annotations
 
@@ -23,11 +21,6 @@ from repro_torch.core.reward import RewardWeights
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.sim import AnalyticalBackend, ExecuteBackend, get_trace
 from repro_torch.sim.traces import Trace
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP section 1, item 3, "
-                               "cluster/)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,11 +52,17 @@ class Scenario:
     bw_max_bps: Optional[float] = 1e9
     bw_min_bps: Optional[float] = None
 
-    # --- server cluster (reference: repro.cluster; not ported yet) ---------
+    # --- server cluster (repro_torch.cluster; paper env only) -------------
+    # named pool preset (cluster.get_pool) -> heterogeneous server pool;
+    # None keeps the classic single-server world with (version, cut)
+    # actions. With a pool, actions widen to (version, cut, server) and
+    # the topology preset prices each device->server link.
     pool: Optional[str] = None
     pool_kw: Dict = dataclasses.field(default_factory=dict)
     topology: str = "uniform"
     topology_kw: Dict = dataclasses.field(default_factory=dict)
+    # named autoscaler policy over the pool ("threshold"|"hysteresis");
+    # None pins replicas/DVFS at the nominal operating point
     autoscale: Optional[str] = None
     autoscale_kw: Dict = dataclasses.field(default_factory=dict)
 
@@ -130,17 +129,25 @@ class Scenario:
         return OnlineConfig(algo=algo, **self.online_kw)
 
     def build_cluster(self):
-        """None without a pool; a server pool raises until ported."""
+        """ClusterParams from the pool/topology presets, or None."""
         if self.pool is None:
             return None
-        raise _not_ported(f"scenario {self.name!r}: server pool {self.pool!r} "
-                          "(ServerPool, topologies, routers)")
+        from repro_torch.cluster import build_cluster, get_pool, get_topology
+        servers = get_pool(self.pool, **self.pool_kw)
+        topo = get_topology(self.topology, self.devices, len(servers),
+                            **self.topology_kw)
+        return build_cluster(servers, topo)
 
     def build_autoscaler(self):
-        """None without an autoscaler; one raises until ported."""
+        """AutoscalerConfig for the fleet's ServerPool, or None."""
         if self.autoscale is None:
             return None
-        raise _not_ported(f"scenario {self.name!r}: autoscaler {self.autoscale!r}")
+        if self.pool is None:
+            raise ValueError(f"scenario {self.name!r} sets autoscale="
+                             f"{self.autoscale!r} without a server pool")
+        from repro_torch.cluster import AutoscalerConfig
+        return AutoscalerConfig(policy=self.autoscale,
+                                **self.autoscale_kw)
 
     def build_train_trace(self) -> Optional[Trace]:
         """The load process trainable policies see; None under the
@@ -175,7 +182,9 @@ class Scenario:
         if self.battery_wh is not None:
             from repro_torch.core.energy import DevicePower
             env_kw["power"] = DevicePower(battery_wh=self.battery_wh)
-        self.build_cluster()
+        cluster = self.build_cluster()
+        if cluster is not None:
+            env_kw["cluster"] = cluster
         env_cfg, tables = make_paper_env(
             weights=self.weights, n_uavs=self.devices,
             latency=LatencyParams(**lat_kw),

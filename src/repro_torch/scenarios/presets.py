@@ -3,9 +3,7 @@
 
 Each preset is a complete operating regime; ``python -m
 repro_torch.launch.simulate --scenario <name>`` (flags still override
-individual fields) and ``run_scenario`` consume them. The cluster
-presets register too, so the two packages list the same names; running
-one raises until ``repro.cluster`` is ported (ROADMAP section 1, item 3).
+individual fields) and ``run_scenario`` consume them.
 """
 from __future__ import annotations
 
@@ -156,7 +154,7 @@ register_scenario(Scenario(
     policies=("a2c+online", "a2c", "device_only", "full_offload"),
     episodes=300, entropy_coef=0.03, batch_envs=4))
 
-# -- server clusters (repro.cluster): heterogeneous pools, learned
+# -- server clusters (repro_torch.cluster): heterogeneous pools, learned
 # -- routing over the widened (version, cut, server) action space ----------
 
 register_scenario(Scenario(

@@ -14,9 +14,13 @@ adaptation (``repro_torch.online``): it shares the pre-drift trained
 agent with its frozen sibling (train once; the learner adapts a copy),
 restarts from it for every seed, and reports per-regime adaptation
 metrics (regret vs the per-regime greedy oracle and recovery time) in
-its ``PolicyResult.adaptation``. The reference's flight-recorder
-timeline raises until the obs reporting half is ported (ROADMAP section
-1, item 3).
+its ``PolicyResult.adaptation``.
+
+Cluster scenarios (``scenario.pool``) widen the actions to (version,
+cut, server) over the scenario's server pool and topology, and every
+simulation runs the scenario's autoscaler on its own ``ServerPool``. The
+reference's flight-recorder timeline raises until the obs reporting half
+is ported (ROADMAP section 1, item 3).
 """
 from __future__ import annotations
 

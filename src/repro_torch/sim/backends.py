@@ -38,17 +38,22 @@ class AnalyticalBackend:
         self._np_tables = pricing.numpy_tables(tables)
 
     def price(self, model_id: np.ndarray, actions: np.ndarray,
-              bandwidth: np.ndarray, p_tx: np.ndarray) -> PricingBreakdown:
+              bandwidth: np.ndarray, p_tx: np.ndarray, *,
+              srv_flops=None, srv_service_s=None, link_scale=None,
+              link_rtt_s=None) -> PricingBreakdown:
         """One pricing core, numpy namespace. The view carries queue=0
         (the fleet loop adds its own *measured* server wait per epoch)
         and load=0 (the stability score is a training-time signal).
-        The reference's cluster arguments (per-server service arrays,
-        link matrices) come with cluster envs (ROADMAP section 1, item 3)."""
+        Cluster runs pass the pool's live per-server service arrays and
+        the topology's link matrices; actions then carry a server column
+        and the core reprices Eq. 2-4 against each chosen target."""
         view = StateView(
             model_id=np.asarray(model_id),
             bandwidth=np.asarray(bandwidth, dtype=np.float64),
             p_tx=np.asarray(p_tx, dtype=np.float64),
-            queue=0.0, load=0.0)
+            queue=0.0, load=0.0,
+            srv_flops=srv_flops, srv_service_s=srv_service_s,
+            link_scale=link_scale, link_rtt_s=link_rtt_s)
         return pricing.price_actions(self.env_cfg, self._np_tables,
                                      view, np.asarray(actions), xp=np)
 

@@ -1,6 +1,7 @@
 """Discrete-event trace-driven fleet simulator (port of
 ``repro.sim.fleet``: the ``"loop"`` and ``"vectorized"`` engines over a
-single-server world, stationary or drifting, with online adaptation).
+single-server world or a server pool, stationary or drifting, with
+online adaptation).
 
 Each decision epoch (one env slot):
 
@@ -23,6 +24,12 @@ Per-request end-to-end latency, SLO attainment, goodput and energy
 accumulate in ``FleetMetrics``; device backlogs carry across epochs, so
 bursts (MMPP) really queue instead of averaging away.
 
+Cluster worlds (``repro_torch.cluster``): actions carry a server column,
+the queue and backlog are per server, each device prices against and
+waits behind its routed server, and a ``ServerPool`` meters replica
+energy while an optional autoscaler moves replicas and DVFS on the
+measured per-server depth.
+
 Nonstationary worlds (``repro_torch.online``): a ``WorldSchedule``
 switches the *physics* (pricing config, world-dynamics bounds, trace
 scale, battery/churn side effects) at its regime boundaries, while the
@@ -35,10 +42,9 @@ the policy's agent mid-run.
 
 The world and the trace draw from numpy PCG64 as in the reference, so a
 deterministic policy gives the reference's ``SimResult`` bit for bit,
-``adaptation`` included. Not ported yet, each raising
+``adaptation`` and ``server_hist`` included. Not ported yet, each raising
 ``NotImplementedError`` that names its ROADMAP item: the ``"scan"``
-engine, cluster envs and their autoscaler, and the flight-recorder
-timeline.
+engine and the flight-recorder timeline.
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.cluster.pool import ServerPool
 from repro_torch.core.env import EnvConfig, ProfileTables
 from repro_torch.sim import megafleet
 from repro_torch.sim.backends import AnalyticalBackend, ExecuteBackend
@@ -103,6 +110,8 @@ class SimResult:
     # drift/adaptation metrics (runs with a schedule or an OnlineConfig):
     # per-regime reward/oracle/regret/recovery + online-learner counters
     adaptation: Optional[Dict] = None
+    # cluster runs only: (S,) int64 requests routed to each server
+    server_hist: Optional[np.ndarray] = None
     # wall seconds of each epoch's decide: measured_state, act and the
     # actions' copy to the host (the port's own; not in the reference)
     decide_s: np.ndarray = dataclasses.field(
@@ -158,7 +167,9 @@ def _queues_loop(counts, alive, free_at, pr, srv_wait, t_now,
         free_at[d] = done[-1]
         lat = done - offs + pr.tail_s[d]
         if pr.offloaded[d]:
-            lat = lat + srv_wait
+            # scalar (classic single server) or (n,) per-device wait at
+            # each device's routed server (cluster mode)
+            lat = lat + (srv_wait[d] if np.ndim(srv_wait) else srv_wait)
         metrics.record(lat, np.full(c, pr.energy_j[d]), device=d)
         slo_hits += int(np.sum(lat <= slo_s))
     return slo_hits
@@ -171,9 +182,9 @@ def _check_supported(env_cfg, fleet, autoscaler):
     if fleet.engine == "scan":
         raise _not_ported("engine='scan' (a compiled GPU epoch loop)",
                           "item 3, simulate_scan")
-    if env_cfg.cluster is not None or autoscaler is not None:
-        raise _not_ported("cluster envs and their ServerPool and autoscaler",
-                          "item 3, cluster/")
+    if env_cfg.cluster is None and autoscaler is not None:
+        raise ValueError("autoscaler needs a cluster-mode env "
+                         "(EnvConfig.cluster)")
     if fleet.timeline:
         raise _not_ported("the flight-recorder timeline (obs.timeline)",
                           "item 3, the obs reporting half")
@@ -187,12 +198,21 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
              schedule=None, online=None, autoscaler=None) -> SimResult:
     """Run the fleet until ``n_requests`` have arrived (or max_epochs).
 
+    Cluster mode (``env_cfg.cluster`` set): actions carry a server
+    column, the queue/backlog state is per-server, pricing runs against
+    each device's *chosen* target, and an optional ``autoscaler``
+    (``repro_torch.cluster.AutoscalerConfig``) moves replicas/DVFS per
+    epoch on the measured per-server queue depth (replica energy and scale
+    events land in the summary). A 1-server pool at uniform topology is
+    bit-identical to the classic path.
+
     ``policy`` is a ``repro_torch.policies.Policy`` built against this
     same (env_cfg, tables) world: ``act(state, generator) -> (n, 2)``
-    on the tables' device. Each epoch it gets the measured state and a
-    host ``torch.Generator`` seeded with ``seed``, which only sampling (and
-    exploring) policies read: their draws are made on the host and copied
-    to the card, so a run on the card draws what the CPU run draws.
+    ((n, 3) in cluster mode) on the tables' device. Each epoch it gets the
+    measured state and a host ``torch.Generator`` seeded with ``seed``,
+    which only sampling (and exploring) policies read: their draws are
+    made on the host and copied to the card, so a run on the card draws
+    what the CPU run draws.
 
     ``schedule`` (``repro_torch.online.WorldSchedule``) switches the
     physics regime at its patch epochs; ``online``
@@ -205,8 +225,7 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
     policy-independent (drift patches and trace scaling fire on the
     epoch clock, never on policy-driven state), so two policies simulated
     with the same seed face the *identical* request stream, and the whole
-    run, online updates included, is bit-reproducible. ``autoscaler`` is
-    the reference's; it raises until ported.
+    run, online updates included, is bit-reproducible.
     """
     from repro_torch.core import pricing
     from repro_torch.core.controller import measured_state
@@ -261,8 +280,23 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
     bw = w_rng.uniform(lp.bw_min_bps, lp.bw_max_bps, n)
     p_tx = w_rng.uniform(pw.p_tx_min, pw.p_tx_max, n)
     activity = np.tile(np.asarray(cfg.activity, dtype=np.float64), (n, 1))
-    side_queue = 0.0      # env-style background jobs on the server
-    backlog_s = 0.0       # fleet-induced tail work awaiting service
+    cluster = cfg.cluster
+    pool = None
+    srv_hist = None
+    if cluster is not None:
+        link_scale = np.asarray(cluster.link_scale, dtype=np.float64)
+        link_rtt_s = np.asarray(cluster.link_rtt_s, dtype=np.float64)
+        if link_scale.shape != (n, cluster.n_servers):
+            raise ValueError(
+                f"cluster topology is {link_scale.shape} (devices x "
+                f"servers) but this fleet is ({n}, {cluster.n_servers})")
+        pool = ServerPool(cluster, autoscaler)
+        srv_hist = np.zeros(cluster.n_servers, dtype=np.int64)
+        side_queue = np.zeros(cluster.n_servers)   # per-server bg jobs
+        backlog_s = np.zeros(cluster.n_servers)    # per-server tail work
+    else:
+        side_queue = 0.0      # env-style background jobs on the server
+        backlog_s = 0.0       # fleet-induced tail work awaiting service
     free_at = np.zeros(n)     # absolute time each device drains its FIFO
     obs_rate = np.full(n, trace.mean_rps)
     # load normalization must match what the controller trained on:
@@ -318,9 +352,17 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
         alive = battery > 0.0
         if not alive.any():
             break
-        queue_jobs = side_queue + backlog_s / lp.job_service_s
-        srv_wait = queue_jobs * lp.job_service_s
-        obs_queue = min(queue_jobs, fleet.queue_obs_clip)
+        if pool is None:
+            queue_jobs = side_queue + backlog_s / lp.job_service_s
+            srv_wait = queue_jobs * lp.job_service_s
+            obs_queue = min(queue_jobs, fleet.queue_obs_clip)
+        else:
+            # live per-server service arrays at the pool's current
+            # replica/DVFS state under the current regime's physics
+            eff = pool.effective(lp, phys)
+            queue_jobs = side_queue + backlog_s / eff.service_s
+            srv_wait_s = queue_jobs * eff.service_s       # (S,)
+            obs_queue = np.minimum(queue_jobs, fleet.queue_obs_clip)
         load = np.clip(obs_rate / norm_rps, 0.0, 1.0)
 
         # 1) decide from measured state (obs normalization: base regime),
@@ -335,7 +377,15 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
             decide_s.append(time.perf_counter() - t_decide)
 
         # 2) price this epoch's actions under the current regime
-        pr = phys_backend.price(model_ids, actions, bw, p_tx)
+        if pool is None:
+            pr = phys_backend.price(model_ids, actions, bw, p_tx)
+        else:
+            pr = phys_backend.price(
+                model_ids, actions, bw, p_tx, srv_flops=eff.flops,
+                srv_service_s=eff.service_s, link_scale=link_scale,
+                link_rtt_s=link_rtt_s)
+            # each device waits behind its *routed* server's queue
+            srv_wait = srv_wait_s[actions[:, 2]]
 
         # 3) flow requests through device FIFOs (Lindley recursion).
         # Everything outside the queueing recursion itself is shared by
@@ -345,7 +395,15 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
         dropped = int(counts[~alive].sum())
         if dropped:
             metrics.drop(dropped)
-        tail_in_s = float(np.where(sel & pr.offloaded, counts * pr.tail_s, 0.0).sum())
+        contrib = np.where(sel & pr.offloaded, counts * pr.tail_s, 0.0)
+        if pool is None:
+            tail_in_s = float(contrib.sum())
+        else:
+            # per-server sums via mask-compress (same pairwise summation
+            # order as the classic .sum(), so S == 1 stays bit-equal)
+            routed = actions[:, 2]
+            tail_in_s = np.array([contrib[routed == s].sum()
+                                  for s in range(cluster.n_servers)])
         queues = megafleet.numpy_queues if fleet.engine == "vectorized" else _queues_loop
         with obs.span("fleet.queues", engine=fleet.engine):
             slo_hits = queues(counts, alive, free_at, pr, srv_wait, t_now,
@@ -353,6 +411,8 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
         # one scatter-add per epoch instead of a per-device increment
         np.add.at(hist, (model_ids[sel], actions[sel, 0],
                          actions[sel, 1]), counts[sel])
+        if pool is not None:
+            np.add.at(srv_hist, actions[sel, 2], counts[sel])
         if sel.any():
             d0 = int(np.argmax(sel))
             phys_backend.maybe_execute(int(model_ids[d0]), int(actions[d0, 0]),
@@ -363,9 +423,12 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
         # regime, and the greedy oracle re-solved under the same regime
         if tracker is not None:
           with obs.span("fleet.adapt"):
+            vkw = {} if pool is None else dict(
+                srv_flops=eff.flops, srv_service_s=eff.service_s,
+                link_scale=link_scale, link_rtt_s=link_rtt_s)
             view = pricing.StateView(
                 model_id=model_ids, bandwidth=bw, p_tx=p_tx,
-                queue=obs_queue, load=load)
+                queue=obs_queue, load=load, **vkw)
             br = pricing.price_actions(phys, np_t, view, actions, xp=np)
             wts = phys.weights
             per = (wts.w_acc * br.acc_score + wts.w_lat * br.lat_score
@@ -396,10 +459,24 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
             activity = np.clip(activity + w_rng.normal(size=(n, 3))
                                * cfg.activity_jitter, 0.0, 1.0)
             activity /= np.maximum(activity.sum(-1, keepdims=True), 1.0)
-            side_queue = max(
-                side_queue + float(w_rng.poisson(phys.queue_arrival_rate))
-                - phys.queue_service_per_slot, 0.0)
-            backlog_s = max(backlog_s + tail_in_s - cfg.slot_seconds, 0.0)
+            if pool is None:
+                side_queue = max(
+                    side_queue + float(w_rng.poisson(phys.queue_arrival_rate))
+                    - phys.queue_service_per_slot, 0.0)
+                backlog_s = max(backlog_s + tail_in_s - cfg.slot_seconds, 0.0)
+            else:
+                # one scalar Poisson per server, in server order: at
+                # S == 1 with unit scale both the lam and the PCG64
+                # stream position match the classic draw bitwise
+                arr = np.array([float(w_rng.poisson(
+                    phys.queue_arrival_rate * cluster.bg_arrival_scale[s]))
+                    for s in range(cluster.n_servers)])
+                side_queue = np.maximum(side_queue + arr - eff.bg_drain, 0.0)
+                backlog_s = np.maximum(
+                    backlog_s + tail_in_s - cfg.slot_seconds * eff.cap_scale, 0.0)
+                pool.tick(queue_jobs, cfg.slot_seconds)
+                for dec in pool.last_decisions:
+                    obs.event("autoscale.decision", epoch=epoch, **dec)
             obs_rate = (1.0 - fleet.ewma) * obs_rate \
                 + fleet.ewma * counts / cfg.slot_seconds
 
@@ -409,11 +486,15 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
         if dropped:
             obs.inc("fleet.dropped", dropped, policy=policy.name)
         obs.inc("fleet.slo_hits", slo_hits, policy=policy.name)
-        obs.observe("fleet.queue_jobs", queue_jobs, policy=policy.name)
+        obs.observe("fleet.queue_jobs",
+                    queue_jobs if pool is None else float(queue_jobs.sum()),
+                    policy=policy.name)
         if fleet.record_epochs:
             epoch_log.append({
                 "epoch": epoch, "arrivals": int(counts.sum()),
-                "queue_jobs": float(queue_jobs), "backlog_s": float(backlog_s),
+                # cluster rows log totals (the classic path's scalar schema)
+                "queue_jobs": float(np.sum(queue_jobs)),
+                "backlog_s": float(np.sum(backlog_s)),
                 "dropped": dropped, "slo_hits": slo_hits,
                 "alive": int(alive.sum()), "regime": regime_idx,
             })
@@ -433,7 +514,10 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
     summary = metrics.summary(duration_s=t_now)
     summary["epochs"] = epoch
     summary["requests"] = served
+    if pool is not None:
+        summary.update(pool.summary())
     return SimResult(summary=summary, metrics=metrics, selection_hist=hist,
                      epochs=epoch, served=served, duration_s=t_now,
                      cross_check=backend.cross_check(), epoch_log=epoch_log,
-                     adaptation=adaptation, decide_s=np.asarray(decide_s))
+                     adaptation=adaptation, server_hist=srv_hist,
+                     decide_s=np.asarray(decide_s))

@@ -32,8 +32,10 @@ def lindley_core(offs, free_at, head_tx_s, tail_s, offloaded, srv_wait):
     ``offs``: per-device sorted arrival times (absolute or
     epoch-relative; the recursion is shift-invariant), padded past each
     device's count with values that sort last. ``free_at``: (n,) time
-    each device's FIFO drains. Returns ``(lat, done)`` both (n, C);
-    entries past a device's count are garbage the caller masks out.
+    each device's FIFO drains. ``srv_wait``, added to the offloaded rows
+    under ``where=``, is a scalar or an (n, 1) column. Returns ``(lat,
+    done)`` both (n, C); entries past a device's count are garbage the
+    caller masks out.
 
     The identical operations in the identical order as the loop engine
     (so results stay bit-equal to it), buffers reused: at 100k devices
@@ -86,10 +88,11 @@ def numpy_queues(counts, alive, free_at, pr, srv_wait, t_now,
     u = w_rng.uniform(0.0, slot_seconds, total)
     pad, valid = padded_offsets(counts, u, slot_seconds)
     pad += t_now          # == t_now + sort(u): the loop's exact values
-    # srv_wait is the one shared server's scalar wait; the reference's
-    # per-device routed wait comes with cluster envs (ROADMAP item 3)
+    # scalar (classic) or (n,) per-device routed-server wait (cluster):
+    # the latter broadcasts as a column over the (n, C) layout
+    sw = srv_wait[:, None] if np.ndim(srv_wait) else srv_wait
     lat, done = lindley_core(pad, free_at, pr.head_s + pr.tx_s,
-                             pr.tail_s, pr.offloaded, srv_wait)
+                             pr.tail_s, pr.offloaded, sw)
     upd = alive & (counts > 0)
     last = np.take_along_axis(done, np.maximum(counts - 1, 0)[:, None],
                               axis=1)[:, 0]

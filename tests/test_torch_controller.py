@@ -301,7 +301,8 @@ def test_baselines_match_the_reference(kind):
 
 def test_policy_registry():
     assert policy_names() == ("a2c", "device_only", "full_offload", "greedy_oracle",
-                              "ppo", "random")
+                              "join_shortest_queue", "local_only", "ppo", "random",
+                              "round_robin")
     with pytest.raises(KeyError, match="greedy_oracle"):
         build_policy("no-such-policy", *T.make_paper_env(device="cpu"))
 

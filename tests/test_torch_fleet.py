@@ -372,8 +372,10 @@ def test_a2c_policy_exploration_mixes_sampled_and_greedy_actions():
 
 
 def test_policy_roster():
-    assert policy_names() == ("a2c", "device_only", "full_offload", "greedy_oracle", "ppo",
-                              "random")
+    from repro.policies import policy_names as ref_policy_names
+    assert policy_names() == ref_policy_names() == (
+        "a2c", "device_only", "full_offload", "greedy_oracle", "join_shortest_queue",
+        "local_only", "ppo", "random", "round_robin")
 
 
 # --------------------------------------------------------------------------
@@ -383,29 +385,28 @@ def test_policy_roster():
 def test_unported_options_raise(worlds, tmp_path):
     w = worlds("paper-mmpp-burst")
     pol, trace = w.policies["device_only"], w.sc.build_trace()
-    for kw in (dict(fleet=FleetConfig(engine="scan")), dict(fleet=FleetConfig(timeline=True)),
-               dict(autoscaler=object())):
+    for kw in (dict(fleet=FleetConfig(engine="scan")), dict(fleet=FleetConfig(timeline=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             simulate(*w.env, pol, trace, n_requests=100, **kw)
     with pytest.raises(ValueError, match="unknown fleet engine"):
         simulate(*w.env, pol, trace, n_requests=100, fleet=FleetConfig(engine="warp"))
+    # the cluster (ported since; tests/test_torch_cluster.py) still refuses
+    # the scan engine and an autoscaler without a pool
+    with pytest.raises(ValueError, match="cluster-mode env"):
+        simulate(*w.env, pol, trace, n_requests=100, autoscaler=object())
     from repro_torch.cluster import build_cluster, get_pool
     from repro.cluster import get_topology
     cl = T.make_paper_env(n_uavs=4, device="cpu",
                           cluster=build_cluster(get_pool("hetero-4"), get_topology("near-far", 4, 4)))
-    with pytest.raises(NotImplementedError, match="cluster"):
-        simulate(*cl, build_policy("device_only", *cl), trace, n_requests=100)
-    for name in ("edge-cluster", "cluster-brownout"):       # the cluster presets
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_scenario(get_scenario(name), ["device_only"], device="cpu", n_requests=100)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        simulate(*cl, build_policy("device_only", *cl), trace, n_requests=100,
+                 fleet=FleetConfig(engine="scan"))
     sc = get_scenario("tpu-submesh")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_scenario(sc, device="cpu", timeline=True)
     assert split_policy_name("a2c+online") == ("a2c", True)
-    for build in (sc.replace(pool="hetero-4").build_cluster,
-                  sc.replace(autoscale="hysteresis").build_autoscaler):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build()
+    with pytest.raises(ValueError, match="without a server pool"):
+        sc.replace(autoscale="hysteresis").build_autoscaler()
     assert sc.build_schedule() is None and sc.build_cluster() is None \
         and sc.build_autoscaler() is None
     env_cfg, tables = T.make_tpu_env(["qwen2-0.5b"], reduced=True, seq_len=8, device="cpu")
@@ -416,8 +417,7 @@ def test_unported_options_raise(worlds, tmp_path):
                        [SplitServingEngine(vlm, init(small, torch.Generator().manual_seed(0),
                                                      device="cpu"), device="cpu")],
                        seq_len=8)
-    for flag in (["--pool", "hetero-4"], ["--trace-out", "x"], ["--timeline-out", "x"],
-                 ["--trace", "mmpp"]):
+    for flag in (["--trace-out", "x"], ["--timeline-out", "x"], ["--trace", "mmpp"]):
         with pytest.raises(SystemExit):
             cli.main(["--scenario", "tpu-submesh", "--device", "cpu", *flag])
     with pytest.raises(SystemExit):
