@@ -88,6 +88,33 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    brownout and of the recovered regime each decides a measured state
    drawn within that regime's bounds, served through phase 3's engine
    (bytes exact, launches counted); whether the cut moves is printed.
+3e. Cluster loop: the ``edge-cluster`` preset's world (8 devices,
+   hetero-4 x near-far x hysteresis) built on the card, the routers and
+   baselines deciding on the card, card = CPU and vectorized = loop bit for
+   bit at seeds 0-2; a routing A2C trained on the card (60 updates); then
+   ``cluster-brownout`` at 60,000 requests x seeds 0-1, the routers and that
+   A2C frozen card = CPU bit for bit, and the A2C adapted online against its
+   CPU run. No kernel launches.
+3f. Scan engine (``sim.megafleet.simulate_scan``): the ``megafleet``
+   preset's world as defined (100,000 devices, diurnal 2 -> 8 rps a
+   device, 1 s slots, SLO 1 s, 5,000,000 requests, seed 0) built on the
+   card. For device_only, full_offload and greedy_oracle: the scan on the
+   card twice (identical), on the CPU, and the vectorized engine deciding
+   on the card; epochs, served, epoch-log arrivals and selection totals
+   exact (the statics' histograms too), SLO attainment within 0.05, mean
+   latency within 15 % and energy within 1 % (greedy_oracle's selection
+   shares within 0.05; where two runs' server-queue paths part, epoch by
+   epoch at an equal queue); zero host synchronizations inside the epoch
+   loop (torch's sync debug mode, from one decide to the next), launches
+   an epoch and the device busy time (``torch.profiler``), peak card
+   memory, wall time, epochs/s and simulated requests/s of each engine.
+   Then ``diurnal-fleet`` at 15,000 requests: device_only and an A2C
+   trained on the card (10 updates) under the scan; the timeline on all
+   three engines, each SimResult bit-identical with it on and off, the
+   scan's percentile columns NaN and its arrivals the vectorized engine's,
+   the file written and read back; ``cluster-brownout`` (60,000 requests,
+   seed 0) with the timeline on: per-server series, autoscale
+   annotations, SimResult bit-identical on and off. No kernel launches.
 3b. Decode serving: ``ServingEngine`` generates 64 tokens greedily for
    8 x 512-token prompts (cache_len 576), 24 flash_attention launches per
    prefill and 24 flash_decode launches per decode step; one more generate
@@ -247,6 +274,16 @@ SYNC_REQUESTS = 2_000
 # that the phase stays short: the path, not learning), CLUSTER_STATES measured
 # states decided card against CPU
 CLUSTER_EPISODES, CLUSTER_STATES = 60, 16
+# the scan engine (phase 3f): the megafleet preset at its full size (100,000
+# devices, 5,000,000 requests) for SCAN_POLICIES; diurnal-fleet at
+# SCAN_SMALL_REQUESTS requests with an A2C trained on the card for
+# SCAN_A2C_EPISODES updates (the path, not learning); the statistical limits
+# of the reference's own scan contract (tests/test_megafleet.py): SLO
+# attainment absolute, mean latency and energy relative, selection shares
+# absolute (state-reading policies)
+SCAN_POLICIES = ("device_only", "full_offload", "greedy_oracle")
+SCAN_SMALL_REQUESTS, SCAN_A2C_EPISODES = 15_000, 10
+SCAN_SLO_ABS, SCAN_MEAN_REL, SCAN_ENERGY_REL, SCAN_SHARE_ABS = 0.05, 0.15, 0.01, 0.05
 # card vs CPU, f32 logits of order 1: sums run in other orders on the two
 # devices through 24 blocks, hence 1e-3 for bf16 and w4. In w8 such a
 # difference can also flip an int8 activation code (x / scale within
@@ -1578,6 +1615,317 @@ def phase_cluster_loop(dev, smi):
     return launches, timing
 
 
+def _scan_close(a, b, shares: bool) -> str:
+    """Where ``a`` parts from ``b`` beyond the scan contract's statistical
+    limits ('' when within them), with the numbers compared."""
+    import numpy as np
+    sa, sb = a.summary, b.summary
+    bad = []
+    if not abs(sa["slo_attainment"] - sb["slo_attainment"]) < SCAN_SLO_ABS:
+        bad.append(f"slo {sa['slo_attainment']:.5f} vs {sb['slo_attainment']:.5f}")
+    for k, rel in (("mean", SCAN_MEAN_REL), ("energy_j", SCAN_ENERGY_REL)):
+        if not abs(sa[k] - sb[k]) <= rel * abs(sb[k]):
+            bad.append(f"{k} {sa[k]:.6g} vs {sb[k]:.6g}")
+    if shares:
+        ha, hb = a.selection_hist, b.selection_hist
+        gap = float(np.abs(ha / ha.sum() - hb / hb.sum()).max())
+        if not gap <= SCAN_SHARE_ABS:
+            bad.append(f"selection shares apart by {gap:.4f}")
+    return "; ".join(bad)
+
+
+def _scan_close_by_epoch(ta, tb) -> str:
+    """Two timelines of one world held epoch by epoch where their
+    decision-time server queue is equal: energy, SLO attainment and mean
+    latency of each such epoch within the scan contract's limits. Returns
+    (the queue paths and how many epochs were compared, '' when within
+    the limits (at least one epoch compared) else where they part)."""
+    import numpy as np
+    qa, qb = ta.column("queue_jobs"), tb.column("queue_jobs")
+    same = np.isclose(qa, qb, rtol=1e-6, atol=1e-6)
+    ea, eb = ta.column("energy_wh")[same], tb.column("energy_wh")[same]
+    sa = ta.column("slo_hits")[same] / np.maximum(ta.column("arrivals")[same], 1)
+    sb = tb.column("slo_hits")[same] / np.maximum(tb.column("arrivals")[same], 1)
+    ma, mb = ta.column("lat_mean")[same], tb.column("lat_mean")[same]
+    bad = []
+    if not same.any():
+        bad.append("no epoch at an equal queue")
+    if not np.all(np.abs(ea - eb) <= SCAN_ENERGY_REL * np.abs(eb)):
+        bad.append(f"energy by epoch {ea.tolist()} vs {eb.tolist()}")
+    if not np.all(np.abs(sa - sb) < SCAN_SLO_ABS):
+        bad.append(f"slo by epoch {sa.tolist()} vs {sb.tolist()}")
+    if not np.all(np.abs(ma - mb) <= SCAN_MEAN_REL * np.abs(mb)):
+        bad.append(f"mean by epoch {ma.tolist()} vs {mb.tolist()}")
+    note = (f"queue {qa.tolist()} vs {qb.tolist()}, {int(same.sum())} of {same.size} "
+            f"epochs at an equal queue")
+    return note, "; ".join(bad)
+
+
+def _same_workload(a, b) -> bool:
+    import numpy as np
+    return ((a.epochs, a.served, a.duration_s) == (b.epochs, b.served, b.duration_s)
+            and np.array_equal(a.epoch_log.column("arrivals"), b.epoch_log.column("arrivals"))
+            and a.selection_hist.sum() == b.selection_hist.sum())
+
+
+def _scan_profile(run, epochs: int) -> dict:
+    """One scan run under torch.profiler and the obs recorder: kernel
+    launches an epoch, the device busy time (kernels and copies, one
+    stream) beside the wall, and the wall of the host's presample and of
+    the loop (the ``fleet.scan.presample`` and ``fleet.scan`` spans)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            obs.recording() as rec:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = rec.report()["phases"]
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+    busy = sum(dev_us(e) for e in events if e.device_type == DeviceType.CUDA) / 1e6
+    launches = sum(e.count for e in events if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    top = sorted((e for e in events if e.device_type == DeviceType.CUDA), key=dev_us,
+                 reverse=True)[:6]
+    return {"profiled_wall_s": wall, "device_busy_s": busy,
+            "presample_s": spans["fleet.scan.presample"]["total_s"],
+            "loop_s": spans["fleet.scan"]["total_s"],
+            "idle_share": 1 - busy / wall if wall > 0 else None,
+            "launches_per_epoch": launches / epochs,
+            "top_kernels_ms_per_epoch": [(e.key[:60], dev_us(e) / 1e3 / epochs) for e in top]}
+
+
+def phase_scan_engine(dev, smi):
+    """3f. The scan engine (``sim.megafleet.simulate_scan``): the
+    megafleet world (100,000 devices, 5,000,000 requests) built on the
+    card, the three static policies through the scan on the card twice
+    (identical), on the CPU and through the vectorized engine (deciding on
+    the card), held to the scan contract; host synchronizations inside the
+    scan's epoch loop (zero), launches an epoch, device busy time, peak
+    memory. Then diurnal-fleet: device_only and a card-trained A2C under
+    the scan, the timeline on all three engines recording-neutral and its
+    file read back; cluster-brownout with the timeline on. No kernel lies
+    on this path: the reference runs it as jnp inside jit."""
+    import tempfile
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.obs import read_timeline, write_timeline
+    from repro_torch.policies import A2CPolicy, build_policy
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.sim import FleetConfig, simulate
+    t_phase = time.perf_counter()
+    _reset_counts()
+    sc = get_scenario("megafleet")
+    print(f"== 3f. scan engine: the {sc.name} world ({sc.devices} devices, {sc.trace} "
+          f"{sc.trace_kw} rps a device, {sc.slot_seconds} s slots, SLO {sc.slo_s} s, "
+          f"{sc.n_requests} requests, seed {sc.seeds[0]}); card {smi}")
+    env_cfg, tables, mids, _ = sc.build_env(device=dev)
+    cpu_env, cpu_tables, _, _ = sc.build_env(device="cpu")
+    check(tables.device == dev and env_cfg == cpu_env,
+          f"{sc.name} env built on the card ({tables.device}), config equal to the CPU's")
+    timing = {"card": smi, sc.name: {}}
+    seed = sc.seeds[0]
+
+    def run(env_, tables_, pol, engine, n_requests=sc.n_requests, sc_=sc, mids_=mids, **fl):
+        t0 = time.perf_counter()
+        res = simulate(env_, tables_, pol, sc_.build_trace(), n_requests=n_requests,
+                       seed=sc_.seeds[0], model_ids=mids_,
+                       fleet=FleetConfig(slo_s=sc_.slo_s, engine=engine, **fl))
+        if tables_.device.type == "cuda":
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def rates(res, wall):
+        return {"wall_s": wall, "epochs_per_s": res.epochs / wall,
+                "requests_per_s": res.served / wall}
+
+    # (a) the megafleet world: scan on the card (twice), on the CPU, vectorized
+    for name in SCAN_POLICIES:
+        pol = build_policy(name, env_cfg, tables)
+        cpu_pol = build_policy(name, cpu_env, cpu_tables)
+        # the scan's own peak: above what earlier phases left resident
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        s1, w1 = run(env_cfg, tables, pol, "scan")
+        s2, w2 = run(env_cfg, tables, pol, "scan")
+        peak = torch.cuda.max_memory_allocated(dev) - resident
+        h, wh = run(cpu_env, cpu_tables, cpu_pol, "scan")
+        v, wv = run(env_cfg, tables, pol, "vectorized")
+        # host synchronizations inside the loop: from one decide to the next
+        marks, act = [], pol.act
+
+        def marked_act(state, generator=None):
+            marks.append(len(caught))
+            return act(state, generator)
+        pol.act = marked_act
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                s3, _ = run(env_cfg, tables, pol, "scan", timeline=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        pol.act = act
+        syncs = [b - a for a, b in zip(marks, marks[1:])]
+        sync_msgs = sorted({str(w.message)[:120] for w in caught[marks[0]:marks[-1]]}) \
+            if marks else []
+        prof = _scan_profile(lambda: run(env_cfg, tables, pol, "scan"), s1.epochs)
+        static = name != "greedy_oracle"
+        same = s1.summary == s2.summary and np.array_equal(s1.selection_hist, s2.selection_hist)
+        exact = (_same_workload(s1, v) and _same_workload(s1, h)
+                 and (not static or (np.array_equal(s1.selection_hist, v.selection_hist)
+                                     and np.array_equal(s1.selection_hist, h.selection_hist))))
+        far_v, far_h = _scan_close(s1, v, not static), _scan_close(s1, h, not static)
+        parted = {}
+        if not static:
+            # a state-reading policy also reads the server's one queue: a single
+            # noise path (Poisson background arrivals) that the fleet's size
+            # does not average, and each engine draws its own. Where two runs'
+            # queue paths part, the run-level numbers may part with them: hold
+            # the epochs at an equal decision-time queue, epoch by epoch
+            for label, other, env_, tables_, pol_, engine in (
+                    ("vectorized", v, env_cfg, tables, pol, "vectorized"),
+                    ("CPU scan", h, cpu_env, cpu_tables, cpu_pol, "scan")):
+                qa, qb = (x.epoch_log.column("queue_jobs") for x in (s3, other))
+                if np.allclose(qa, qb, rtol=1e-6, atol=1e-6):
+                    continue
+                tb = run(env_, tables_, pol_, engine, timeline=True)[0].timeline
+                parted[label], far = _scan_close_by_epoch(s3.timeline, tb)
+                if label == "vectorized":
+                    far_v = far
+                else:
+                    far_h = far
+        t = {"scan_card": rates(s2, w2), "scan_card_first": rates(s1, w1),
+             "scan_cpu": rates(h, wh), "vectorized": rates(v, wv),
+             "epochs": s1.epochs, "requests": s1.served, "peak_bytes": peak,
+             "resident_bytes": resident,
+             "syncs_per_epoch": syncs, **prof, "queue_paths_part": parted,
+             "decide_ms_median_vectorized": 1e3 * float(np.median(v.decide_s)),
+             "summary": {k: s1.summary[k] for k in ("slo_attainment", "mean", "p95",
+                                                   "energy_j")},
+             "summary_cpu": {k: h.summary[k] for k in ("slo_attainment", "mean", "p95",
+                                                      "energy_j")},
+             "summary_vectorized": {k: v.summary[k] for k in ("slo_attainment", "mean",
+                                                             "p95", "energy_j")}}
+        timing[sc.name][name] = t
+        check(same and s3.summary == s1.summary and exact and not far_v and not far_h
+              and sum(syncs) == 0 and len(syncs) == s1.epochs - 1,
+              f"{sc.name} {name}: scan on the card twice identical; epochs {s1.epochs}, "
+              f"served {s1.served}, epoch-log arrivals and selection totals "
+              f"{'and histogram ' if static else ''}equal to the vectorized engine's and "
+              f"the CPU scan's; SLO/mean/energy{'/shares' if not static else ''} within "
+              f"{SCAN_SLO_ABS}/{SCAN_MEAN_REL:.0%}/{SCAN_ENERGY_REL:.0%}"
+              f"{f'/{SCAN_SHARE_ABS}' if not static else ''} of the vectorized engine's "
+              f"({far_v or 'within'}) and the CPU scan's ({far_h or 'within'})"
+              + (f"; queue paths part, held epoch by epoch at an equal queue: "
+                 f"{json.dumps(parted)}" if parted else "") + f"; the timeline on: summary unchanged; host "
+              f"synchronizations in the loop {syncs}" + (f" ({sync_msgs})" if sync_msgs else ""))
+        print(f"    {name}: scan (card) {w2:.3f} s ({t['scan_card']['epochs_per_s']:.1f} "
+              f"epochs/s, {t['scan_card']['requests_per_s']:.4g} requests/s; first run "
+              f"{w1:.3f} s), scan (CPU) {wh:.3f} s ({t['scan_cpu']['epochs_per_s']:.2f} "
+              f"epochs/s), vectorized {wv:.3f} s ({t['vectorized']['epochs_per_s']:.2f} "
+              f"epochs/s, decide median {t['decide_ms_median_vectorized']:.3f} ms); "
+              f"{prof['launches_per_epoch']:.1f} launches an epoch, device busy "
+              f"{prof['device_busy_s']:.4f} s of {prof['profiled_wall_s']:.4f} s profiled "
+              f"(idle {prof['idle_share']:.1%}; presample {prof['presample_s']:.4f} s, "
+              f"loop and copies {prof['loop_s']:.4f} s); peak {peak} bytes above the "
+              f"{resident} resident; summary card "
+              f"{json.dumps(t['summary'])}, CPU {json.dumps(t['summary_cpu'])}, vectorized "
+              f"{json.dumps(t['summary_vectorized'])}; top kernels "
+              f"{json.dumps(prof['top_kernels_ms_per_epoch'])}")
+
+    # (b) diurnal-fleet: device_only and a card-trained A2C under the scan
+    df = get_scenario("diurnal-fleet")
+    d_env, d_tables, d_mids, _ = df.build_env(device=dev)
+    n_small = SCAN_SMALL_REQUESTS
+    print(f"  {df.name}: {df.devices} devices, {df.trace} {df.trace_kw} rps a device, "
+          f"{df.slot_seconds} s slots, SLO {df.slo_s} s, {n_small} requests")
+    dev_only = build_policy("device_only", d_env, d_tables)
+    a, _ = run(d_env, d_tables, dev_only, "scan", n_small, df, d_mids)
+    v, _ = run(d_env, d_tables, dev_only, "vectorized", n_small, df, d_mids)
+    far = _scan_close(a, v, False)
+    check(_same_workload(a, v) and np.array_equal(a.selection_hist, v.selection_hist)
+          and not far, f"{df.name} device_only: scan on the card against the vectorized "
+          f"engine: workload and selection histogram exact, {far or 'within the limits'}")
+    a2c = A2CPolicy(d_env, d_tables, episodes=SCAN_A2C_EPISODES, batch_envs=df.batch_envs,
+                    entropy_coef=df.entropy_coef)
+    hist = a2c.train(seed=df.train_seed, trace=df.build_train_trace())
+    x1, wx = run(d_env, d_tables, a2c, "scan", n_small, df, d_mids)
+    x2, _ = run(d_env, d_tables, a2c, "scan", n_small, df, d_mids)
+    xv, _ = run(d_env, d_tables, a2c, "vectorized", n_small, df, d_mids)
+    check(all(math.isfinite(h_["loss"]) for h_ in hist) and x1.summary == x2.summary
+          and np.array_equal(x1.selection_hist, x2.selection_hist) and _same_workload(x1, xv)
+          and x1.selection_hist.sum() == x1.served - x1.metrics.dropped,
+          f"{df.name} a2c trained on the card ({SCAN_A2C_EPISODES} updates) under the scan: "
+          f"{x1.epochs} epochs in {wx:.3f} s, twice identical, workload and selection total "
+          f"equal to the vectorized engine's; slo {x1.summary['slo_attainment']:.4f} "
+          f"(vectorized {xv.summary['slo_attainment']:.4f})")
+    # the timeline on all three engines, recording-neutral, and its file
+    tls = {}
+    for engine in ("loop", "vectorized", "scan"):
+        off, _ = run(d_env, d_tables, dev_only, engine, n_small, df, d_mids)
+        on, _ = run(d_env, d_tables, dev_only, engine, n_small, df, d_mids, timeline=True)
+        tls[engine] = on.timeline
+        check(same_sim_result(off, on) and off.timeline is None and len(on.timeline) == on.epochs
+              and on.timeline.slo_report is not None,
+              f"{df.name} timeline on the {engine} engine: SimResult bit-identical on and off, "
+              f"{len(on.timeline)} rows, SLO report attainment "
+              f"{on.timeline.slo_report.attainment:.4f}")
+    scan_tl = tls["scan"]
+    check(all(np.isnan(scan_tl.column(k)).all() for k in ("lat_p50", "lat_p95", "lat_p99"))
+          and np.array_equal(scan_tl.column("arrivals"), tls["vectorized"].column("arrivals"))
+          and np.isfinite(tls["vectorized"].column("lat_p95")).all(),
+          f"{df.name} scan timeline: percentile columns NaN (the scan-carry rule), arrivals "
+          f"equal to the vectorized engine's")
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "flight.json")
+        write_timeline(path, [{"policy": "device_only", "seed": df.seeds[0], "timeline": tl}
+                              for tl in tls.values()], meta={"scenario": df.name})
+        doc = read_timeline(path)
+    check([r["timeline"]["engine"] for r in doc["runs"]] == list(tls)
+          and all(r["timeline"] == tl.to_json() for r, tl in zip(doc["runs"], tls.values())),
+          "write_timeline/read_timeline round trip of the three runs")
+
+    # (c) cluster-brownout (phase 3e's size, seed 0) with the timeline on
+    bo = get_scenario("cluster-brownout")
+    b_env, b_tables, b_mids, _ = bo.build_env(device=dev)
+    jsq = build_policy("join_shortest_queue", b_env, b_tables)
+    kw = dict(n_requests=bo.n_requests, seed=bo.seeds[0], model_ids=b_mids,
+              schedule=bo.build_schedule())
+    off = simulate(b_env, b_tables, jsq, bo.build_trace(), fleet=FleetConfig(slo_s=bo.slo_s),
+                   autoscaler=bo.build_autoscaler(), **kw)
+    on = simulate(b_env, b_tables, jsq, bo.build_trace(),
+                  fleet=FleetConfig(slo_s=bo.slo_s, timeline=True, slo_target=bo.slo_target),
+                  autoscaler=bo.build_autoscaler(), **kw)
+    tl = on.timeline
+    kinds = {}
+    for ann in tl.annotations:
+        kinds[ann["kind"]] = kinds.get(ann["kind"], 0) + 1
+    check(same_sim_result(off, on) and np.array_equal(off.server_hist, on.server_hist)
+          and off.adaptation == on.adaptation
+          and all(tl.column(k).shape == (len(tl), b_env.n_servers)
+                  for k in ("srv_queue", "srv_dvfs", "srv_replicas", "srv_power_w"))
+          and kinds.get("autoscale", 0) > 0,
+          f"{bo.name} join_shortest_queue seed {bo.seeds[0]} ({bo.n_requests} requests) with "
+          f"the timeline on the card: SimResult bit-identical on and off; per-server series "
+          f"({len(tl)} x {b_env.n_servers}); annotations {kinds}")
+    timing["diurnal-fleet"] = {"a2c_scan_wall_s": wx, "a2c_slo": x1.summary["slo_attainment"]}
+    launches = _counts()
+    check(launches == _launches(), f"scan engine launches {launches}: no kernel lies on "
+          f"this path")
+    timing["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 3f took {timing['phase_s']:.1f} s")
+    return launches, timing
+
+
 def phase_decode_serving(cfg, model, batch):
     import numpy as np
     import torch
@@ -2467,6 +2815,7 @@ def main() -> int:
     fleet_launches, fleet_timing, fleet_world = phase_fleet_loop(dev, cfg, eng, smi)
     drift_launches, drift_timing = phase_drift_loop(dev, cfg, eng, batch, fleet_world)
     cluster_launches, cluster_timing = phase_cluster_loop(dev, smi)
+    scan_launches, scan_timing = phase_scan_engine(dev, smi)
     dec_launches, dec_timing = phase_decode_serving(cfg, model, batch)
     phase_split_equals_full(cfg, model, batch)
     cpu_model = phase_card_vs_cpu(cfg, model, eng, batch)
@@ -2496,7 +2845,7 @@ def main() -> int:
     paths = {f"{cfg.name} split": launches, f"{cfg.name} closed loop": loop_launches,
              f"{cfg.name} fleet loop": fleet_launches,
              f"{cfg.name} drift loop": drift_launches,
-             "edge-cluster loop": cluster_launches,
+             "edge-cluster loop": cluster_launches, "megafleet scan": scan_launches,
              f"{cfg.name} decode": dec_launches,
              f"{FM_ARCH} split": fm_launches, f"{FM_ARCH} decode": fm_dec_launches,
              f"{RG_ARCH} split": rg_launches, f"{RG_ARCH} decode": rg_dec_launches}
@@ -2509,6 +2858,7 @@ def main() -> int:
     print(f"{cfg.name} fleet loop: " + json.dumps(fleet_timing))
     print(f"{cfg.name} drift loop: " + json.dumps(drift_timing))
     print("edge-cluster loop: " + json.dumps(cluster_timing))
+    print("scan engine: " + json.dumps(scan_timing))
     print(f"{cfg.name} decode serving: " + json.dumps(dec_timing))
     print(f"{FM_ARCH} per-infer ms (median of 3), {FM_BATCH} x {FM_SEQ} tokens: " + json.dumps(
         {k: statistics.median(v) for k, v in fm_times.items()}))

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -28,6 +28,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# called as fn(name, seconds) for each library compiled
+# (repro_torch.obs.tracemon registers its build accounting here)
+_LISTENERS: List[Callable[[str, float], None]] = []
+
+
+def add_build_listener(fn: Callable[[str, float], None]) -> None:
+    """Call ``fn(name, seconds)`` after each kernel library is built."""
+    if fn not in _LISTENERS:
+        _LISTENERS.append(fn)
 
 
 def _nvcc() -> str:
@@ -79,6 +88,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
             continue
         Path(f"{out}.log").write_text(log)
         os.replace(tmp, out)
+        for fn in _LISTENERS:
+            fn(name, seconds[name])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return seconds

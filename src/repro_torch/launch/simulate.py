@@ -42,26 +42,44 @@ names another.
         --pool uniform-4 --topology tiered --autoscale threshold \
         --compare round_robin,join_shortest_queue,local_only --device cpu
 
-The reference script's other flags wait for modules not ported yet, and
-are refused naming their ROADMAP item.
+    # the 100k-device world through the scan engine: the epoch loop on
+    # the card (or, smaller, on the CPU)
+    PYTHONPATH=src python -m repro_torch.launch.simulate --scenario megafleet --engine scan
+    PYTHONPATH=src python -m repro_torch.launch.simulate --scenario megafleet --engine scan \
+        --device cpu --requests 1500000
+
+    # record an obs event trace and the flight recorder, then view them
+    PYTHONPATH=src python -m repro_torch.launch.simulate --scenario cluster-brownout \
+        --trace-out events.jsonl --timeline-out flight.json
+    PYTHONPATH=src python -m repro_torch.launch.obsview events.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.fleetview flight.json
+
+    # stream the flight recorder straight into the viewer
+    PYTHONPATH=src python -m repro_torch.launch.simulate --scenario diurnal-fleet \
+        --compare device_only --timeline-out - | PYTHONPATH=src python -m \
+        repro_torch.launch.fleetview -
+
+The reference script's ad-hoc-scenario flags wait for the rest of the
+CLI, and are refused naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import sys
 
 from repro_torch import obs
 from repro_torch.policies import get_policy_spec
 from repro_torch.scenarios import (get_scenario, run_scenario, scenario_names,
                                    split_policy_name)
+from repro_torch.sim import ENGINES
 
 # the reference script's flags this port refuses: flag -> (takes a value,
 # what it waits for)
 _ITEM3 = "ROADMAP section 1, item 3"
 REFUSED = {
-    "--trace-out": (True, f"obs event recording, repro.obs ({_ITEM3})"),
-    "--timeline-out": (True, f"the flight-recorder timeline, repro.obs ({_ITEM3})"),
     **{flag: (True, f"ad-hoc scenarios assembled from flags ({_ITEM3}, with the "
                     "reference CLI's remaining flags); use --scenario")
        for flag in ("--trace", "--devices", "--slo-ms", "--slot-seconds", "--rate",
@@ -81,9 +99,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--list-scenarios", action="store_true",
                     help="print registered scenario presets and exit")
     ap.add_argument("--requests", type=int)
-    ap.add_argument("--engine", choices=("loop", "vectorized"),
+    ap.add_argument("--engine", choices=ENGINES,
                     help="fleet epoch-flow engine: loop = per-device oracle, "
-                    "vectorized = fused numpy (bit-identical)")
+                    "vectorized = fused numpy (bit-identical), scan = the "
+                    "epoch loop on the device (float32, statistical)")
     ap.add_argument("--policy", help="single policy (registry name)")
     ap.add_argument("--compare",
                     help="comma-separated policies; overrides --policy")
@@ -123,6 +142,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sample", type=int)
     ap.add_argument("--exec-seq", type=int)
     ap.add_argument("--json", help="write results JSON here")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="record an obs event trace (JSONL) of the run; "
+                    "summarize with python -m repro_torch.launch.obsview")
+    ap.add_argument("--timeline-out", metavar="PATH",
+                    help="write the flight-recorder timeline (per-epoch "
+                    "series, annotations, SLO error budgets) of every run; "
+                    "'-' streams the JSON on stdout (the report goes to "
+                    "stderr); render with python -m "
+                    "repro_torch.launch.fleetview")
     ap.add_argument("--quiet", action="store_true",
                     help="warnings only on the console")
     ap.add_argument("-v", "--verbose", action="count",
@@ -236,27 +264,53 @@ def _run(ap, provided):
     save_map = {n: artifact_path(save, n, multi) for n in trainable} if save else None
     load_map = {n: artifact_path(load, n, multi) for n in trainable} if load else None
 
-    report = run_scenario(sc, names, device=provided.get("device"),
-                          save_policies=save_map, load_policies=load_map,
-                          verbose=True)
-    cross = next((r.cross_check for r in report.results.values()
-                  if r.cross_check), None)
-    if cross:
-        say(f"\nexecute cross-check: {cross['samples']} requests "
-            f"through SplitServingEngine; act-bytes "
-            f"exact={cross['bytes_exact']} "
-            f"({cross['bytes_mismatches']} mismatches); "
-            f"wall/analytical latency ratio "
-            f"median={cross['latency_ratio_median']:.2f} "
-            f"max={cross['latency_ratio_max']:.2f} "
-            f"(tolerance {cross['latency_tolerance']}x, within="
-            f"{cross['latency_within_tolerance']})")
-    if "json" in provided:
-        out = report.to_json()
-        out["config"] = {k: v for k, v in provided.items() if k != "json"}
-        with open(provided["json"], "w") as f:
-            json.dump(out, f, indent=2, default=str)
-        say(f"\nwrote {provided['json']}")
+    trace_out, timeline_out = provided.get("trace_out"), provided.get("timeline_out")
+    rec_ctx = obs.recording(
+        trace_out, meta={"tool": "simulate", "scenario": sc.name,
+                         "policies": list(names), "seeds": list(sc.seeds)}) \
+        if trace_out else contextlib.nullcontext()
+    # `--timeline-out -` streams the flight-recorder JSON on stdout for
+    # piping into fleetview; divert the human-facing report to stderr so
+    # stdout stays pure JSON
+    human_ctx = contextlib.redirect_stdout(sys.stderr) \
+        if timeline_out == "-" else contextlib.nullcontext()
+    with human_ctx:
+        with rec_ctx:
+            report = run_scenario(sc, names, device=provided.get("device"),
+                                  save_policies=save_map, load_policies=load_map,
+                                  verbose=True, timeline=bool(timeline_out))
+        cross = next((r.cross_check for r in report.results.values()
+                      if r.cross_check), None)
+        if cross:
+            say(f"\nexecute cross-check: {cross['samples']} requests "
+                f"through SplitServingEngine; act-bytes "
+                f"exact={cross['bytes_exact']} "
+                f"({cross['bytes_mismatches']} mismatches); "
+                f"wall/analytical latency ratio "
+                f"median={cross['latency_ratio_median']:.2f} "
+                f"max={cross['latency_ratio_max']:.2f} "
+                f"(tolerance {cross['latency_tolerance']}x, within="
+                f"{cross['latency_within_tolerance']})")
+        if "json" in provided:
+            out = report.to_json()
+            out["config"] = {k: v for k, v in provided.items() if k != "json"}
+            with open(provided["json"], "w") as f:
+                json.dump(out, f, indent=2, default=str)
+            say(f"\nwrote {provided['json']}")
+        if trace_out:
+            say(f"wrote obs trace {trace_out}; summarize with: python -m "
+                f"repro_torch.launch.obsview {trace_out}")
+    if timeline_out:
+        runs = [{"policy": name, "seed": int(seed), "timeline": tl}
+                for name, r in report.results.items()
+                for seed, tl in zip(sc.seeds, r.timelines)
+                if tl is not None]
+        obs.write_timeline(timeline_out, runs,
+                           meta={"tool": "simulate", "scenario": sc.name,
+                                 "slo_target": sc.slo_target})
+        if timeline_out != "-":
+            say(f"wrote timeline {timeline_out}; render with: python -m "
+                f"repro_torch.launch.fleetview {timeline_out}")
     return report
 
 

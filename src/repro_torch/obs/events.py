@@ -26,10 +26,10 @@ and a total-order ``seq``. Spans are emitted at *exit* (so a parent
 follows its children in the file) and carry ``dur`` (seconds),
 ``depth`` and ``parent``; ``read_events`` round-trips the file and
 checks the schema version. At close one ``jax`` summary event (the
-reference's type name) carries the build counts of
-``tracemon.trace_counts()``; its ``compile`` record stays empty until
-compile-time accounting is ported. The reference's ``Recorder.report``
-(``repro.obs.report``) waits for the obs reporting slice.
+reference's type name) carries the step-build counts of
+``tracemon.trace_counts()`` and, under ``compile``, the kernel builds
+(``nvcc_build_n``/``_s``) made while the recorder was open.
+``Recorder.report`` folds the events (``repro_torch.obs.report``).
 """
 from __future__ import annotations
 
@@ -168,6 +168,10 @@ class Recorder:
         self._flush_every = int(flush_every) if flush_every else None
         self._written = 0          # events already flushed to the file
         self._fh = None
+        # kernel-build accounting: snapshot the process totals now, emit
+        # the delta in the summary event at close
+        from repro_torch.obs import tracemon
+        self._compile0 = tracemon.compile_stats()
 
     def _emit(self, ev: Dict):
         ev["seq"] = self._seq
@@ -204,6 +208,12 @@ class Recorder:
         self._emit({"type": "log", "level": level, "msg": msg,
                     "t": self.clock() - self.t0})
 
+    def report(self) -> Dict:
+        """Fold this recorder's events into a summary
+        (repro_torch.obs.report)."""
+        from repro_torch.obs.report import fold
+        return fold(self.events, meta=self.meta)
+
     def close(self):
         """Flush metrics + the build counts, then write the JSONL file
         (when a path was given). Idempotent."""
@@ -215,7 +225,10 @@ class Recorder:
             m["t"] = t
             self._emit(m)
         from repro_torch.obs import tracemon
-        self._emit({"type": "jax", "t": t, "compile": {},
+        now = tracemon.compile_stats()
+        delta = {k: now[k] - self._compile0.get(k, 0)
+                 for k in now if now[k] != self._compile0.get(k, 0)}
+        self._emit({"type": "jax", "t": t, "compile": delta,
                     "traces": tracemon.trace_counts()})
         if self._fh is not None:
             self._flush()

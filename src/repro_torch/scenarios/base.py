@@ -84,8 +84,8 @@ class Scenario:
 
     # --- evaluation -------------------------------------------------------
     slo_s: float = 2.0
-    # SLO attainment objective of the reference's error-budget report
-    # (repro.obs.slo, not ported yet)
+    # SLO attainment objective the error-budget report (repro_torch.obs.
+    # slo) burns against; run_scenario passes it to FleetConfig
     slo_target: float = 0.95
     seeds: Tuple[int, ...] = (0, 1, 2)   # paired across policies
     n_requests: int = 20_000

@@ -18,9 +18,10 @@ its ``PolicyResult.adaptation``.
 
 Cluster scenarios (``scenario.pool``) widen the actions to (version,
 cut, server) over the scenario's server pool and topology, and every
-simulation runs the scenario's autoscaler on its own ``ServerPool``. The
-reference's flight-recorder timeline raises until the obs reporting half
-is ported (ROADMAP section 1, item 3).
+simulation runs the scenario's autoscaler on its own ``ServerPool``.
+``timeline=True`` turns on the flight recorder for every simulation
+(``FleetConfig.timeline``), and ``Scenario.engine`` picks the epoch-flow
+engine (``"scan"`` runs the epoch loop on the scenario's device).
 """
 from __future__ import annotations
 
@@ -66,6 +67,12 @@ class PolicyResult:
     # per-regime mean reward / oracle / regret / recovery_epochs, plus
     # online-learner counters for "+online" entries
     adaptation: Optional[Dict] = None
+    # SLO error budgets (timeline runs): seed-mean + per-seed summaries
+    # from repro_torch.obs.slo (target, attainment, budget_remaining, alerts)
+    slo: Optional[Dict] = None
+    # timeline runs: one repro_torch.obs.timeline.Timeline per seed (kept
+    # as live objects; launch.simulate --timeline-out serializes them)
+    timelines: List = dataclasses.field(default_factory=list)
 
     def row(self) -> str:
         m = self.mean
@@ -127,6 +134,8 @@ class ComparisonReport:
                 entry["saved_to"] = r.saved_to
             if r.adaptation:
                 entry["adaptation"] = r.adaptation
+            if r.slo:
+                entry["slo"] = r.slo
             if r.cross_check:
                 entry["cross_check"] = {k: v for k, v in
                                         r.cross_check.items()
@@ -202,6 +211,12 @@ def run_scenario(scenario: Scenario,
     saves right after training. ``n_requests``/``seeds``/``episodes``
     override the scenario without mutating it. ``verbose`` routes the
     narration and the tables through ``obs.info`` (else ``obs.debug``).
+
+    ``timeline=True`` turns on the flight recorder for every simulation
+    (``FleetConfig.timeline``): each ``PolicyResult`` carries one
+    ``repro_torch.obs.timeline.Timeline`` per seed plus the SLO
+    error-budget summaries; results stay bit-identical to a
+    recording-off run.
     """
     names = tuple(policies) if policies else scenario.policies
     parsed = [split_policy_name(n) for n in names]
@@ -210,10 +225,6 @@ def run_scenario(scenario: Scenario,
         if is_online and not spec.trainable:
             raise KeyError(f"policy {base!r} is not trainable; '+online' "
                            "adaptation needs a trainable policy (a2c, ppo)")
-    if timeline:
-        raise NotImplementedError("the flight-recorder timeline (repro.obs.timeline) "
-                                  "is not ported yet (ROADMAP section 1, item 3, "
-                                  "the obs reporting half)")
     seeds = tuple(seeds) if seeds is not None else scenario.seeds
     n_req = int(n_requests) if n_requests is not None \
         else scenario.n_requests
@@ -224,7 +235,9 @@ def run_scenario(scenario: Scenario,
         trace = scenario.build_trace()
         schedule = scenario.build_schedule()
         autoscaler = scenario.build_autoscaler()
-    fleet = FleetConfig(slo_s=scenario.slo_s, engine=scenario.engine)
+    fleet = FleetConfig(slo_s=scenario.slo_s, engine=scenario.engine,
+                        timeline=timeline,
+                        slo_target=scenario.slo_target)
 
     # verbose routes the narration at info level (console by default);
     # non-verbose runs still record it at debug, so a traced run keeps
@@ -285,6 +298,7 @@ def run_scenario(scenario: Scenario,
         # the learner adapts a copy, so this agent stays the pre-drift one
         snapshot = policy.params if spec.trainable else None
         per_seed, per_adapt, cross = [], [], None
+        timelines, per_slo = [], []
         for seed in seeds:
             if is_online and snapshot is not None:
                 # every seed adapts from the same pre-drift parameters
@@ -298,15 +312,30 @@ def run_scenario(scenario: Scenario,
             per_seed.append(res.summary)
             if res.adaptation is not None:
                 per_adapt.append(res.adaptation)
+            if res.timeline is not None:
+                timelines.append(res.timeline)
+                if res.timeline.slo_report is not None:
+                    per_slo.append(res.timeline.slo_report.summary())
             cross = res.cross_check or cross
         if is_online and snapshot is not None:
             policy.set_params(snapshot)      # leave pre-drift params
         mean = {k: float(np.mean([s[k] for s in per_seed]))
                 for k in per_seed[0] if k != "unit"}
+        slo = None
+        if per_slo:
+            # seed-mean the scalar fields; time_to_exhaustion may be
+            # None (never exhausts) on some seeds: average the rest
+            slo_mean = {}
+            for k in per_slo[0]:
+                vals = [s[k] for s in per_slo
+                        if isinstance(s[k], (int, float))]
+                slo_mean[k] = float(np.mean(vals)) if vals else None
+            slo = {"mean": slo_mean, "per_seed": per_slo}
         results[name] = PolicyResult(
             name=name, mean=mean, per_seed=per_seed, trained=trained,
             loaded_from=loaded_from, saved_to=saved_to, cross_check=cross,
-            adaptation=_mean_adaptation(per_adapt) if per_adapt else None)
+            adaptation=_mean_adaptation(per_adapt) if per_adapt else None,
+            slo=slo, timelines=timelines)
         if not header_printed:
             say("\n" + _TABLE_HEADER)
             header_printed = True

@@ -11,11 +11,11 @@ the EdgeRL controller and the executable serving stack (port of
   subset through ``SplitServingEngine`` (on the card, its kernels).
 - ``fleet``     — the discrete-event loop: each decision epoch the
   controller picks (version, cut) per device from *measured* state.
-- ``megafleet`` — the vectorized numpy engine behind
-  ``FleetConfig(engine="vectorized")``, bit-identical to the loop.
-
-The reference's ``simulate_scan`` (a jitted ``lax.scan`` engine) is not
-ported yet.
+- ``megafleet`` — the engines behind ``FleetConfig(engine=...)``: the
+  whole epoch as fused (devices,)-array ops in numpy (bit-identical to
+  the loop oracle) or, in ``simulate_scan``, as one epoch loop of torch
+  ops on the tables' device (the card), float32, state and accumulators
+  kept there until the loop ends: 100k+ devices per card.
 """
 from repro_torch.sim.traces import (DiurnalTrace, MMPPTrace, PoissonTrace,
                                     RandomRateTrace, ReplayTrace, Trace,
@@ -24,7 +24,7 @@ from repro_torch.sim.metrics import (EpochLog, FleetMetrics, LATENCY_SCHEMA,
                                      summarize_latencies)
 from repro_torch.sim.backends import AnalyticalBackend, ExecuteBackend
 from repro_torch.sim.fleet import ENGINES, FleetConfig, SimResult, simulate
-from repro_torch.sim.megafleet import lindley_core
+from repro_torch.sim.megafleet import lindley_core, simulate_scan
 
 __all__ = [
     "Trace", "PoissonTrace", "MMPPTrace", "DiurnalTrace", "ReplayTrace",
@@ -32,5 +32,5 @@ __all__ = [
     "get_trace", "trace_names", "presample_counts",
     "EpochLog", "FleetMetrics", "LATENCY_SCHEMA", "summarize_latencies",
     "AnalyticalBackend", "ExecuteBackend", "FleetConfig", "SimResult",
-    "simulate", "ENGINES", "lindley_core",
+    "simulate", "ENGINES", "lindley_core", "simulate_scan",
 ]

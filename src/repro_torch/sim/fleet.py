@@ -1,7 +1,9 @@
 """Discrete-event trace-driven fleet simulator (port of
 ``repro.sim.fleet``: the ``"loop"`` and ``"vectorized"`` engines over a
 single-server world or a server pool, stationary or drifting, with
-online adaptation).
+online adaptation; the ``"scan"`` engine, ``megafleet.simulate_scan``,
+over a stationary single-server world on the tables' device; and the
+flight recorder on all three).
 
 Each decision epoch (one env slot):
 
@@ -40,11 +42,17 @@ epoch's measured transition, prices its reward under the *current*
 regime, and lets an ``OnlineLearner`` incrementally update and hot-swap
 the policy's agent mid-run.
 
-The world and the trace draw from numpy PCG64 as in the reference, so a
-deterministic policy gives the reference's ``SimResult`` bit for bit,
-``adaptation`` and ``server_hist`` included. Not ported yet, each raising
-``NotImplementedError`` that names its ROADMAP item: the ``"scan"``
-engine and the flight-recorder timeline.
+Flight recorder (``FleetConfig.timeline``, ``repro_torch.obs.timeline``):
+each epoch's recorded latencies, energy, drops and SLO hits, the
+per-server depth, DVFS, replicas and power of a pool, and annotations
+(regime switches, autoscaler decisions, drift triggers, bursts,
+hot-swaps), finished with the SLO error-budget report. Capture only
+reads state, so a run gives the same ``SimResult`` with it on or off.
+
+On the host engines the world and the trace draw from numpy PCG64 as in
+the reference, so a deterministic policy gives the reference's
+``SimResult`` bit for bit, ``adaptation``, ``server_hist`` and the
+timeline's columns included.
 """
 from __future__ import annotations
 
@@ -63,11 +71,7 @@ from repro_torch.sim.backends import AnalyticalBackend, ExecuteBackend
 from repro_torch.sim.metrics import EpochLog, FleetMetrics
 from repro_torch.sim.traces import Trace
 
-ENGINES = ("loop", "vectorized")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP section 1, {item})")
+ENGINES = ("loop", "vectorized", "scan")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,18 +87,31 @@ class FleetConfig:
     # input range. Pricing and metrics always use the true queue.
     queue_obs_clip: float = 25.0
     record_epochs: bool = True
-    # epoch-flow engine: "loop" walks per-device FIFOs in Python (the
-    # parity oracle); "vectorized" runs the same recursion as fused
-    # (devices,)-array numpy ops (repro_torch.sim.megafleet),
-    # bit-identical under the same seed; the reference's "scan" is not
-    # ported yet
+    # epoch-flow engine (repro_torch.sim.megafleet): "loop" walks
+    # per-device FIFOs in Python (the parity oracle); "vectorized" runs
+    # the same recursion as fused (devices,)-array numpy ops,
+    # bit-identical under the same seed; "scan" is one epoch loop of
+    # torch ops on the tables' device (float32, histogram percentiles,
+    # stationary single-server worlds only)
     engine: str = "loop"
     # epoch_log bounds for mega-fleet horizons: keep every stride-th
     # epoch row, stop after cap rows (None = unbounded)
     log_stride: int = 1
     log_cap: Optional[int] = None
-    # the reference's flight recorder; not ported yet (must stay False)
+    # flight recorder (repro_torch.obs.timeline): capture per-epoch fleet
+    # aggregates, per-server series and annotation events into
+    # SimResult.timeline. Off by default; capture only *reads* state, so
+    # results stay bit-identical on vs off (tested on every engine).
+    # Rows follow log_stride.
     timeline: bool = False
+    # SLO attainment objective the error-budget report (repro_torch.obs.
+    # slo) burns against; scenarios override it per preset
+    slo_target: float = 0.95
+    # scan engine only: the reference shards the device axis over every
+    # visible accelerator; here one visible card (or the CPU) runs the
+    # same program as shard=False, and several cards raise (ROADMAP
+    # section 1, item 5)
+    shard: bool = False
 
 
 @dataclasses.dataclass
@@ -113,9 +130,13 @@ class SimResult:
     # cluster runs only: (S,) int64 requests routed to each server
     server_hist: Optional[np.ndarray] = None
     # wall seconds of each epoch's decide: measured_state, act and the
-    # actions' copy to the host (the port's own; not in the reference)
+    # actions' copy to the host (the port's own; not in the reference;
+    # empty under the scan engine, whose epochs never wait for the host)
     decide_s: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(0))
+    # flight recorder (FleetConfig.timeline=True): repro_torch.obs.timeline
+    # Timeline with per-epoch series, annotations and the SLO report
+    timeline: object = None
 
     @property
     def modal_selection(self):
@@ -175,19 +196,32 @@ def _queues_loop(counts, alive, free_at, pr, srv_wait, t_now,
     return slo_hits
 
 
-def _check_supported(env_cfg, fleet, autoscaler):
-    if fleet.engine not in ENGINES + ("scan",):
+def _check_supported(env_cfg, fleet, backend, schedule, online, autoscaler):
+    """The reference's checks and refusals, in its words."""
+    if fleet.engine not in ENGINES:
         raise ValueError(f"unknown fleet engine {fleet.engine!r}; "
                          f"valid engines: {', '.join(ENGINES)}")
-    if fleet.engine == "scan":
-        raise _not_ported("engine='scan' (a compiled GPU epoch loop)",
-                          "item 3, simulate_scan")
+    if fleet.shard and fleet.engine != "scan":
+        raise ValueError("FleetConfig.shard requires engine='scan' — the "
+                         "host engines have no device axis to shard")
     if env_cfg.cluster is None and autoscaler is not None:
         raise ValueError("autoscaler needs a cluster-mode env "
                          "(EnvConfig.cluster)")
-    if fleet.timeline:
-        raise _not_ported("the flight-recorder timeline (obs.timeline)",
-                          "item 3, the obs reporting half")
+    if fleet.engine == "scan":
+        if env_cfg.cluster is not None:
+            raise ValueError(
+                "engine='scan' compiles the single-server world into one "
+                "jitted lax.scan; cluster pools keep per-server state on "
+                "the host — use engine='loop' or 'vectorized'")
+        if schedule is not None or online is not None:
+            raise ValueError(
+                "engine='scan' compiles a stationary world into one "
+                "jitted lax.scan; drift schedules and online adaptation "
+                "need host round-trips — use engine='vectorized'")
+        if backend is not None and type(backend) is not AnalyticalBackend:
+            raise ValueError(
+                "engine='scan' prices on-device through the jnp pricing "
+                "core; execute cross-check backends need the host loop")
 
 
 def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
@@ -236,7 +270,11 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
             "(env_cfg, tables) world than this simulation; its decisions "
             "would silently score under the wrong physics; build it from "
             "the same objects (run_scenario does this for you)")
-    _check_supported(env_cfg, fleet, autoscaler)
+    _check_supported(env_cfg, fleet, backend, schedule, online, autoscaler)
+    if fleet.engine == "scan":
+        return megafleet.simulate_scan(
+            env_cfg, tables, policy, trace, n_requests=n_requests,
+            seed=seed, fleet=fleet, model_ids=model_ids)
     cfg = env_cfg
     n = cfg.n_uavs
     backend = backend if backend is not None else AnalyticalBackend(cfg, tables)
@@ -310,6 +348,15 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
 
     stream = trace.stream(t_rng, n, cfg.slot_seconds)
     metrics = FleetMetrics(slo_s=fleet.slo_s)
+    tl = None
+    if fleet.timeline:
+        from repro_torch.obs.timeline import Timeline
+        tl = Timeline(slo_s=fleet.slo_s, slot_seconds=cfg.slot_seconds,
+                      stride=fleet.log_stride,
+                      n_servers=0 if cluster is None else cluster.n_servers,
+                      server_names=None if cluster is None
+                      else list(cluster.names),
+                      engine=fleet.engine)
     hist = np.zeros((tables.n_models, tables.n_versions, tables.n_cuts),
                     dtype=np.int64)
     epoch_log = EpochLog(stride=fleet.log_stride, cap=fleet.log_cap)
@@ -329,6 +376,9 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
                 regime_idx, reg = r, regimes[r]
                 obs.event("drift.regime_switch", epoch=epoch,
                           regime=regime_idx, name=reg.name)
+                if tl is not None:
+                    tl.annotate(epoch, "regime_switch",
+                                regime=regime_idx, name=reg.name)
                 phys = reg.env_cfg
                 lp, pw = phys.latency, phys.power
                 phys_backend = backend if phys is cfg \
@@ -405,6 +455,7 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
             tail_in_s = np.array([contrib[routed == s].sum()
                                   for s in range(cluster.n_servers)])
         queues = megafleet.numpy_queues if fleet.engine == "vectorized" else _queues_loop
+        mark = metrics.mark() if tl is not None else None
         with obs.span("fleet.queues", engine=fleet.engine):
             slo_hits = queues(counts, alive, free_at, pr, srv_wait, t_now,
                               cfg.slot_seconds, w_rng, metrics, fleet.slo_s)
@@ -441,9 +492,22 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
                            reg.name if reg is not None else "base",
                            r_epoch, oracle_r)
             if learner is not None:
+                on0 = (learner.updates, learner.bursts,
+                       learner.monitor.triggers)
                 learner.observe_transition(state, actions, per, amask,
                                            regime_idx)
-                learner.step(epoch, r_epoch, oracle_reward=oracle_r)
+                swapped = learner.step(epoch, r_epoch,
+                                       oracle_reward=oracle_r)
+                if tl is not None:
+                    # counter deltas -> annotation events (the learner
+                    # already emitted the matching online.* obs events)
+                    if learner.monitor.triggers > on0[2]:
+                        tl.annotate(epoch, "drift_trigger")
+                    if learner.bursts > on0[1]:
+                        tl.annotate(epoch, "burst_start")
+                    if swapped:
+                        tl.annotate(epoch, "hotswap",
+                                    updates=learner.updates)
 
         # 4) world dynamics (mirrors env_step, on the world rng, under
         #    the current regime's latency/power bounds)
@@ -477,6 +541,8 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
                 pool.tick(queue_jobs, cfg.slot_seconds)
                 for dec in pool.last_decisions:
                     obs.event("autoscale.decision", epoch=epoch, **dec)
+                    if tl is not None:
+                        tl.annotate(epoch, "autoscale", **dec)
             obs_rate = (1.0 - fleet.ewma) * obs_rate \
                 + fleet.ewma * counts / cfg.slot_seconds
 
@@ -489,6 +555,25 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
         obs.observe("fleet.queue_jobs",
                     queue_jobs if pool is None else float(queue_jobs.sum()),
                     policy=policy.name)
+        if tl is not None:
+            with obs.span("fleet.timeline"):
+                lat_e, en_e = metrics.since(mark)
+                tl.append_epoch(
+                    epoch=epoch, arrivals=int(counts.sum()),
+                    dropped=dropped, slo_hits=slo_hits,
+                    alive=int(alive.sum()), regime=regime_idx,
+                    queue_jobs=float(np.sum(queue_jobs)),
+                    backlog_s=float(np.sum(backlog_s)),
+                    lat=lat_e, energy_j=float(en_e.sum()),
+                    # per-server series: measured depth at decision time
+                    # + the DVFS/replica/power state this epoch ran at
+                    # (pool.tick snapshots before the autoscaler moves)
+                    srv_queue=None if pool is None else queue_jobs,
+                    srv_dvfs=None if pool is None else pool.last_dvfs,
+                    srv_replicas=None if pool is None
+                    else pool.last_replicas,
+                    srv_power_w=None if pool is None
+                    else pool.last_power_w)
         if fleet.record_epochs:
             epoch_log.append({
                 "epoch": epoch, "arrivals": int(counts.sum()),
@@ -511,6 +596,9 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
             if hasattr(policy, "set_explore"):
                 policy.set_explore(0.0)
 
+    if tl is not None:
+        from repro_torch.obs.slo import SLOConfig
+        tl.finalize(SLOConfig(target=fleet.slo_target))
     summary = metrics.summary(duration_s=t_now)
     summary["epochs"] = epoch
     summary["requests"] = served
@@ -520,4 +608,4 @@ def simulate(env_cfg: EnvConfig, tables: ProfileTables, policy,
                      epochs=epoch, served=served, duration_s=t_now,
                      cross_check=backend.cross_check(), epoch_log=epoch_log,
                      adaptation=adaptation, server_hist=srv_hist,
-                     decide_s=np.asarray(decide_s))
+                     decide_s=np.asarray(decide_s), timeline=tl)

@@ -39,8 +39,11 @@ from repro_torch.launch import simulate as cli  # noqa: E402
 from repro_torch.online import OnlineConfig, get_schedule  # noqa: E402
 from repro_torch.policies import build_policy, get_policy_spec, policy_names  # noqa: E402
 from repro_torch.scenarios import get_scenario  # noqa: E402
-from repro_torch.sim import ENGINES, AnalyticalBackend, FleetConfig, get_trace, simulate  # noqa: E402
+from repro_torch.sim import AnalyticalBackend, FleetConfig, get_trace, simulate  # noqa: E402
 
+# the engines held bit for bit against the reference (the scan engine
+# draws its noise from torch: tests/test_torch_megafleet_scan.py)
+HOST_ENGINES = ("loop", "vectorized")
 ROUTERS = ("round_robin", "join_shortest_queue", "local_only")
 # cluster-brownout with its flash crowd inside 10,000 requests (~640 a
 # epoch): the preset's onset 50 and relax 220 moved to 5 and 10
@@ -293,7 +296,7 @@ def _fleet_run(cluster, policy_name, engine, n_requests=2500, seed=0):
                     fleet=FleetConfig(slo_s=2.0, engine=engine))
 
 
-@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("engine", HOST_ENGINES)
 @pytest.mark.parametrize("policy", ["greedy_oracle", "full_offload"])
 def test_degenerate_pool_bit_identical_to_single_server(engine, policy):
     """The whole cluster path (per-server queues, topology repricing,
@@ -337,19 +340,21 @@ def test_cluster_fleet_bit_reproducible_with_autoscaler():
 
 
 def test_scan_engine_rejects_cluster_mode():
-    """The scan engine is not ported: it names its ROADMAP item (the
-    reference refuses cluster mode there with a ValueError)."""
+    """The scan engine refuses cluster mode with the reference's
+    ValueError; the flight recorder runs over a pool (its per-server
+    series: tests/test_torch_timeline.py)."""
     env_cfg, tables = _cluster_env()
     model_ids = np.arange(4, dtype=np.int32) % tables.n_models
     policy = get_policy_spec("device_only").build(env_cfg, tables)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*simulate_scan"):
+    with pytest.raises(ValueError, match="cluster pools keep per-server state on the host"):
         simulate(env_cfg, tables, model_ids=model_ids, policy=policy,
                  trace=get_trace("poisson", rate_rps=8.0), n_requests=500, seed=0,
                  backend=AnalyticalBackend(env_cfg, tables), fleet=FleetConfig(engine="scan"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*obs reporting"):
-        simulate(env_cfg, tables, model_ids=model_ids, policy=policy,
-                 trace=get_trace("poisson", rate_rps=8.0), n_requests=500,
-                 fleet=FleetConfig(timeline=True))
+    res = simulate(env_cfg, tables, model_ids=model_ids, policy=policy,
+                   trace=get_trace("poisson", rate_rps=8.0), n_requests=500,
+                   fleet=FleetConfig(timeline=True))
+    assert res.timeline.n_servers == env_cfg.n_servers
+    assert res.timeline.column("srv_queue").shape == (len(res.timeline), env_cfg.n_servers)
 
 
 def test_autoscaler_without_cluster_and_topology_mismatch_raise():
@@ -366,7 +371,7 @@ def test_autoscaler_without_cluster_and_topology_mismatch_raise():
         simulate(env_cfg, tables, policy, get_trace("poisson", rate_rps=8.0), n_requests=100)
 
 
-@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("engine", HOST_ENGINES)
 def test_routed_wait_flows_as_the_reference(engine):
     """One epoch of request flow with an (n,) per-device routed-server
     wait, through the port's engine and the reference's: the same
@@ -618,7 +623,7 @@ def _policies(w, name):
     return ref_build_policy(name, *w.ref_env), build_policy(name, *w.env)
 
 
-@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("engine", HOST_ENGINES)
 @pytest.mark.parametrize("policy", ROUTERS[:2] + ("device_only", "a2c") + ROUTERS[2:])
 @pytest.mark.parametrize("name", sorted(WORLDS))
 def test_cluster_simulate_equals_the_reference(name, policy, engine, worlds):

@@ -39,9 +39,12 @@ from repro_torch.policies import A2CPolicy, build_policy, policy_names  # noqa: 
 from repro_torch.scenarios import (get_scenario, run_scenario,  # noqa: E402
                                    scenario_names, split_policy_name)
 from repro_torch.serving import SplitServingEngine  # noqa: E402
-from repro_torch.sim import (ENGINES, AnalyticalBackend, ExecuteBackend,  # noqa: E402
+from repro_torch.sim import (AnalyticalBackend, ExecuteBackend,  # noqa: E402
                              FleetConfig, megafleet, simulate)
 
+# the engines held bit for bit against the reference (the scan engine
+# draws its noise from torch: tests/test_torch_megafleet_scan.py)
+HOST_ENGINES = ("loop", "vectorized")
 SCENARIOS = ("paper-exact", "paper-mmpp-burst", "tpu-execute")
 POLICIES = ("device_only", "full_offload", "greedy_oracle", "a2c")
 
@@ -187,7 +190,7 @@ def test_measured_state_observations_equal_the_reference(name, worlds):
 # simulate
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("engine", HOST_ENGINES)
 @pytest.mark.parametrize("policy", POLICIES)
 @pytest.mark.parametrize("name", SCENARIOS)
 def test_simulate_equals_the_reference(name, policy, engine, worlds):
@@ -206,7 +209,7 @@ def test_vectorized_engine_equals_the_loop(worlds):
     for seed in (0, 3):
         res = [simulate(*w.env, w.policies["greedy_oracle"], w.sc.build_trace(),
                         n_requests=w.sc.n_requests, seed=seed, model_ids=w.model_ids,
-                        fleet=FleetConfig(slo_s=w.sc.slo_s, engine=e)) for e in ENGINES]
+                        fleet=FleetConfig(slo_s=w.sc.slo_s, engine=e)) for e in HOST_ENGINES]
         assert res[0].summary["dropped"] > 0
         assert_same_result(*res)
 
@@ -383,27 +386,29 @@ def test_policy_roster():
 # --------------------------------------------------------------------------
 
 def test_unported_options_raise(worlds, tmp_path):
+    """What stays refused: an unknown engine, the scan engine over a
+    cluster (the reference refuses it too, in these words), the vlm
+    execute backend and the CLI's ad-hoc-scenario flags. The scan engine
+    and the flight recorder are ported (tests/test_torch_megafleet_scan.py,
+    tests/test_torch_timeline.py)."""
     w = worlds("paper-mmpp-burst")
     pol, trace = w.policies["device_only"], w.sc.build_trace()
-    for kw in (dict(fleet=FleetConfig(engine="scan")), dict(fleet=FleetConfig(timeline=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            simulate(*w.env, pol, trace, n_requests=100, **kw)
+    res = simulate(*w.env, pol, trace, n_requests=100, fleet=FleetConfig(timeline=True))
+    assert res.timeline is not None and len(res.timeline) == res.epochs
     with pytest.raises(ValueError, match="unknown fleet engine"):
         simulate(*w.env, pol, trace, n_requests=100, fleet=FleetConfig(engine="warp"))
-    # the cluster (ported since; tests/test_torch_cluster.py) still refuses
-    # the scan engine and an autoscaler without a pool
     with pytest.raises(ValueError, match="cluster-mode env"):
         simulate(*w.env, pol, trace, n_requests=100, autoscaler=object())
     from repro_torch.cluster import build_cluster, get_pool
     from repro.cluster import get_topology
     cl = T.make_paper_env(n_uavs=4, device="cpu",
                           cluster=build_cluster(get_pool("hetero-4"), get_topology("near-far", 4, 4)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cluster pools keep per-server state"):
         simulate(*cl, build_policy("device_only", *cl), trace, n_requests=100,
                  fleet=FleetConfig(engine="scan"))
     sc = get_scenario("tpu-submesh")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_scenario(sc, device="cpu", timeline=True)
+    rep = run_scenario(sc, ("device_only",), device="cpu", n_requests=400, timeline=True)
+    assert len(rep.results["device_only"].timelines) == len(sc.seeds)
     assert split_policy_name("a2c+online") == ("a2c", True)
     with pytest.raises(ValueError, match="without a server pool"):
         sc.replace(autoscale="hysteresis").build_autoscaler()
@@ -417,13 +422,13 @@ def test_unported_options_raise(worlds, tmp_path):
                        [SplitServingEngine(vlm, init(small, torch.Generator().manual_seed(0),
                                                      device="cpu"), device="cpu")],
                        seq_len=8)
-    for flag in (["--trace-out", "x"], ["--timeline-out", "x"], ["--trace", "mmpp"]):
+    for flag in (["--trace", "mmpp"], ["--devices", "4"]):
         with pytest.raises(SystemExit):
             cli.main(["--scenario", "tpu-submesh", "--device", "cpu", *flag])
     with pytest.raises(SystemExit):
         cli.main(["--device", "cpu"])                  # no --scenario
     with pytest.raises(SystemExit):
-        cli.main(["--scenario", "tpu-submesh", "--engine", "scan"])
+        cli.main(["--scenario", "tpu-submesh", "--engine", "warp"])
 
 
 def test_fleet_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):

@@ -38,9 +38,12 @@ from repro_torch.online import (EnvPatch, OnlineConfig, OnlineLearner,  # noqa: 
 from repro_torch.online import adapt, monitor  # noqa: E402
 from repro_torch.policies import build_policy  # noqa: E402
 from repro_torch.scenarios import get_scenario, run_scenario  # noqa: E402
-from repro_torch.sim import (ENGINES, ExecuteBackend, FleetConfig,  # noqa: E402
+from repro_torch.sim import (ExecuteBackend, FleetConfig,  # noqa: E402
                              PoissonTrace, simulate)
 
+# the engines held bit for bit against the reference (the scan engine
+# draws its noise from torch: tests/test_torch_megafleet_scan.py)
+HOST_ENGINES = ("loop", "vectorized")
 SMALL = dict(hidden1=64, hidden2=32, uav_head=16)
 TOL = dict(rtol=1e-5, atol=1e-5)
 # every schedule at small onsets: each regime is reached in a ~30-epoch run
@@ -286,7 +289,7 @@ def test_replay_window_flush_and_bucket_equal_the_reference():
 # the drift world bit for bit
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("engine", HOST_ENGINES)
 @pytest.mark.parametrize("policy", STATIC + ("a2c",))
 @pytest.mark.parametrize("name", sorted(SCHEDULES))
 def test_drift_simulate_equals_the_reference(name, policy, engine, tiny):
