@@ -115,6 +115,20 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    the file written and read back; ``cluster-brownout`` (60,000 requests,
    seed 0) with the timeline on: per-server series, autoscale
    annotations, SimResult bit-identical on and off. No kernel launches.
+3g. A fleet of mixed models under the controller: ``make_tpu_env(
+   ["qwen2-0.5b", "qwen3-0.6b", "starcoder2-3b"], seq_len=512)`` built on
+   the card, every table equal to the CPU-built one exactly; ``simulate``
+   over the ``tpu-execute`` world's traffic (2,000 requests, seed 0) for
+   greedy_oracle, device_only and full_offload, device i serving model i,
+   with ``ExecuteBackend`` (sample 4) over three full-width engines (phase
+   3's qwen2 engine and two built here from seed 0). An epoch executes the
+   request of its first device, so each policy runs three times with the
+   devices' models rotated and every model takes that turn: each sampled
+   request's bytes at the cut equal its own model's table entry, its
+   launches follow its model's layer count (2 infers a sample), and each
+   SimResult equals the CPU's (tables on the CPU, ``AnalyticalBackend``)
+   bit for bit. When no policy picks w8, the w8 version at greedy_oracle's
+   cut runs as a fourth policy, so quant_matmul runs for every model.
 3b. Decode serving: ``ServingEngine`` generates 64 tokens greedily for
    8 x 512-token prompts (cache_len 576), 24 flash_attention launches per
    prefill and 24 flash_decode launches per decode step; one more generate
@@ -159,6 +173,29 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 8c. Card against CPU at full width and depth 5 (one period and the tail):
    split logits per version at ('period', 1), then 8 decode steps. The
    model is freed when these phases end.
+9, 9b, 9c. The dense families at full width and full depth, f32, random
+   weights from torch.Generator seed 0, one after another, each freed
+   before the next: qwen3-0.6b (28 layers, d_model 1024, 16/8 heads of 128
+   with qk_norm, SwiGLU 3072, tied; 596,049,920 parameters), starcoder2-3b
+   (30 layers, d_model 3072, 24/2 heads of 128, LayerNorm, the plain gelu
+   MLP of 12,288, QKV, o and MLP biases, window 4096, untied; 3,181,366,272
+   parameters) and phi3-medium-14b (40 layers, d_model 5120, 40/10 heads of
+   128, SwiGLU 17,920, untied head of 100,352; 14,659,507,200 parameters).
+   ``SplitServingEngine`` for bf16/w8/w4 at three cuts (qwen3 8 x 512 at
+   cuts 1, 14, 28; starcoder2 4 x 512 at 1, 15, 30; phi3 2 x 512 at 1, 20,
+   40), each version's model built only while it serves (phi3's f32 model
+   and its w8 copy fit the card together, all three do not): one
+   flash_attention launch a layer an infer, quant_matmul 196, 181 and 281
+   a w8 infer (7 or 6 projections a layer, plus an untied head), bytes at
+   the cut exact, split equals full at the middle cut, peak memory; then
+   ``ServingEngine.generate`` (qwen3 8 x 512 prompts, 64 new tokens;
+   starcoder2 1 x 4608, 33 new, past its window over a wrapped 4096-slot
+   ring; phi3 2 x 512, 32 new) with one flash_decode launch a layer a
+   step, teacher-forced ``decode_step`` logits against the card's
+   ``forward_logits``, qwen3's ``ContinuousBatchingServer`` (16 requests of
+   64-256 tokens in 8 slots), and card against CPU at full width and depth
+   2 (split logits per version at cut 1, then 8 decode steps). Each
+   phase's seconds are printed.
 7. Timing: each kernel at the main path's shapes beside its plain version,
    one PyTorch library call for the same function where there is one, and
    its bound; flash_attention and flash_decode also at recurrentgemma's
@@ -173,7 +210,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (at M = 8 on rows zero-padded to its least M, 17); mamba_scan's bound is the
    larger of its bytes and its exps on the SFU; rglru_scan at
    recurrentgemma's split path, its 2304-token prefill and a scheduler
-   cohort (4 x 218), eager and as a CUDA graph.
+   cohort (4 x 218), eager and as a CUDA graph. At head_dim 128:
+   flash_attention at qwen3's split path (8 x 16/8 x 512) and starcoder2's
+   4608-token prefill under its 4096 window, flash_decode at starcoder2's
+   decode step (G = 12 over a wrapped 4096-slot ring, 30 layers in turn),
+   quant_matmul at phi3's w8 layer and head (M = 1024).
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -182,6 +223,7 @@ every phase passed. Any failure exits non-zero.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -296,15 +338,7 @@ SCAN_SLO_ABS, SCAN_MEAN_REL, SCAN_ENERGY_REL, SCAN_SHARE_ABS = 0.05, 0.15, 0.01,
 # 0.53x the mean.) A kernel or wiring fault gives errors well above it.
 CPU_TOL = 1e-3
 W8_GAP_MAX, W8_GAP_MEAN = 1.0, 0.75
-# falcon-mamba-7b: split serving and decode shapes, cuts, expected size
-FM_ARCH, FM_PARAMS = "falcon-mamba-7b", 7_272_665_088
-FM_BATCH, FM_SEQ, FM_NEW, FM_TF_STEPS = 2, 512, 32, 8
-FM_CUTS = (("main", 1), ("main", 32), ("main", 64))
-FM_SRV_REQUESTS, FM_SRV_CACHE = 4, 256
-FM_CPU_LAYERS, FM_CPU_STEPS = 2, 8
-# decode against forward on the card: the same f32 function through the
-# kernel's scan (prefill) and the plain one-step recurrence (decode)
-FM_DECODE_TOL = 1e-3
+FM_ARCH, FM_BATCH, FM_SEQ = "falcon-mamba-7b", 2, 512
 # mamba_scan: tests/test_kernels.py::test_mamba_scan_sweep's cases and
 # tolerance (B, S, DI, N), a ragged one, then the path's shape
 MS_CASES = ((1, 128, 128, 8), (2, 256, 256, 16), (1, 384, 128, 4),
@@ -356,10 +390,42 @@ PEAK_3XTF32 = 495e12 / 3
 # the 2048 window. flash_decode (B, H, HK, C, D, layers, pos, window):
 # qwen2-0.5b's decode step (24 layers) and recurrentgemma-2b's (8 attention
 # layers, full 2048-slot rings, wrapped).
+# the single-stack families at full width and depth, f32 (phase 6 for
+# falcon-mamba-7b, phases 9, 9b, 9c for the dense ones): split (batch,
+# prompt) at three cuts, decode (batch, prompt, new tokens), the scheduler
+# (requests, slots, cache_len, prompt lengths, new tokens) or None, and the
+# parameter count. starcoder2's 4608-token prompt runs past its 4096 window
+# (rings of 4096 slots that the decode steps wrap).
+FAMILIES = {
+    FM_ARCH: dict(label="6", split=(FM_BATCH, FM_SEQ), cuts=(1, 32, 64),
+                  decode=(FM_BATCH, FM_SEQ, 32),
+                  srv=(4, 4, 256, (64, 200), (8, 16)), params=7_272_665_088),
+    "qwen3-0.6b": dict(label="9", split=(8, 512), cuts=(1, 14, 28), decode=(8, 512, 64),
+                       srv=(16, 8, 512, (64, 256), (16, 48)), params=596_049_920),
+    "starcoder2-3b": dict(label="9b", split=(4, 512), cuts=(1, 15, 30), decode=(1, 4608, 33),
+                          srv=None, params=3_181_366_272),
+    "phi3-medium-14b": dict(label="9c", split=(2, 512), cuts=(1, 20, 40), decode=(2, 512, 32),
+                            srv=None, params=14_659_507_200),
+}
+# teacher-forced decode against forward on the card: the same f32 function
+# through the prefill's kernel and the decode step; the CPU comparison's
+# depth and decode steps
+FAM_TF_STEPS, FAM_DECODE_TOL = 8, 1e-3
+FAM_CPU_LAYERS, FAM_CPU_STEPS = 2, 8
+# the mixed fleet (phase 3g): three dense archs, device i serving model i
+# (rotated so that each model takes its turn on device 0, whose request is
+# the one an epoch executes), sampled requests a run
+MIX_ARCHS, MIX_SAMPLE = ("qwen2-0.5b", "qwen3-0.6b", "starcoder2-3b"), 4
 FA_PATHS = ((BATCH, 14, 2, SEQ, 64, None), (RG_SPLIT_BATCH, 10, 1, RG_SPLIT_SEQ, 256, 2048),
-            (RG_BATCH, 10, 1, RG_SEQ, 256, 2048))
+            (RG_BATCH, 10, 1, RG_SEQ, 256, 2048),
+            # qwen3-0.6b's split path (GQA 16/8 at head_dim 128), starcoder2-3b's
+            # decode prefill (24/2, 4608 positions under its 4096 window)
+            (8, 16, 8, 512, 128, None), (1, 24, 2, 4608, 128, 4096))
 FD_PATHS = ((BATCH, 14, 2, DEC_CACHE, 64, 24, DEC_CACHE - 1, None),
-            (RG_BATCH, 10, 1, 2048, 256, RG_ATTN, RG_SEQ + 100, 2048))
+            (RG_BATCH, 10, 1, 2048, 256, RG_ATTN, RG_SEQ + 100, 2048),
+            # starcoder2-3b's decode step: G = 12, one 4096-slot ring wrapped,
+            # 30 layers
+            (1, 24, 2, 4096, 128, 30, 4608 + 16, 4096))
 
 failures = []
 
@@ -2122,172 +2188,6 @@ def _median_ms(fn, reps):
     return ms, out
 
 
-def phase_fm_split(dev):
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core.partition import cut_activation_bytes, split_forward
-    from repro_torch.models import forward_logits, init
-    from repro_torch.serving import SplitServingEngine
-    print(f"== 6. {FM_ARCH}: full width and depth through SplitServingEngine, "
-          f"{FM_BATCH} x {FM_SEQ} tokens")
-    cfg = get_config(FM_ARCH)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    model = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    check(n_params == FM_PARAMS,
-          f"init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
-          f"{cfg.d_inner}, N {cfg.ssm_state}, dt_rank {cfg.resolved_dt_rank}, vocab "
-          f"{cfg.vocab_size}, {n_params} params (want {FM_PARAMS}), "
-          f"{time.perf_counter() - t0:.2f} s")
-    eng = SplitServingEngine(cfg, model, versions=VERSIONS)
-    tokens = torch.randint(0, cfg.vocab_size, (FM_BATCH, FM_SEQ), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(2))
-    batch = {"tokens": tokens}
-    for version in VERSIONS:          # build each version's model, warm up
-        eng.infer(batch, FM_CUTS[1], version)
-    torch.cuda.synchronize()
-
-    reps, L = 3, cfg.n_layers
-    link = cut_activation_bytes(cfg, (FM_BATCH, FM_SEQ))
-    link_w8 = FM_BATCH * FM_SEQ * cfg.d_model + FM_BATCH * FM_SEQ * 4
-    times = {}
-    _reset_counts()
-    for version in VERSIONS:
-        for cut in FM_CUTS:
-            before = _counts()
-            ms, (logits, act_bytes) = _median_ms(lambda: eng.infer(batch, cut, version), reps)
-            delta = {k: v - before[k] for k, v in _counts().items()}
-            want = _launches(mamba_scan=L * reps,
-                             quant_matmul=reps if version == "w8" else 0)
-            finite = bool(torch.isfinite(logits).all())
-            shape_ok = tuple(logits.shape) == (FM_BATCH, FM_SEQ, cfg.vocab_size)
-            want_bytes = link_w8 if version == "w8" else link
-            times[f"{version}@{cut[1]}"] = ms
-            check(finite and shape_ok and act_bytes == want_bytes and delta == want,
-                  f"infer {version} cut={cut[1]}: act_bytes={act_bytes} (want {want_bytes}) "
-                  f"ms={[round(t, 3) for t in ms]} launches over {reps} infers={delta} "
-                  f"logits {tuple(logits.shape)} finite={finite}")
-            del logits
-    launches = _counts()
-    n_infer = reps * len(VERSIONS) * len(FM_CUTS)
-    print(f"{FM_ARCH} split path: {n_infer} infers, launches {launches}")
-    check(launches == _launches(mamba_scan=n_infer * L, quant_matmul=reps * len(FM_CUTS)),
-          f"launch counts over the {FM_ARCH} split path run")
-
-    with torch.inference_mode():
-        full = forward_logits(cfg, model, batch)
-        split = split_forward(cfg, model, batch, FM_CUTS[1])
-    err = (full - split).abs().max().item()
-    check(torch.allclose(split, full, rtol=2e-4, atol=2e-4),
-          f"{FM_ARCH} split vs full at cut {FM_CUTS[1][1]}: max_abs_err={err:.3g} (tol 2e-4)")
-    del full, split
-    peak = torch.cuda.max_memory_allocated(dev)
-    print(f"  peak device memory after the split path: {peak / 2**30:.2f} GiB ({peak} bytes)")
-    return cfg, model, eng, batch, launches, times, peak
-
-
-def phase_fm_decode(cfg, model, batch):
-    import numpy as np
-    import torch
-    from repro_torch.models import decode_step, forward_logits, prefill
-    from repro_torch.serving import (ContinuousBatchingServer, Request, ServeConfig,
-                                     ServingEngine)
-    print(f"== 6b. {FM_ARCH} decode: {FM_BATCH} x {FM_SEQ}-token prompts, {FM_NEW} new tokens")
-    L, V = cfg.n_layers, cfg.vocab_size
-    steps = FM_NEW - 1
-    eng = ServingEngine(cfg, model, ServeConfig(max_new_tokens=FM_NEW))
-    eng.generate(batch)                  # warm-up
-    torch.cuda.synchronize()
-    _reset_counts()
-    gen_ms = []
-    for _ in range(2):
-        before = _counts()
-        ms, toks = _median_ms(lambda: eng.generate(batch), 1)
-        gen_ms += ms
-        delta = {k: v - before[k] for k, v in _counts().items()}
-        in_range = 0 <= toks.min().item() and toks.max().item() < V
-        check(tuple(toks.shape) == (FM_BATCH, FM_NEW) and in_range
-              and delta == _launches(mamba_scan=L),
-              f"generate f32: {ms[0]:.1f} ms, launches {delta} ({L} mamba_scan in the "
-              f"prefill, none in the {steps} decode steps)")
-
-    # teacher-forced decode against the forward pass that ran the kernel
-    full_toks = torch.cat([batch["tokens"], toks[:, :FM_TF_STEPS]], dim=1)
-    with torch.inference_mode():
-        want = forward_logits(cfg, model, {"tokens": full_toks})
-        lg, cache = prefill(cfg, model, batch)
-        errs = [(lg - want[:, FM_SEQ - 1]).abs().max().item()]
-        for j in range(FM_TF_STEPS):
-            lg, cache = decode_step(cfg, model, cache, toks[:, j], FM_SEQ + j)
-            errs.append((lg - want[:, FM_SEQ + j]).abs().max().item())
-    del want, cache
-    check(max(errs) <= FM_DECODE_TOL,
-          f"prefill + {FM_TF_STEPS} teacher-forced decode steps against forward_logits on "
-          f"the card: max_abs_err {max(errs):.3g} (tol {FM_DECODE_TOL}), per step "
-          f"{[float(f'{e:.3g}') for e in errs]}")
-
-    r = np.random.default_rng(5)
-    reqs = [Request(rid=i, tokens=r.integers(0, V, int(r.integers(64, 201))),
-                    max_new_tokens=int(r.integers(8, 17))) for i in range(FM_SRV_REQUESTS)]
-    srv = ContinuousBatchingServer(cfg, model, max_batch=FM_SRV_REQUESTS,
-                                   cache_len=FM_SRV_CACHE)
-    before = _counts()
-    t0 = time.perf_counter()
-    for q in reqs:
-        srv.submit(q)
-    done = srv.run()
-    torch.cuda.synchronize()
-    srv_s = time.perf_counter() - t0
-    delta = {k: v - before[k] for k, v in _counts().items()}
-    st = srv.stats
-    n_tok = sum(len(q.out) for q in done)
-    check(len(done) == FM_SRV_REQUESTS and all(q.done and not q.truncated for q in done)
-          and all(len(q.out) == q.max_new_tokens for q in done)
-          and delta == _launches(mamba_scan=L * st.prefills),
-          f"scheduler: {len(done)} requests (prompts {[len(q.tokens) for q in reqs]}), "
-          f"{n_tok} tokens in {srv_s:.2f} s ({n_tok / srv_s:.1f} tokens/s), prefills "
-          f"{st.prefills}, decode steps {st.decode_steps}, wall steps {st.wall_steps}, "
-          f"launches {delta}")
-    launches = _counts()
-
-    pre_ms, _ = _median_ms(lambda: torch.inference_mode()(prefill)(cfg, model, batch), 3)
-    gen, pre = statistics.median(gen_ms), statistics.median(pre_ms)
-    timing = {"generate_ms": gen_ms, "prefill_ms": pre_ms, "per_token_ms": (gen - pre) / steps,
-              "scheduler_s": srv_s, "scheduler_tokens_per_s": n_tok / srv_s}
-    print(f"  {FM_ARCH} decode: generate {gen:.1f} ms, prefill {pre:.1f} ms, per token "
-          f"(generate - prefill) / {steps} = {timing['per_token_ms']:.3f} ms")
-    return launches, timing
-
-
-def phase_fm_card_vs_cpu(dev, cfg, model, batch):
-    """Full width at depth FM_CPU_LAYERS: the card model's embedding, head,
-    final norm and first layers, on both devices."""
-    import copy
-    from torch import nn
-    from repro_torch.models import export_params, load_jax_params
-    from repro_torch.serving import SplitServingEngine
-    small = cfg.with_overrides(n_layers=FM_CPU_LAYERS)
-    print(f"== 6c. {FM_ARCH} card against CPU: full width, {FM_CPU_LAYERS} layers, 1 x "
-          f"{CPU_SEQ} tokens per version at cut 1, then {FM_CPU_STEPS} decode steps")
-    t0 = time.perf_counter()
-    head = copy.copy(model)              # shares every tensor of the card model
-    head._modules = dict(model._modules)
-    head.stacks = nn.ModuleDict({"main": model.stacks["main"][:FM_CPU_LAYERS]})
-    head.cfg = small
-    flat = export_params(head)
-    del head
-    card, cpu = load_jax_params(small, flat, device=dev), load_jax_params(small, flat, device="cpu")
-    del flat
-    one = {"tokens": batch["tokens"][:1, :CPU_SEQ]}
-    compare_split_card_cpu(SplitServingEngine(small, card, versions=VERSIONS),
-                           SplitServingEngine(small, cpu, versions=VERSIONS, device="cpu"),
-                           one, ("main", 1))
-    compare_decode_card_cpu(small, card, cpu, one["tokens"], FM_CPU_STEPS + 1)
-    print(f"  {FM_ARCH} card vs CPU phase: {time.perf_counter() - t0:.1f} s")
-
-
 def phase_rg_split(dev):
     import torch
     from repro_torch.configs import get_config
@@ -2387,22 +2287,6 @@ def phase_rg_decode(dev, cfg, model):
               f"{RG_ATTN} flash_attention in the prefill, {RG_ATTN} flash_decode and no "
               f"rglru_scan in each of the {steps} decode steps)")
 
-    # teacher-forced decode against the forward pass that ran the kernels
-    full_toks = torch.cat([batch["tokens"], toks[:, :RG_TF_STEPS]], dim=1)
-    with torch.inference_mode():
-        want = forward_logits(cfg, model, {"tokens": full_toks})
-        lg, cache = prefill(cfg, model, batch)
-        ring = tuple(cache["period"]["s2"]["k"].shape)
-        errs = [(lg - want[:, RG_SEQ - 1]).abs().max().item()]
-        for j in range(RG_TF_STEPS):
-            lg, cache = decode_step(cfg, model, cache, toks[:, j], RG_SEQ + j)
-            errs.append((lg - want[:, RG_SEQ + j]).abs().max().item())
-    del want, cache
-    check(max(errs) <= RG_DECODE_TOL and ring[2] == cfg.local_window,
-          f"prefill + {RG_TF_STEPS} teacher-forced decode steps against forward_logits on "
-          f"the card: max_abs_err {max(errs):.3g} (tol {RG_DECODE_TOL}), per step "
-          f"{[float(f'{e:.3g}') for e in errs]}; rings {ring}")
-
     r = np.random.default_rng(5)
     reqs = [Request(rid=i, tokens=r.integers(0, V, int(r.integers(64, 257))),
                     max_new_tokens=int(r.integers(16, 49))) for i in range(RG_SRV_REQUESTS)]
@@ -2426,7 +2310,23 @@ def phase_rg_decode(dev, cfg, model):
           f"{n_tok} tokens in {srv_s:.2f} s ({n_tok / srv_s:.1f} tokens/s), prefills "
           f"{st.prefills}, decode steps {st.decode_steps}, wall steps {st.wall_steps}, "
           f"reclaims {st.slot_reclaims}, launches {delta}")
-    launches = _counts()
+    launches = _counts()                 # the generate and scheduler runs only
+
+    # teacher-forced decode against the forward pass that ran the kernels
+    full_toks = torch.cat([batch["tokens"], toks[:, :RG_TF_STEPS]], dim=1)
+    with torch.inference_mode():
+        want = forward_logits(cfg, model, {"tokens": full_toks})
+        lg, cache = prefill(cfg, model, batch)
+        ring = tuple(cache["period"]["s2"]["k"].shape)
+        errs = [(lg - want[:, RG_SEQ - 1]).abs().max().item()]
+        for j in range(RG_TF_STEPS):
+            lg, cache = decode_step(cfg, model, cache, toks[:, j], RG_SEQ + j)
+            errs.append((lg - want[:, RG_SEQ + j]).abs().max().item())
+    del want, cache
+    check(max(errs) <= RG_DECODE_TOL and ring[2] == cfg.local_window,
+          f"prefill + {RG_TF_STEPS} teacher-forced decode steps against forward_logits on "
+          f"the card: max_abs_err {max(errs):.3g} (tol {RG_DECODE_TOL}), per step "
+          f"{[float(f'{e:.3g}') for e in errs]}; rings {ring}")
 
     pre_ms, _ = _median_ms(lambda: torch.inference_mode()(prefill)(cfg, model, batch), 3)
     gen, pre = statistics.median(gen_ms), statistics.median(pre_ms)
@@ -2467,20 +2367,387 @@ def phase_rg_card_vs_cpu(dev, cfg, model, batch):
     print(f"  {RG_ARCH} card vs CPU phase: {time.perf_counter() - t0:.1f} s")
 
 
+def _w8_qmm(cfg):
+    """quant_matmul launches a w8 infer, prefill or decode step of a
+    single-stack model: q, k, v, o and the MLP's projections (three gated,
+    two plain gelu) in every dense layer, none in a Mamba layer, and an
+    untied head."""
+    per_layer = 0 if cfg.ssm else 4 + (2 if cfg.mlp_act == "gelu" else 3)
+    return per_layer * cfg.n_layers + (not cfg.tie_embeddings)
+
+
+def _family_kernels(cfg):
+    """The kernel a prefill or infer launches once a layer, and the one a
+    decode step launches once a layer (None: Mamba's step is the plain
+    one-token recurrence)."""
+    return ("mamba_scan", None) if cfg.ssm else ("flash_attention", "flash_decode")
+
+
+def _dense_layer_shapes(cfg):
+    """(K, N) of one dense layer's w8 projections: q, k, v, o, then the
+    MLP's."""
+    d, f = cfg.d_model, cfg.d_ff
+    hq, hk = cfg.n_heads * cfg.resolved_head_dim, cfg.n_kv_heads * cfg.resolved_head_dim
+    mlp = ((d, f), (f, d)) if cfg.mlp_act == "gelu" else ((d, f), (d, f), (f, d))
+    return ((d, hq), (d, hk), (d, hk), (hq, d)) + mlp
+
+
+def _free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_family_split(dev, arch, label):
+    """A single-stack family at full width and depth through
+    SplitServingEngine: every version at three cuts, each version's model
+    built only while it serves (phi3-medium-14b's f32 model and its w8 copy
+    fit the card together, all three versions do not)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.partition import cut_activation_bytes, split_forward
+    from repro_torch.models import forward_logits, init
+    from repro_torch.serving import SplitServingEngine
+    spec = FAMILIES[arch]
+    B, S = spec["split"]
+    cuts = tuple(("main", c) for c in spec["cuts"])
+    print(f"== {label}. {arch}: full width and depth through SplitServingEngine, {B} x {S} "
+          f"tokens")
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    L, qmm = cfg.n_layers, _w8_qmm(cfg)
+    pre, _ = _family_kernels(cfg)
+    shape = (f"d_inner {cfg.d_inner}, N {cfg.ssm_state}, dt_rank {cfg.resolved_dt_rank}"
+             if cfg.ssm else
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff} "
+             f"{cfg.mlp_act}, {cfg.norm}, qk_norm {cfg.qk_norm}, qkv_bias {cfg.qkv_bias}, "
+             f"attn_bias {cfg.attn_bias}, window {cfg.sliding_window}")
+    check(n_params == spec["params"],
+          f"init {cfg.name}: {L} layers, d_model {cfg.d_model}, {shape}, vocab "
+          f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, {n_params} params (want "
+          f"{spec['params']}), {time.perf_counter() - t0:.2f} s")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(2))}
+    reps = 3
+    link = cut_activation_bytes(cfg, (B, S))
+    link_w8 = B * S * (cfg.d_model + 4)
+    times, launches = {}, _launches()
+    for version in VERSIONS:
+        eng = SplitServingEngine(cfg, model, versions=(version,))
+        eng.infer(batch, cuts[1], version)       # builds the version's model, warms up
+        torch.cuda.synchronize()
+        _reset_counts()
+        for cut in cuts:
+            before = _counts()
+            ms, (logits, act_bytes) = _median_ms(lambda: eng.infer(batch, cut, version), reps)
+            delta = {k: v - before[k] for k, v in _counts().items()}
+            want = _launches(**{pre: L * reps},
+                             quant_matmul=qmm * reps if version == "w8" else 0)
+            finite = bool(torch.isfinite(logits).all())
+            shape_ok = tuple(logits.shape) == (B, S, cfg.vocab_size)
+            want_bytes = link_w8 if version == "w8" else link
+            times[f"{version}@{cut[1]}"] = ms
+            check(finite and shape_ok and act_bytes == want_bytes and delta == want,
+                  f"infer {version} cut={cut[1]}: act_bytes={act_bytes} (want {want_bytes}) "
+                  f"ms={[round(t, 3) for t in ms]} launches over {reps} infers={delta} "
+                  f"logits {tuple(logits.shape)} finite={finite}")
+            del logits
+        launches = {k: launches[k] + v for k, v in _counts().items()}
+        print(f"  peak device memory with the {version} model: "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        del eng
+        _free()
+    n_infer = reps * len(VERSIONS) * len(cuts)
+    print(f"{arch} split path: {n_infer} infers, launches {launches}")
+    check(launches == _launches(**{pre: n_infer * L}, quant_matmul=reps * len(cuts) * qmm),
+          f"launch counts over the {arch} split path run ({L} {pre} an infer, {qmm} "
+          f"quant_matmul a w8 infer)")
+    with torch.inference_mode():
+        full = forward_logits(cfg, model, batch)
+        split = split_forward(cfg, model, batch, cuts[1])
+    err = (full - split).abs().max().item()
+    check(torch.allclose(split, full, rtol=2e-4, atol=2e-4),
+          f"{arch} split vs full at cut {cuts[1][1]}: max_abs_err={err:.3g} (tol 2e-4)")
+    del full, split
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  peak device memory of the split path: {peak / 2**30:.2f} GiB ({peak} bytes); "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return cfg, model, launches, times, peak
+
+
+def phase_family_decode(dev, cfg, model, label):
+    """ServingEngine.generate and, where the spec names one, the scheduler,
+    with launch counts; their launches are the path's. Then teacher-forced
+    decode against the card's forward_logits (across a wrapped window ring
+    for starcoder2-3b), which the path's counts leave out."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, forward_logits, prefill
+    from repro_torch.serving import (ContinuousBatchingServer, Request, ServeConfig,
+                                     ServingEngine)
+    spec = FAMILIES[cfg.name]
+    B, S, new = spec["decode"]
+    L, V = cfg.n_layers, cfg.vocab_size
+    steps = new - 1
+    pre, step = _family_kernels(cfg)
+    print(f"== {label}. {cfg.name} decode: {B} x {S}-token prompts, {new} new tokens"
+          + (f" (past the {cfg.sliding_window}-token window)"
+             if cfg.sliding_window and S > cfg.sliding_window else ""))
+    t_phase = time.perf_counter()
+    batch = {"tokens": torch.randint(0, V, (B, S), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(4))}
+    eng = ServingEngine(cfg, model, ServeConfig(max_new_tokens=new))
+    eng.generate(batch)                  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    gen_ms = []
+    for _ in range(2):
+        before = _counts()
+        ms, toks = _median_ms(lambda: eng.generate(batch), 1)
+        gen_ms += ms
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        in_range = 0 <= toks.min().item() and toks.max().item() < V
+        check(tuple(toks.shape) == (B, new) and in_range
+              and delta == _launches(**{pre: L}, **({step: L * steps} if step else {})),
+              f"generate f32: {ms[0]:.1f} ms, launches {delta} ({L} {pre} in the prefill, "
+              + (f"{L} {step} in each" if step else "no kernel in any")
+              + f" of the {steps} decode steps)")
+    timing = {}
+    if spec["srv"] is not None:
+        n_req, slots_srv, cache_len, prompt, n_new = spec["srv"]
+        r = np.random.default_rng(5)
+        reqs = [Request(rid=i, tokens=r.integers(0, V, int(r.integers(prompt[0], prompt[1] + 1))),
+                        max_new_tokens=int(r.integers(n_new[0], n_new[1] + 1)))
+                for i in range(n_req)]
+        srv = ContinuousBatchingServer(cfg, model, max_batch=slots_srv, cache_len=cache_len)
+        before = _counts()
+        t0 = time.perf_counter()
+        for q in reqs:
+            srv.submit(q)
+        done = srv.run()
+        torch.cuda.synchronize()
+        srv_s = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        st = srv.stats
+        n_tok = sum(len(q.out) for q in done)
+        check(len(done) == n_req and all(q.done and not q.truncated for q in done)
+              and all(len(q.out) == q.max_new_tokens for q in done)
+              and delta == _launches(**{pre: L * st.prefills},
+                                     **({step: L * st.decode_steps} if step else {})),
+              f"scheduler: {len(done)} requests (prompts {[len(q.tokens) for q in reqs]}), "
+              f"{n_tok} tokens in {srv_s:.2f} s ({n_tok / srv_s:.1f} tokens/s), prefills "
+              f"{st.prefills}, decode steps {st.decode_steps}, wall steps {st.wall_steps}, "
+              f"reclaims {st.slot_reclaims}, launches {delta}")
+        timing.update(scheduler_s=srv_s, scheduler_tokens_per_s=n_tok / srv_s)
+    launches = _counts()                 # the generate and scheduler runs only
+
+    # teacher-forced decode against the forward pass that ran the kernels
+    full_toks = torch.cat([batch["tokens"], toks[:, :FAM_TF_STEPS]], dim=1)
+    with torch.inference_mode():
+        want = forward_logits(cfg, model, {"tokens": full_toks})
+        lg, cache = prefill(cfg, model, batch, total_len=S + FAM_TF_STEPS)
+        k = cache["main"]["blk"].get("k")
+        ring = None if k is None else tuple(k.shape)
+        errs = [(lg - want[:, S - 1]).abs().max().item()]
+        for j in range(FAM_TF_STEPS):
+            lg, cache = decode_step(cfg, model, cache, toks[:, j], S + j)
+            errs.append((lg - want[:, S + j]).abs().max().item())
+    del want, cache
+    slots = min(S + FAM_TF_STEPS, cfg.sliding_window or S + FAM_TF_STEPS)
+    check(max(errs) <= FAM_DECODE_TOL and (ring is None or ring[2] == slots),
+          f"prefill + {FAM_TF_STEPS} teacher-forced decode steps against forward_logits on "
+          f"the card: max_abs_err {max(errs):.3g} (tol {FAM_DECODE_TOL}), per step "
+          f"{[float(f'{e:.3g}') for e in errs]}; rings {ring}")
+
+    pre_ms, _ = _median_ms(lambda: torch.inference_mode()(prefill)(cfg, model, batch), 3)
+    gen, pre_med = statistics.median(gen_ms), statistics.median(pre_ms)
+    timing.update(generate_ms=gen_ms, prefill_ms=pre_ms, per_token_ms=(gen - pre_med) / steps)
+    print(f"  {cfg.name} decode: generate {gen:.1f} ms, prefill {pre_med:.1f} ms, per token "
+          f"(generate - prefill) / {steps} = {timing['per_token_ms']:.3f} ms; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return batch, launches, timing
+
+
+def phase_family_card_vs_cpu(dev, cfg, model, batch, label):
+    """Full width at depth FAM_CPU_LAYERS: the card model's embedding, head,
+    final norm and first layers, on both devices."""
+    import copy
+    from torch import nn
+    from repro_torch.models import export_params, load_jax_params
+    from repro_torch.serving import SplitServingEngine
+    small = cfg.with_overrides(n_layers=FAM_CPU_LAYERS)
+    print(f"== {label}. {cfg.name} card against CPU: full width, {FAM_CPU_LAYERS} layers, 1 x "
+          f"{CPU_SEQ} tokens per version at cut 1, then {FAM_CPU_STEPS} decode steps")
+    t0 = time.perf_counter()
+    head = copy.copy(model)              # shares every tensor of the card model
+    head._modules = dict(model._modules)
+    head.stacks = nn.ModuleDict({"main": model.stacks["main"][:FAM_CPU_LAYERS]})
+    head.cfg = small
+    flat = export_params(head)
+    del head
+    card, cpu = load_jax_params(small, flat, device=dev), load_jax_params(small, flat, device="cpu")
+    del flat
+    one = {"tokens": batch["tokens"][:1, :CPU_SEQ]}
+    compare_split_card_cpu(SplitServingEngine(small, card, versions=VERSIONS),
+                           SplitServingEngine(small, cpu, versions=VERSIONS, device="cpu"),
+                           one, ("main", 1))
+    compare_decode_card_cpu(small, card, cpu, one["tokens"], FAM_CPU_STEPS + 1)
+    print(f"  {cfg.name} card vs CPU phase: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_family(dev, arch):
+    """Phases 6 and 9-9c: one single-stack family's split path, decode path
+    and card-CPU comparison; its model is freed at the end."""
+    label = FAMILIES[arch]["label"]
+    t0 = time.perf_counter()
+    cfg, model, split_launches, times, peak = phase_family_split(dev, arch, label)
+    batch, dec_launches, dec_timing = phase_family_decode(dev, cfg, model, label + " decode")
+    phase_family_card_vs_cpu(dev, cfg, model, batch, label + " card vs CPU")
+    del model, batch
+    _free()
+    seconds = time.perf_counter() - t0
+    print(f"  phase {label} ({arch}) in all: {seconds:.1f} s")
+    return {"split": split_launches, "decode": dec_launches, "times": times, "peak": peak,
+            "decode_timing": dec_timing, "seconds": seconds}
+
+
+def phase_mixed_fleet(dev, q2_cfg, q2_eng, smi):
+    """3g. A fleet of mixed models under the controller: the transformer env
+    of qwen2-0.5b, qwen3-0.6b and starcoder2-3b at full width built on the
+    card (tables = CPU), then ``simulate`` for three policies with
+    ``ExecuteBackend`` over three full-width engines, device i serving model
+    i, the devices' models rotated so that each takes its turn on device 0
+    (the device whose request an epoch executes)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_tpu_env, transformer_profile
+    from repro_torch.core.baselines import greedy_oracle
+    from repro_torch.models import init
+    from repro_torch.policies import StaticPolicy, build_policy
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.serving import SplitServingEngine
+    from repro_torch.sim import AnalyticalBackend, ExecuteBackend, FleetConfig, simulate
+    sc = get_scenario("tpu-execute")
+    print(f"== 3g. mixed fleet: {list(MIX_ARCHS)} at full width (seq {SEQ}), one device each, "
+          f"the {sc.name} world's traffic ({sc.trace} {sc.trace_kw} rps a device, "
+          f"{sc.n_requests} requests); ExecuteBackend (sample {MIX_SAMPLE}) over three engines")
+    t_phase = time.perf_counter()
+
+    def world(device):
+        return make_tpu_env(list(MIX_ARCHS), weights=sc.weights, reduced=False, seq_len=SEQ,
+                            slot_seconds=sc.slot_seconds, peak_rps=sc.peak_rps, device=device)
+
+    env_cfg, tables = world(dev)
+    cpu_env, cpu_tables = world("cpu")
+    same = all(torch.equal(getattr(tables, f.name).cpu(), getattr(cpu_tables, f.name))
+               if isinstance(getattr(tables, f.name), torch.Tensor)
+               else getattr(tables, f.name) == getattr(cpu_tables, f.name)
+               for f in dataclasses.fields(tables))
+    check(same and tables.device.type == "cuda" and tables.n_models == len(MIX_ARCHS),
+          f"make_tpu_env({list(MIX_ARCHS)}, seq_len={SEQ}) on the card: every table equals "
+          f"the CPU-built one exactly ({tables.n_models} models x {tables.n_versions} "
+          f"versions x {tables.n_cuts} cuts)")
+    cfgs, engines = [q2_cfg], [q2_eng]
+    for arch in MIX_ARCHS[1:]:
+        cfg = get_config(arch)
+        cfgs.append(cfg)
+        engines.append(SplitServingEngine(
+            cfg, init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+            versions=VERSIONS))
+    profiles = [transformer_profile(c, seq_len=SEQ) for c in cfgs]
+    by_name = {c.name: c for c in cfgs}
+    trace, fleet = sc.build_trace(), FleetConfig(slo_s=sc.slo_s)
+    w8 = [v.version for v in profiles[0].versions].index("w8")
+
+    def w8_at_oracle_cut(env_, tables_, state, generator=None):
+        actions = greedy_oracle(env_, tables_, state).clone()
+        actions[:, 0] = w8
+        return actions
+
+    def policy(name, env_, tables_):
+        if name == "w8@greedy_oracle":
+            return StaticPolicy(env_, tables_, w8_at_oracle_cut)
+        return build_policy(name, env_, tables_)
+
+    served, w8_served = {c.name: 0 for c in cfgs}, False
+    timing = {"card": smi, "runs": {}}
+    _reset_counts()
+    names = ["greedy_oracle", "device_only", "full_offload"]
+    for name in names:
+        for rot in range(len(MIX_ARCHS)):
+            mids = np.roll(np.arange(len(MIX_ARCHS), dtype=np.int32), -rot)
+            backend = ExecuteBackend(env_cfg, tables, cfgs, profiles, engines, seq_len=SEQ,
+                                     sample=MIX_SAMPLE)
+            before = _counts()
+            t0 = time.perf_counter()
+            res = simulate(env_cfg, tables, policy(name, env_cfg, tables), trace,
+                           n_requests=sc.n_requests, seed=sc.seeds[0], fleet=fleet,
+                           backend=backend, model_ids=mids)
+            wall = time.perf_counter() - t0
+            delta = {k: v - before[k] for k, v in _counts().items()}
+            cc = res.cross_check or {"records": [], "samples": 0}
+            recs = cc["records"]
+            want = _launches(
+                flash_attention=sum(2 * by_name[r["model"]].n_layers for r in recs),
+                quant_matmul=sum(2 * _w8_qmm(by_name[r["model"]])
+                                 for r in recs if r["version"] == "w8"))
+            for r in recs:
+                served[r["model"]] += 1
+            w8_served |= any(r["version"] == "w8" for r in recs)
+            ref = simulate(cpu_env, cpu_tables, policy(name, cpu_env, cpu_tables), trace,
+                           n_requests=sc.n_requests, seed=sc.seeds[0], fleet=fleet,
+                           backend=AnalyticalBackend(cpu_env, cpu_tables), model_ids=mids)
+            check((not recs or cc.get("bytes_exact") is True)
+                  and all(r["logits_finite"] for r in recs) and delta == want
+                  and same_sim_result(res, ref),
+                  f"{name}, model_ids {mids.tolist()}: {res.epochs} epochs, {res.served} "
+                  f"requests in {wall:.3f} s, slo_attainment "
+                  f"{res.summary['slo_attainment']:.4f}; {len(recs)} samples "
+                  f"{[(r['model'], r['version'], r['cut'][1], r['measured_bytes']) for r in recs]}"
+                  f" bytes = each model's own table entry, launches {delta} (2 infers a "
+                  f"sample, each model's layers); SimResult card = CPU bit for bit")
+            timing["runs"][f"{name}@{rot}"] = {"epochs": res.epochs, "wall_s": wall,
+                                               "samples": len(recs)}
+        if name == names[-1] and not w8_served:
+            # the w8 path (quant_matmul, starcoder2's untied head too) runs
+            # in this phase on every run
+            names.append("w8@greedy_oracle")
+    launches = _counts()
+    check(all(n > 0 for n in served.values()),
+          f"every model of the fleet served sampled requests through its engine: {served}")
+    del engines[1:]
+    _free()
+    timing["seconds"] = time.perf_counter() - t_phase
+    print(f"  mixed fleet launches {launches}; phase {timing['seconds']:.1f} s")
+    return launches, timing
+
+
 def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
     import torch
     print("== 7. kernel timing at the main path's shapes (CUDA events)")
     g = torch.Generator(device=dev).manual_seed(3)
     qmm_row = time_quant_matmul(dev, g, qmm_err, launches)
 
-    fa_main, fa_split, fa_prefill = FA_PATHS
+    fa_main, fa_split, fa_prefill, fa_qwen3, fa_sc2 = FA_PATHS
     fa_row = time_attention(dev, g, *fa_main, "")
     fa_row.update(_d256(time_attention(dev, g, *fa_split, f" ({RG_ARCH} split path)")))
     fa_row.update(_prefixed("prefill_", time_attention(dev, g, *fa_prefill,
                                                        f" ({RG_ARCH} prefill)")))
-    fd_main, fd_rg = FD_PATHS
+    fa_row.update(_prefixed("qwen3_", time_attention(dev, g, *fa_qwen3,
+                                                     " (qwen3-0.6b split path)")))
+    fa_row.update(_prefixed("sc2_", time_attention(dev, g, *fa_sc2,
+                                                   " (starcoder2-3b decode prefill)")))
+    fd_main, fd_rg, fd_sc2 = FD_PATHS
     fd_row = time_decode(dev, g, *fd_main, "")
     fd_row.update(_d256(time_decode(dev, g, *fd_rg, f" ({RG_ARCH} decode path)")))
+    fd_row.update(_prefixed("sc2_", time_decode(dev, g, *fd_sc2,
+                                                " (starcoder2-3b decode path)")))
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -2499,14 +2766,16 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
         print(f"  {kern['name']}: ms={kern['ms']:.4f} plain_ms={kern['plain_ms']:.4f} "
               f"library_ms={kern['library_ms']} bound_ms={kern['bound_ms']:.4f} "
               f"({kern['bound_by']}) [{kern['shape']}]")
-        for pre in ("d256_", "prefill_", "cohort_", "decode_", "rg_", "head_"):
+        for pre in ("d256_", "prefill_", "cohort_", "decode_", "rg_", "head_", "qwen3_", "sc2_",
+                    "phi3_", "phi3_head_"):
             if f"{pre}ms" in kern:
                 print(f"  {kern['name']} {pre[:-1]}: ms={kern[pre + 'ms']:.4f} "
                       f"plain_ms={kern[pre + 'plain_ms']:.4f} "
                       f"library_ms={kern[pre + 'library_ms']} "
                       f"bound_ms={kern[pre + 'bound_ms']:.4f} ({kern[pre + 'bound_by']}) "
                       f"[{kern[pre + 'shape']}]")
-        for pre in ("", "d256_", "prefill_", "cohort_", "decode_"):
+        for pre in ("", "d256_", "prefill_", "cohort_", "decode_", "sc2_", "phi3_",
+                    "phi3_head_"):
             if f"{pre}device_ms" in kern:
                 print(f"  {kern['name']} {pre[:-1] or 'main'} device time (CUDA graph) "
                       f"{kern[pre + 'device_ms']:.4f} ms")
@@ -2741,6 +3010,12 @@ def time_quant_matmul(dev, g, err, launches):
     row.update(_prefixed("head_", _time_qmm(dev, g, FM_BATCH * FM_SEQ,
                                             ((fm.d_model, fm.vocab_size),),
                                             f"{FM_ARCH} w8 lm_head, split path")))
+    phi3 = get_config("phi3-medium-14b")
+    m = math.prod(FAMILIES[phi3.name]["split"])
+    row.update(_prefixed("phi3_", _time_qmm(dev, g, m, _dense_layer_shapes(phi3),
+                                            f"{phi3.name} w8 layer, split path", 10)))
+    row.update(_prefixed("phi3_head_", _time_qmm(dev, g, m, ((phi3.d_model, phi3.vocab_size),),
+                                                 f"{phi3.name} w8 lm_head, split path", 10)))
     # the decode step's projections as the model runs them: per-row
     # activation quantization (its launches) and the kernel, the leaves as
     # the model holds them, K-major
@@ -2816,39 +3091,39 @@ def main() -> int:
     drift_launches, drift_timing = phase_drift_loop(dev, cfg, eng, batch, fleet_world)
     cluster_launches, cluster_timing = phase_cluster_loop(dev, smi)
     scan_launches, scan_timing = phase_scan_engine(dev, smi)
+    mix_launches, mix_timing = phase_mixed_fleet(dev, cfg, eng, smi)
     dec_launches, dec_timing = phase_decode_serving(cfg, model, batch)
     phase_split_equals_full(cfg, model, batch)
     cpu_model = phase_card_vs_cpu(cfg, model, eng, batch)
     phase_decode_card_vs_cpu(cfg, model, cpu_model, batch)
     del cpu_model, eng, model
 
-    fm_cfg, fm_model, fm_eng, fm_batch, fm_launches, fm_times, fm_peak = phase_fm_split(dev)
-    fm_dec_launches, fm_dec_timing = phase_fm_decode(fm_cfg, fm_model, fm_batch)
-    phase_fm_card_vs_cpu(dev, fm_cfg, fm_model, fm_batch)
-    del fm_model, fm_eng                 # free the 29 GB before the next model
-    gc.collect()
-    torch.cuda.empty_cache()
+    families = {FM_ARCH: phase_family(dev, FM_ARCH)}   # frees its 29 GB at the end
 
     rg_cfg, rg_model, rg_eng, rg_launches, rg_times, rg_peak = phase_rg_split(dev)
     del rg_eng
     rg_batch, rg_dec_launches, rg_dec_timing = phase_rg_decode(dev, rg_cfg, rg_model)
     phase_rg_card_vs_cpu(dev, rg_cfg, rg_model, rg_batch)
     del rg_model
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
+
+    families.update({arch: phase_family(dev, arch) for arch in FAMILIES if arch != FM_ARCH})
 
     kernels = phase_timing(dev, qmm_err, ms_err, rs_err, {
         **{k: launches[k] + loop_launches[k] + fleet_launches[k] + drift_launches[k]
            for k in launches},
         "flash_decode": dec_launches["flash_decode"],
-        "mamba_scan": fm_launches["mamba_scan"], "rglru_scan": rg_launches["rglru_scan"]})
+        "mamba_scan": families[FM_ARCH]["split"]["mamba_scan"],
+        "rglru_scan": rg_launches["rglru_scan"]})
     paths = {f"{cfg.name} split": launches, f"{cfg.name} closed loop": loop_launches,
              f"{cfg.name} fleet loop": fleet_launches,
              f"{cfg.name} drift loop": drift_launches,
              "edge-cluster loop": cluster_launches, "megafleet scan": scan_launches,
              f"{cfg.name} decode": dec_launches,
-             f"{FM_ARCH} split": fm_launches, f"{FM_ARCH} decode": fm_dec_launches,
-             f"{RG_ARCH} split": rg_launches, f"{RG_ARCH} decode": rg_dec_launches}
+             f"{RG_ARCH} split": rg_launches, f"{RG_ARCH} decode": rg_dec_launches,
+             "mixed fleet": mix_launches}
+    for arch, d in families.items():
+        paths.update({f"{arch} split": d["split"], f"{arch} decode": d["decode"]})
     for kern in kernels:
         kern["launches_by_path"] = {p: n[kern["name"]] for p, n in paths.items()}
 
@@ -2860,14 +3135,17 @@ def main() -> int:
     print("edge-cluster loop: " + json.dumps(cluster_timing))
     print("scan engine: " + json.dumps(scan_timing))
     print(f"{cfg.name} decode serving: " + json.dumps(dec_timing))
-    print(f"{FM_ARCH} per-infer ms (median of 3), {FM_BATCH} x {FM_SEQ} tokens: " + json.dumps(
-        {k: statistics.median(v) for k, v in fm_times.items()}))
-    print(f"{FM_ARCH} decode serving: " + json.dumps(fm_dec_timing))
-    print(f"{FM_ARCH} peak device memory: {fm_peak} bytes")
     print(f"{RG_ARCH} per-infer ms (median of 3), {RG_SPLIT_BATCH} x {RG_SPLIT_SEQ} tokens: "
           + json.dumps({k: statistics.median(v) for k, v in rg_times.items()}))
     print(f"{RG_ARCH} decode serving: " + json.dumps(rg_dec_timing))
     print(f"{RG_ARCH} peak device memory: {rg_peak} bytes")
+    print("mixed fleet: " + json.dumps(mix_timing))
+    for arch, d in families.items():
+        B, S = FAMILIES[arch]["split"]
+        print(f"{arch} per-infer ms (median of 3), {B} x {S} tokens: " + json.dumps(
+            {k: statistics.median(v) for k, v in d["times"].items()}))
+        print(f"{arch} decode serving: " + json.dumps(d["decode_timing"]))
+        print(f"{arch} peak device memory: {d['peak']} bytes; phase {d['seconds']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

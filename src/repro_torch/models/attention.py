@@ -1,4 +1,5 @@
-"""GQA self-attention (port of ``repro.models.attention``, the dense path):
+"""GQA self-attention (port of ``repro.models.attention``, the dense path,
+with QKV and o biases, qwen3's per-head q/k norm and RoPE):
 whole sequences (train), prompt plus ring cache (prefill), and one token
 against the ring cache (decode).
 
@@ -19,7 +20,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention_core as ac
-from repro_torch.models.layers import Dense, apply_rope
+from repro_torch.models.layers import Dense, apply_norm, apply_rope
 
 MODES = ("train", "prefill", "decode")
 
@@ -56,25 +57,27 @@ def ring_from_prefill(seq_vals: torch.Tensor, cache_len: int) -> torch.Tensor:
 
 
 class SelfAttention(nn.Module):
-    """q/k/v projections (+ QKV bias), head split, RoPE, attention, wo.
+    """q/k/v projections (+ QKV bias), head split, per-head q/k RMSNorm
+    (qwen3's qk_norm), RoPE, attention, wo (+ o bias).
 
-    ``p`` holds one layer's tensors under the reference's leaf names
-    (wq, wk, wv, wo and, with ``cfg.qkv_bias``, bq, bk, bv)."""
+    ``p`` holds one layer's tensors under the reference's leaf names: wq,
+    wk, wv, wo; with ``cfg.qkv_bias`` bq, bk, bv; with ``cfg.attn_bias``
+    bo; with ``cfg.qk_norm`` q_norm and k_norm, each (head_dim,). The
+    heads may be narrower or wider than d_model / n_heads: wq is (d_model,
+    H * Dh) and wo (H * Dh, d_model)."""
 
     def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
                  window: Optional[int] = None):
         super().__init__()
         self.n_heads, self.n_kv_heads = cfg.n_heads, cfg.n_kv_heads
         self.head_dim = cfg.resolved_head_dim
-        self.rope_theta = cfg.rope_theta
+        self.rope_theta = cfg.rope_theta if cfg.use_rope else None
         self.window = window
         self.wq, self.wk, self.wv, self.wo = (Dense(p[n]) for n in ("wq", "wk", "wv", "wo"))
-        if cfg.qkv_bias:
-            self.bq = nn.Parameter(p["bq"], requires_grad=False)
-            self.bk = nn.Parameter(p["bk"], requires_grad=False)
-            self.bv = nn.Parameter(p["bv"], requires_grad=False)
-        else:
-            self.bq = self.bk = self.bv = None
+        for names, on in ((("bq", "bk", "bv"), cfg.qkv_bias), (("bo",), cfg.attn_bias),
+                          (("q_norm", "k_norm"), cfg.qk_norm)):
+            for n in names:
+                setattr(self, n, nn.Parameter(p[n], requires_grad=False) if on else None)
 
     def forward(self, x: torch.Tensor, pos0: int = 0, mode: str = "train",
                 cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -85,7 +88,7 @@ class SelfAttention(nn.Module):
         slots (default S) built from its k and v. decode (S == 1): k and v
         are written in place at slot ``pos0 % C`` of ``cache``, which is
         returned, then the query attends over the ring. ``pos0`` is a host
-        int."""
+        int. The rings hold k after its norm and RoPE, as the reference's."""
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
         B, S, _ = x.shape
@@ -94,9 +97,12 @@ class SelfAttention(nn.Module):
         if self.bq is not None:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         q, k, v = q.view(B, S, H, Dh), k.view(B, S, HK, Dh), v.view(B, S, HK, Dh)
+        if self.q_norm is not None:
+            q, k = apply_norm(q, self.q_norm), apply_norm(k, self.k_norm)
         positions = pos0 + torch.arange(S, device=x.device)
-        q = apply_rope(q, positions, self.rope_theta)
-        k = apply_rope(k, positions, self.rope_theta)
+        if self.rope_theta is not None:
+            q = apply_rope(q, positions, self.rope_theta)
+            k = apply_rope(k, positions, self.rope_theta)
 
         new_cache = None
         if mode == "decode":
@@ -114,4 +120,5 @@ class SelfAttention(nn.Module):
                 C = cache_len if cache_len is not None else S
                 new_cache = {"k": ring_from_prefill(k, C),
                              "v": ring_from_prefill(v, C)}
-        return self.wo(out.reshape(B, S, H * Dh)), new_cache
+        out = self.wo(out.reshape(B, S, H * Dh))
+        return (out if self.bo is None else out + self.bo), new_cache

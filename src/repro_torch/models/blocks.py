@@ -1,8 +1,10 @@
 """Blocks (port of ``repro.models.blocks``): the ``attn`` kind, pre-norm
-self-attention plus pre-norm MLP, each with a residual; the ``ssm`` kind, a
-pre-norm Mamba mixer with a residual; the ``rec`` kind, a pre-norm RG-LRU
-mixer plus pre-norm MLP, each with a residual. Every kind has the same
-``forward(x, *, pos0, mode, cache, cache_len) -> (x, new_cache)``."""
+self-attention plus pre-norm MLP (with biases under ``attn_bias``), each
+with a residual; the ``ssm`` kind, a pre-norm Mamba mixer with a residual;
+the ``rec`` kind, a pre-norm RG-LRU mixer plus pre-norm MLP, each with a
+residual. The norms are RMSNorm or LayerNorm, as the plan's leaves say.
+Every kind has the same ``forward(x, *, pos0, mode, cache, cache_len) ->
+(x, new_cache)``."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -12,7 +14,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import SelfAttention
-from repro_torch.models.layers import MLP, RMSNorm
+from repro_torch.models.layers import MLP, build_norm
 from repro_torch.models.rglru import RecMixer
 from repro_torch.models.ssm import SSMMixer
 
@@ -22,19 +24,23 @@ def _sub(p: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def _mlp(cfg: ModelConfig, p: Dict[str, torch.Tensor]) -> MLP:
-    return MLP(p["mlp/w_gate"], p["mlp/w_up"], p["mlp/w_down"], act=cfg.mlp_act)
+    """The block's MLP: gated, or plain gelu; with ``b_up`` and ``b_down``
+    where the plan holds them (an ``attn`` block of a config with
+    ``attn_bias``, as in the reference)."""
+    return MLP(p.get("mlp/w_gate"), p["mlp/w_up"], p["mlp/w_down"], act=cfg.mlp_act,
+               b_up=p.get("mlp/b_up"), b_down=p.get("mlp/b_down"))
 
 
 class Block(nn.Module):
     """``p`` holds one layer's tensors keyed as in the reference's block
-    plan: norm1/scale, attn/..., norm2/scale, mlp/..."""
+    plan: norm1/..., attn/..., norm2/..., mlp/..."""
 
     def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
                  window: Optional[int] = None):
         super().__init__()
-        self.norm1 = RMSNorm(p["norm1/scale"])
+        self.norm1 = build_norm(p, "norm1")
         self.attn = SelfAttention(cfg, _sub(p, "attn/"), window=window)
-        self.norm2 = RMSNorm(p["norm2/scale"])
+        self.norm2 = build_norm(p, "norm2")
         self.mlp = _mlp(cfg, p)
 
     def forward(self, x: torch.Tensor, *, pos0: int = 0, mode: str = "train",
@@ -49,11 +55,11 @@ class Block(nn.Module):
 
 class SSMBlock(nn.Module):
     """``x + mixer(norm(x))``. ``p`` holds one layer's tensors keyed as in
-    the reference's block plan: norm/scale, ssm/..."""
+    the reference's block plan: norm/..., ssm/..."""
 
     def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor]):
         super().__init__()
-        self.norm = RMSNorm(p["norm/scale"])
+        self.norm = build_norm(p, "norm")
         self.ssm = SSMMixer(cfg, _sub(p, "ssm/"))
 
     def forward(self, x: torch.Tensor, *, pos0: int = 0, mode: str = "train",
@@ -67,14 +73,14 @@ class SSMBlock(nn.Module):
 
 class RecBlock(nn.Module):
     """``x + rec(norm1(x))``, then ``+ mlp(norm2(x))``. ``p`` holds one
-    layer's tensors keyed as in the reference's block plan: norm1/scale,
-    rec/..., norm2/scale, mlp/..."""
+    layer's tensors keyed as in the reference's block plan: norm1/...,
+    rec/..., norm2/..., mlp/..."""
 
     def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor]):
         super().__init__()
-        self.norm1 = RMSNorm(p["norm1/scale"])
+        self.norm1 = build_norm(p, "norm1")
         self.rec = RecMixer(cfg, _sub(p, "rec/"))
-        self.norm2 = RMSNorm(p["norm2/scale"])
+        self.norm2 = build_norm(p, "norm2")
         self.mlp = _mlp(cfg, p)
 
     def forward(self, x: torch.Tensor, *, pos0: int = 0, mode: str = "train",

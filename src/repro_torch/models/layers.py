@@ -1,9 +1,10 @@
 """Shared primitive layers (port of ``repro.models.layers``): the dense
-projection, RMSNorm, the gated MLP (SwiGLU, GeGLU), rotary embeddings and
-the causal depthwise convolution of the Mamba and RG-LRU mixers."""
+projection, RMSNorm and LayerNorm, the gated MLP (SwiGLU, GeGLU) and the
+plain gelu MLP with its biases, rotary embeddings and the causal depthwise
+convolution of the Mamba and RG-LRU mixers."""
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -57,7 +58,9 @@ class Dense(nn.Module):
 # --------------------------------------------------------------------------
 
 def apply_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
-    """RMSNorm in f32, cast back to x's dtype."""
+    """RMSNorm over the last dim in f32, cast back to x's dtype. Over a
+    head's trailing head_dim it is the reference's ``rms_norm_headwise``
+    (qwen3's q and k norms): the same formula."""
     xf = x.to(torch.float32)
     ms = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + eps) * scale.to(torch.float32)
@@ -73,6 +76,33 @@ class RMSNorm(nn.Module):
         return apply_norm(x, self.scale)
 
 
+class LayerNorm(nn.Module):
+    """LayerNorm in f32 as the reference computes it (the mean, then the
+    mean square of the centred values; its eps of 1e-6 for every model),
+    cast back to x's dtype."""
+
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.scale = nn.Parameter(scale, requires_grad=False)
+        self.bias = nn.Parameter(bias, requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-6)
+        y = y * self.scale.to(torch.float32) + self.bias.to(torch.float32)
+        return y.to(x.dtype)
+
+
+def build_norm(p: Dict[str, torch.Tensor], prefix: str) -> nn.Module:
+    """The norm whose leaves are ``<prefix>/scale`` and, for a layernorm,
+    ``<prefix>/bias``: as in the reference, the bias leaf tells them apart."""
+    bias = p.get(f"{prefix}/bias")
+    scale = p[f"{prefix}/scale"]
+    return RMSNorm(scale) if bias is None else LayerNorm(scale, bias)
+
+
 # --------------------------------------------------------------------------
 # MLP
 # --------------------------------------------------------------------------
@@ -86,19 +116,38 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 _GATE_ACTS = {"swiglu": F.silu, "geglu": gelu}
 
 
+def _bias(b: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
+    return None if b is None else nn.Parameter(b, requires_grad=False)
+
+
 class MLP(nn.Module):
     """Gated MLP: w_down(act(w_gate(x)) * w_up(x)), act = SiLU (SwiGLU) or
-    tanh GeLU (GeGLU)."""
+    tanh GeLU (GeGLU); or, for ``act="gelu"`` (no w_gate), the plain MLP
+    w_down(gelu(w_up(x) + b_up)). ``b_down`` is added after w_down where
+    given. As in the reference, ``b_up`` enters the plain MLP only."""
 
-    def __init__(self, w_gate, w_up, w_down, act: str = "swiglu"):
+    def __init__(self, w_gate, w_up, w_down, act: str = "swiglu",
+                 b_up: Optional[torch.Tensor] = None, b_down: Optional[torch.Tensor] = None):
         super().__init__()
-        if act not in _GATE_ACTS:
-            raise ValueError(f"MLP: act {act!r} not in {sorted(_GATE_ACTS)}")
-        self.act = _GATE_ACTS[act]
-        self.w_gate, self.w_up, self.w_down = Dense(w_gate), Dense(w_up), Dense(w_down)
+        if act not in _GATE_ACTS and act != "gelu":
+            raise ValueError(f"MLP: act {act!r} not in {sorted(_GATE_ACTS) + ['gelu']}")
+        if (w_gate is None) != (act == "gelu"):
+            raise ValueError(f"MLP: act {act!r} {'takes no' if act == 'gelu' else 'needs a'} w_gate")
+        self.act = _GATE_ACTS.get(act, gelu)
+        self.w_gate = None if w_gate is None else Dense(w_gate)
+        self.w_up, self.w_down = Dense(w_up), Dense(w_down)
+        self.b_up, self.b_down = _bias(b_up), _bias(b_down)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_down(self.act(self.w_gate(x)) * self.w_up(x))
+        if self.w_gate is not None:
+            h = self.act(self.w_gate(x)) * self.w_up(x)
+        else:
+            h = self.w_up(x)
+            if self.b_up is not None:
+                h = h + self.b_up
+            h = self.act(h)
+        y = self.w_down(h)
+        return y if self.b_down is None else y + self.b_down
 
 
 # --------------------------------------------------------------------------

@@ -38,7 +38,7 @@ def _ssm_block_plan(cfg: ModelConfig) -> Dict[str, P]:
     d, di = cfg.d_model, cfg.d_inner
     n, r, k = cfg.ssm_state, cfg.resolved_dt_rank, cfg.ssm_conv
     return {
-        "norm/scale": P((d,), "ones"),
+        **_norm_plan(cfg, "norm"),
         "ssm/in_proj": P((d, 2 * di)),
         "ssm/conv_w": P((k, di), "normal", 0.1),
         "ssm/conv_b": P((di,), "zeros"),
@@ -55,7 +55,7 @@ def _rec_block_plan(cfg: ModelConfig) -> Dict[str, P]:
     """RG-LRU block leaves with the reference's inits (``plan_rec``)."""
     d, w, k = cfg.d_model, cfg.resolved_lru_width, cfg.ssm_conv
     return {
-        "norm1/scale": P((d,), "ones"),
+        **_norm_plan(cfg, "norm1"),
         "rec/w_gate_branch": P((d, w)),
         "rec/w_rec_branch": P((d, w)),
         "rec/conv_w": P((k, w), "normal", 0.1),
@@ -66,15 +66,30 @@ def _rec_block_plan(cfg: ModelConfig) -> Dict[str, P]:
         "rec/b_x": P((w,), "zeros"),
         "rec/lam": P((w,), "lru_lam", dtype="float32"),
         "rec/w_out": P((w, d)),
-        "norm2/scale": P((d,), "ones"),
+        **_norm_plan(cfg, "norm2"),
         **_mlp_plan(cfg),
     }
 
 
-def _mlp_plan(cfg: ModelConfig) -> Dict[str, P]:
-    """The gated MLP's leaves (SwiGLU and GeGLU have the same)."""
+def _norm_plan(cfg: ModelConfig, name: str) -> Dict[str, P]:
+    """A norm's leaves (``plan_norm``): scale, and a bias for a layernorm."""
+    plan = {f"{name}/scale": P((cfg.d_model,), "ones")}
+    if cfg.norm == "layernorm":
+        plan[f"{name}/bias"] = P((cfg.d_model,), "zeros")
+    return plan
+
+
+def _mlp_plan(cfg: ModelConfig, bias: bool = False) -> Dict[str, P]:
+    """The MLP's leaves (``plan_mlp``): w_gate and w_up for SwiGLU and
+    GeGLU, w_up alone for the plain gelu MLP; b_up and b_down with
+    ``bias``."""
     d, f = cfg.d_model, cfg.d_ff
-    return {"mlp/w_gate": P((d, f)), "mlp/w_up": P((d, f)), "mlp/w_down": P((f, d))}
+    plan = {"mlp/w_up": P((d, f)), "mlp/w_down": P((f, d))}
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        plan["mlp/w_gate"] = P((d, f))
+    if bias:
+        plan.update({"mlp/b_up": P((f,), "zeros"), "mlp/b_down": P((d,), "zeros")})
+    return plan
 
 
 def _block_plan(cfg: ModelConfig, kind: str) -> Dict[str, P]:
@@ -85,25 +100,30 @@ def _block_plan(cfg: ModelConfig, kind: str) -> Dict[str, P]:
     d, Dh = cfg.d_model, cfg.resolved_head_dim
     H, HK = cfg.n_heads, cfg.n_kv_heads
     plan = {
-        "norm1/scale": P((d,), "ones"),
+        **_norm_plan(cfg, "norm1"),
         "attn/wq": P((d, H * Dh)),
         "attn/wk": P((d, HK * Dh)),
         "attn/wv": P((d, HK * Dh)),
         "attn/wo": P((H * Dh, d)),
-        "norm2/scale": P((d,), "ones"),
-        **_mlp_plan(cfg),
+        **_norm_plan(cfg, "norm2"),
+        # the reference's MLP biases ride along with the attention's
+        **_mlp_plan(cfg, bias=cfg.attn_bias),
     }
     if cfg.qkv_bias:
         plan.update({"attn/bq": P((H * Dh,), "zeros"),
                      "attn/bk": P((HK * Dh,), "zeros"),
                      "attn/bv": P((HK * Dh,), "zeros")})
+    if cfg.attn_bias:
+        plan["attn/bo"] = P((d,), "zeros")
+    if cfg.qk_norm:
+        plan.update({"attn/q_norm": P((Dh,), "ones"), "attn/k_norm": P((Dh,), "ones")})
     return plan
 
 
 def plan_model(cfg: ModelConfig) -> Dict[str, P]:
     """{leaf path: P}, in the JAX package's (sorted) flattening order."""
     plan = {"tok_embed": P((cfg.vocab_size, cfg.d_model), "normal", 0.01),
-            "final_norm/scale": P((cfg.d_model,), "ones")}
+            **_norm_plan(cfg, "final_norm")}
     if not cfg.tie_embeddings:
         plan["lm_head"] = P((cfg.d_model, cfg.vocab_size))
     for s in stack_defs(cfg):
@@ -162,9 +182,9 @@ def materialize(plan: Mapping[str, P], generator: torch.Generator,
 def init(cfg: ModelConfig, generator: torch.Generator,
          device: DeviceLike = None) -> CausalLM:
     """A model with the reference's init distributions (fan-in normal for
-    matrices, std 0.01 normal for ``tok_embed``, ones for norm scales,
-    zeros for biases; the ssm and rec leaves as ``_ssm_block_plan`` and
-    ``_rec_block_plan`` say), drawn
+    matrices, std 0.01 normal for ``tok_embed``, ones for norm scales and
+    qwen3's q/k norms, zeros for biases; the ssm and rec leaves as
+    ``_ssm_block_plan`` and ``_rec_block_plan`` say), drawn
     from ``generator`` leaf by leaf in plan order.
     ``generator`` must live on ``device``. torch draws other numbers than
     JAX's threefry: weights cross between the packages through .npz files."""
@@ -199,7 +219,8 @@ def export_params(model: CausalLM) -> Dict[str, np.ndarray]:
     """The reverse of ``load_jax_params``: the model's float parameters as
     the JAX package's flat {leaf path: ndarray}, steps stacked on dim 0."""
     cfg = model.cfg
-    flat = {"tok_embed": model.tok_embed, "final_norm/scale": model.final_norm.scale}
+    flat = {"tok_embed": model.tok_embed,
+            **{f"final_norm/{n}": t for n, t in model.final_norm.named_parameters()}}
     if model.lm_head is not None:
         flat["lm_head"] = model.lm_head.w
         if not isinstance(flat["lm_head"], torch.Tensor):
