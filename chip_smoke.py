@@ -129,6 +129,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    SimResult equals the CPU's (tables on the CPU, ``AnalyticalBackend``)
    bit for bit. When no policy picks w8, the w8 version at greedy_oracle's
    cut runs as a fourth policy, so quant_matmul runs for every model.
+3h. The simulate CLI with no --scenario (``launch.simulate.main``, CLI_ARGV):
+   the ad-hoc tpu world of 2 devices over mixtral-8x22b (400 requests,
+   device_only and greedy_oracle, seed 0), its tables on the card and the
+   sampled requests executed through reduced mixtral on the card: act
+   bytes at the cut exact, launches those of the executed infers; the same
+   argv with ``--device cpu`` gives every summary number identically.
 3b. Decode serving: ``ServingEngine`` generates 64 tokens greedily for
    8 x 512-token prompts (cache_len 576), 24 flash_attention launches per
    prefill and 24 flash_decode launches per decode step; one more generate
@@ -196,6 +202,19 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    64-256 tokens in 8 slots), and card against CPU at full width and depth
    2 (split logits per version at cut 1, then 8 decode steps). Each
    phase's seconds are printed.
+9d. mixtral-8x22b through the same phases at its published widths (d_model
+   6144, 48/8 heads of 128, 8 experts of d_ff 16,384, top-2, capacity
+   factor 1.25, window 4096, untied head of 32,768), its depth cut to 4 of
+   56 layers (10,418,903,040 parameters, 41.7 GB f32): split 1 x 2048 at
+   cuts 1, 2, 4 (two 1024-token MoE chunks, C = 320; 4 flash_attention an
+   infer, 17 quant_matmul a w8 infer: w8 leaves the experts whole), the
+   share of (token, slot) pairs the first layer drops, one torch.profiler
+   pass a version (expert GEMMs, dispatch and combine einsums, projections,
+   flash_fwd, qmm); decode 1 x 4608 + 33 (one chunk, C = 1440, rings of
+   4096 wrapped) and a scheduler of 4 requests in 4 slots; the
+   teacher-forced check on the same weights at the non-dropping capacity
+   n_experts / top_k (at 1.25 the prefill drops and a decode step never
+   does); card against CPU at depth 1 over 64 tokens.
 7. Timing: each kernel at the main path's shapes beside its plain version,
    one PyTorch library call for the same function where there is one, and
    its bound; flash_attention and flash_decode also at recurrentgemma's
@@ -214,7 +233,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    flash_attention at qwen3's split path (8 x 16/8 x 512) and starcoder2's
    4608-token prefill under its 4096 window, flash_decode at starcoder2's
    decode step (G = 12 over a wrapped 4096-slot ring, 30 layers in turn),
-   quant_matmul at phi3's w8 layer and head (M = 1024).
+   quant_matmul at phi3's w8 layer and head (M = 1024). At mixtral-8x22b's
+   shapes: flash_attention at its split path (1 x 48/8 x 2048, G = 6) and
+   its 4608-token prefill under the 4096 window, flash_decode at its decode
+   step (G = 6, a wrapped 4096-slot ring, 4 layers in turn), quant_matmul
+   at its attention's four projections and its head (M = 2048).
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -223,6 +246,7 @@ every phase passed. Any failure exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -406,12 +430,24 @@ FAMILIES = {
                           srv=None, params=3_181_366_272),
     "phi3-medium-14b": dict(label="9c", split=(2, 512), cuts=(1, 20, 40), decode=(2, 512, 32),
                             srv=None, params=14_659_507_200),
+    # the published widths at 4 of 56 layers (41.7 GB of f32; all 56 are
+    # 562.5 GB); the split path's 2048 tokens run as two 1024-token MoE
+    # chunks, the 4608-token decode prompt as one (4608 % 1024 != 0), past
+    # the 4096 window; the card-CPU comparison at depth 1 (11.6 GB of f32 on
+    # the host) over 64 tokens
+    "mixtral-8x22b": dict(label="9d", split=(1, 2048), cuts=(1, 2, 4), decode=(1, 4608, 33),
+                          srv=(4, 4, 256, (64, 200), (8, 16)), params=10_418_903_040,
+                          layers=4, cpu_layers=1, cpu_seq=64),
 }
 # teacher-forced decode against forward on the card: the same f32 function
 # through the prefill's kernel and the decode step; the CPU comparison's
-# depth and decode steps
+# depth (unless the family names its own) and decode steps
 FAM_TF_STEPS, FAM_DECODE_TOL = 8, 1e-3
 FAM_CPU_LAYERS, FAM_CPU_STEPS = 2, 8
+# the simulate CLI on the card (phase 3h): no --scenario, the ad-hoc tpu
+# world over mixtral-8x22b, executed through its reduced model
+CLI_ARGV = ("--env", "tpu", "--arch", "mixtral-8x22b", "--execute", "--devices", "2",
+            "--requests", "400", "--compare", "device_only,greedy_oracle", "--seeds", "0")
 # the mixed fleet (phase 3g): three dense archs, device i serving model i
 # (rotated so that each model takes its turn on device 0, whose request is
 # the one an epoch executes), sampled requests a run
@@ -420,12 +456,18 @@ FA_PATHS = ((BATCH, 14, 2, SEQ, 64, None), (RG_SPLIT_BATCH, 10, 1, RG_SPLIT_SEQ,
             (RG_BATCH, 10, 1, RG_SEQ, 256, 2048),
             # qwen3-0.6b's split path (GQA 16/8 at head_dim 128), starcoder2-3b's
             # decode prefill (24/2, 4608 positions under its 4096 window)
-            (8, 16, 8, 512, 128, None), (1, 24, 2, 4608, 128, 4096))
+            (8, 16, 8, 512, 128, None), (1, 24, 2, 4608, 128, 4096),
+            # mixtral-8x22b's split path (48/8 heads, G = 6, 2048 tokens in its
+            # 4096 window) and its decode prefill (4608 positions past it)
+            (1, 48, 8, 2048, 128, 4096), (1, 48, 8, 4608, 128, 4096))
 FD_PATHS = ((BATCH, 14, 2, DEC_CACHE, 64, 24, DEC_CACHE - 1, None),
             (RG_BATCH, 10, 1, 2048, 256, RG_ATTN, RG_SEQ + 100, 2048),
             # starcoder2-3b's decode step: G = 12, one 4096-slot ring wrapped,
             # 30 layers
-            (1, 24, 2, 4096, 128, 30, 4608 + 16, 4096))
+            (1, 24, 2, 4096, 128, 30, 4608 + 16, 4096),
+            # mixtral-8x22b's decode step: G = 6, a wrapped 4096-slot ring, the
+            # 4 layers it serves
+            (1, 48, 8, 4096, 128, 4, 4608 + 16, 4096))
 
 failures = []
 
@@ -2370,9 +2412,11 @@ def phase_rg_card_vs_cpu(dev, cfg, model, batch):
 def _w8_qmm(cfg):
     """quant_matmul launches a w8 infer, prefill or decode step of a
     single-stack model: q, k, v, o and the MLP's projections (three gated,
-    two plain gelu) in every dense layer, none in a Mamba layer, and an
+    two plain gelu) in every dense layer, q, k, v and o alone in an MoE
+    layer (w8 leaves the experts whole), none in a Mamba layer, and an
     untied head."""
-    per_layer = 0 if cfg.ssm else 4 + (2 if cfg.mlp_act == "gelu" else 3)
+    mlp = 0 if cfg.moe else 2 if cfg.mlp_act == "gelu" else 3
+    per_layer = 0 if cfg.ssm else 4 + mlp
     return per_layer * cfg.n_layers + (not cfg.tie_embeddings)
 
 
@@ -2398,11 +2442,83 @@ def _free():
     torch.cuda.empty_cache()
 
 
+def _first_moe_drops(cfg, model, run):
+    """The share of routed (token, slot) pairs that the capacity drops in
+    the first MoE layer while ``run()`` runs the model, by the port's own
+    ``_route`` on that layer's input, chunked as ``MoE.forward`` chunks it;
+    and ``run()``'s result."""
+    import torch
+    from repro_torch.models.moe import MOE_CHUNK, _route
+    moe = model.stacks["main"][0].blk.moe
+    seen = []
+    hook = moe.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+    try:
+        out = run()
+    finally:
+        hook.remove()
+    x = seen[0]
+    chunk = min(cfg.moe_chunk or MOE_CHUNK, x.shape[1])
+    chunk = chunk if x.shape[1] % chunk == 0 else x.shape[1]
+    keep = torch.cat([_route(cfg, moe.router, xc)[3] for xc in x.split(chunk, dim=1)], dim=1)
+    return 1.0 - keep.float().mean().item(), int((~keep).sum()), keep.numel(), out
+
+
+def _profile_moe_infer(cfg, fn, what):
+    """One MoE infer under torch.profiler: device busy and idle share, and
+    the device time of the expert GEMMs (bmm over the experts' stacked
+    weights), the dispatch and combine einsums (every other bmm), the dense
+    projections and head (mm), flash_fwd (flash_attention) and qmm_*
+    (quant_matmul); the kernels by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e, total=False):
+        names = (("device_time_total", "cuda_time_total") if total
+                 else ("self_device_time_total", "self_cuda_time_total"))
+        return next((getattr(e, n) for n in names if getattr(e, n, None)), 0.0)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    ms = {"expert GEMMs (bmm)": 0.0, "dispatch and combine einsums (bmm)": 0.0,
+          "dense projections and head (mm)": 0.0, "flash_fwd": 0.0, "qmm (quant_matmul)": 0.0}
+    for e in prof.key_averages(group_by_input_shape=True):
+        shapes = [list(sh) for sh in e.input_shapes if isinstance(sh, (list, tuple))]
+        if e.key == "aten::bmm":
+            expert = any(sh in ([E, d, f], [E, f, d]) for sh in shapes)
+            ms["expert GEMMs (bmm)" if expert else "dispatch and combine einsums (bmm)"] += \
+                dev_us(e, total=True) / 1e3
+        elif e.key in ("aten::mm", "aten::addmm"):
+            ms["dense projections and head (mm)"] += dev_us(e, total=True) / 1e3
+    for e in kernels:           # "void (anonymous namespace)::flash_fwd<float, 128>(...)"
+        if "::flash_fwd<" in e.key:
+            ms["flash_fwd"] += dev_us(e) / 1e3
+        elif "::qmm_" in e.key:
+            ms["qmm (quant_matmul)"] += dev_us(e) / 1e3
+    ms["other"] = busy - sum(ms.values())
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    print(f"  profile of one {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms (idle "
+          f"{1 - busy / wall:.1%}); by operator: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items()))
+    for e in top:
+        print(f"    {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    return {"wall_ms": wall, "device_busy_ms": busy, "by_operator_ms": ms}
+
+
 def phase_family_split(dev, arch, label):
-    """A single-stack family at full width and depth through
-    SplitServingEngine: every version at three cuts, each version's model
-    built only while it serves (phi3-medium-14b's f32 model and its w8 copy
-    fit the card together, all three versions do not)."""
+    """A single-stack family at full width and depth (or the depth its spec
+    serves) through SplitServingEngine: every version at three cuts, each
+    version's model built only while it serves (phi3-medium-14b's f32 model
+    and its w8 copy fit the card together, all three versions do not). An
+    MoE family also prints the share of (token, slot) pairs its first layer
+    drops and one profiled infer a version."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.partition import cut_activation_bytes, split_forward
@@ -2411,10 +2527,14 @@ def phase_family_split(dev, arch, label):
     spec = FAMILIES[arch]
     B, S = spec["split"]
     cuts = tuple(("main", c) for c in spec["cuts"])
-    print(f"== {label}. {arch}: full width and depth through SplitServingEngine, {B} x {S} "
+    cfg = get_config(arch)
+    depth = "full depth"
+    if "layers" in spec:
+        depth = f"depth cut to {spec['layers']} of {cfg.n_layers} layers"
+        cfg = cfg.with_overrides(n_layers=spec["layers"])
+    print(f"== {label}. {arch}: full width, {depth}, through SplitServingEngine, {B} x {S} "
           f"tokens")
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -2427,6 +2547,10 @@ def phase_family_split(dev, arch, label):
              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff} "
              f"{cfg.mlp_act}, {cfg.norm}, qk_norm {cfg.qk_norm}, qkv_bias {cfg.qkv_bias}, "
              f"attn_bias {cfg.attn_bias}, window {cfg.sliding_window}")
+    if cfg.moe:
+        shape += (f", {cfg.n_experts} experts of d_ff {cfg.moe_d_ff} top-{cfg.top_k}, "
+                  f"capacity factor {cfg.capacity_factor}, {cfg.moe_impl} dispatch in chunks "
+                  f"of {cfg.moe_chunk}")
     check(n_params == spec["params"],
           f"init {cfg.name}: {L} layers, d_model {cfg.d_model}, {shape}, vocab "
           f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, {n_params} params (want "
@@ -2436,7 +2560,7 @@ def phase_family_split(dev, arch, label):
     reps = 3
     link = cut_activation_bytes(cfg, (B, S))
     link_w8 = B * S * (cfg.d_model + 4)
-    times, launches = {}, _launches()
+    times, launches, profiles = {}, _launches(), {}
     for version in VERSIONS:
         eng = SplitServingEngine(cfg, model, versions=(version,))
         eng.infer(batch, cuts[1], version)       # builds the version's model, warms up
@@ -2458,6 +2582,11 @@ def phase_family_split(dev, arch, label):
                   f"logits {tuple(logits.shape)} finite={finite}")
             del logits
         launches = {k: launches[k] + v for k, v in _counts().items()}
+        if cfg.moe:
+            with torch.inference_mode():
+                profiles[version] = _profile_moe_infer(
+                    cfg, lambda: eng.infer(batch, cuts[1], version),
+                    f"{version} infer at cut {cuts[1][1]}")
         print(f"  peak device memory with the {version} model: "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         del eng
@@ -2468,7 +2597,14 @@ def phase_family_split(dev, arch, label):
           f"launch counts over the {arch} split path run ({L} {pre} an infer, {qmm} "
           f"quant_matmul a w8 infer)")
     with torch.inference_mode():
-        full = forward_logits(cfg, model, batch)
+        if cfg.moe:
+            share, n_drop, n_pairs, full = _first_moe_drops(
+                cfg, model, lambda: forward_logits(cfg, model, batch))
+            print(f"  capacity drops in the first MoE layer of the split batch: {n_drop} of "
+                  f"{n_pairs} routed (token, slot) pairs, share {share:.6f}")
+            profiles["dropped_share"] = share
+        else:
+            full = forward_logits(cfg, model, batch)
         split = split_forward(cfg, model, batch, cuts[1])
     err = (full - split).abs().max().item()
     check(torch.allclose(split, full, rtol=2e-4, atol=2e-4),
@@ -2477,7 +2613,7 @@ def phase_family_split(dev, arch, label):
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"  peak device memory of the split path: {peak / 2**30:.2f} GiB ({peak} bytes); "
           f"phase {time.perf_counter() - t_phase:.1f} s")
-    return cfg, model, launches, times, peak
+    return cfg, model, launches, times, peak, profiles
 
 
 def phase_family_decode(dev, cfg, model, label):
@@ -2546,9 +2682,19 @@ def phase_family_decode(dev, cfg, model, label):
         timing.update(scheduler_s=srv_s, scheduler_tokens_per_s=n_tok / srv_s)
     launches = _counts()                 # the generate and scheduler runs only
 
-    # teacher-forced decode against the forward pass that ran the kernels
+    # teacher-forced decode against the forward pass that ran the kernels;
+    # for an MoE model on the same weights at the capacity that drops
+    # nothing: at its own capacity the prefill drops pairs and a one-token
+    # decode step (C >= top_k) never does, so the two differ by design
     full_toks = torch.cat([batch["tokens"], toks[:, :FAM_TF_STEPS]], dim=1)
-    with torch.inference_mode():
+    nd, tf_note = contextlib.nullcontext(), ""
+    if cfg.moe:
+        factor = cfg.n_experts / cfg.top_k
+        nd = _moe_capacity(model, factor)
+        tf_note = (f" (on the same weights at capacity factor n_experts / top_k = {factor}, "
+                   f"the rule of .reduced(): no pair dropped; at {cfg.capacity_factor} the "
+                   f"prefill drops and a decode step never does)")
+    with torch.inference_mode(), nd:
         want = forward_logits(cfg, model, {"tokens": full_toks})
         lg, cache = prefill(cfg, model, batch, total_len=S + FAM_TF_STEPS)
         k = cache["main"]["blk"].get("k")
@@ -2561,38 +2707,64 @@ def phase_family_decode(dev, cfg, model, label):
     slots = min(S + FAM_TF_STEPS, cfg.sliding_window or S + FAM_TF_STEPS)
     check(max(errs) <= FAM_DECODE_TOL and (ring is None or ring[2] == slots),
           f"prefill + {FAM_TF_STEPS} teacher-forced decode steps against forward_logits on "
-          f"the card: max_abs_err {max(errs):.3g} (tol {FAM_DECODE_TOL}), per step "
+          f"the card{tf_note}: max_abs_err {max(errs):.3g} (tol {FAM_DECODE_TOL}), per step "
           f"{[float(f'{e:.3g}') for e in errs]}; rings {ring}")
 
     pre_ms, _ = _median_ms(lambda: torch.inference_mode()(prefill)(cfg, model, batch), 3)
     gen, pre_med = statistics.median(gen_ms), statistics.median(pre_ms)
-    timing.update(generate_ms=gen_ms, prefill_ms=pre_ms, per_token_ms=(gen - pre_med) / steps)
+    timing.update(generate_ms=gen_ms, prefill_ms=pre_ms, per_token_ms=(gen - pre_med) / steps,
+                  peak_bytes=torch.cuda.max_memory_allocated(dev))
     print(f"  {cfg.name} decode: generate {gen:.1f} ms, prefill {pre_med:.1f} ms, per token "
-          f"(generate - prefill) / {steps} = {timing['per_token_ms']:.3f} ms; phase "
-          f"{time.perf_counter() - t_phase:.1f} s")
+          f"(generate - prefill) / {steps} = {timing['per_token_ms']:.3f} ms; peak device "
+          f"memory of the split and decode phases {timing['peak_bytes'] / 2**30:.2f} GiB; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
     return batch, launches, timing
 
 
+def _moe_capacity(model, factor):
+    """A context in which every MoE layer of ``model`` routes at capacity
+    factor ``factor``: the same weights under another config."""
+    from repro_torch.models.moe import MoE
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+
+    @contextlib.contextmanager
+    def swap():
+        cfgs = [m.cfg for m in moes]
+        for m in moes:
+            m.cfg = m.cfg.with_overrides(capacity_factor=factor)
+        try:
+            yield
+        finally:
+            for m, c in zip(moes, cfgs):
+                m.cfg = c
+    return swap()
+
+
 def phase_family_card_vs_cpu(dev, cfg, model, batch, label):
-    """Full width at depth FAM_CPU_LAYERS: the card model's embedding, head,
-    final norm and first layers, on both devices."""
+    """Full width at depth FAM_CPU_LAYERS (or the family's own): the card
+    model's embedding, head, final norm and first layers, on both devices.
+    The CPU model takes over the exported arrays, so the host holds that
+    depth's weights once."""
     import copy
+    import torch
     from torch import nn
-    from repro_torch.models import export_params, load_jax_params
+    from repro_torch.models import CausalLM, export_params, load_jax_params
     from repro_torch.serving import SplitServingEngine
-    small = cfg.with_overrides(n_layers=FAM_CPU_LAYERS)
-    print(f"== {label}. {cfg.name} card against CPU: full width, {FAM_CPU_LAYERS} layers, 1 x "
-          f"{CPU_SEQ} tokens per version at cut 1, then {FAM_CPU_STEPS} decode steps")
+    spec = FAMILIES[cfg.name]
+    layers, seq = spec.get("cpu_layers", FAM_CPU_LAYERS), spec.get("cpu_seq", CPU_SEQ)
+    small = cfg.with_overrides(n_layers=layers)
+    print(f"== {label}. {cfg.name} card against CPU: full width, {layers} layer(s), 1 x "
+          f"{seq} tokens per version at cut 1, then {FAM_CPU_STEPS} decode steps")
     t0 = time.perf_counter()
     head = copy.copy(model)              # shares every tensor of the card model
     head._modules = dict(model._modules)
-    head.stacks = nn.ModuleDict({"main": model.stacks["main"][:FAM_CPU_LAYERS]})
+    head.stacks = nn.ModuleDict({"main": model.stacks["main"][:layers]})
     head.cfg = small
     flat = export_params(head)
     del head
-    card, cpu = load_jax_params(small, flat, device=dev), load_jax_params(small, flat, device="cpu")
-    del flat
-    one = {"tokens": batch["tokens"][:1, :CPU_SEQ]}
+    card = load_jax_params(small, flat, device=dev)
+    cpu = CausalLM(small, {k: torch.from_numpy(flat.pop(k)) for k in sorted(flat)})
+    one = {"tokens": batch["tokens"][:1, :seq]}
     compare_split_card_cpu(SplitServingEngine(small, card, versions=VERSIONS),
                            SplitServingEngine(small, cpu, versions=VERSIONS, device="cpu"),
                            one, ("main", 1))
@@ -2605,7 +2777,7 @@ def phase_family(dev, arch):
     and card-CPU comparison; its model is freed at the end."""
     label = FAMILIES[arch]["label"]
     t0 = time.perf_counter()
-    cfg, model, split_launches, times, peak = phase_family_split(dev, arch, label)
+    cfg, model, split_launches, times, peak, profiles = phase_family_split(dev, arch, label)
     batch, dec_launches, dec_timing = phase_family_decode(dev, cfg, model, label + " decode")
     phase_family_card_vs_cpu(dev, cfg, model, batch, label + " card vs CPU")
     del model, batch
@@ -2613,7 +2785,7 @@ def phase_family(dev, arch):
     seconds = time.perf_counter() - t0
     print(f"  phase {label} ({arch}) in all: {seconds:.1f} s")
     return {"split": split_launches, "decode": dec_launches, "times": times, "peak": peak,
-            "decode_timing": dec_timing, "seconds": seconds}
+            "decode_timing": dec_timing, "seconds": seconds, "profiles": profiles}
 
 
 def phase_mixed_fleet(dev, q2_cfg, q2_eng, smi):
@@ -2728,13 +2900,54 @@ def phase_mixed_fleet(dev, q2_cfg, q2_eng, smi):
     return launches, timing
 
 
+def phase_cli(dev, smi):
+    """3h. The simulate CLI with no --scenario (CLI_ARGV): the ad-hoc tpu
+    world over mixtral-8x22b, its tables built on the card and the sampled
+    requests executed through reduced mixtral on the card; then the same
+    argv with ``--device cpu``. The act bytes at the cut exact, the launches
+    those of the executed infers, every SimResult number card = CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import simulate as cli
+    print(f"== 3h. the simulate CLI without --scenario on the card: {' '.join(CLI_ARGV)}; "
+          f"then with --device cpu")
+    t0 = time.perf_counter()
+    _reset_counts()
+    card = cli.main([*CLI_ARGV, "--quiet"])
+    launches = _counts()
+    card_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    cpu = cli.main([*CLI_ARGV, "--quiet", "--device", "cpu"])
+    cpu_s = time.perf_counter() - t1
+    small = get_config(CLI_ARGV[CLI_ARGV.index("--arch") + 1]).reduced()
+    for name, r in card.results.items():
+        c = cpu.results[name]
+        check(r.per_seed == c.per_seed and r.mean == c.mean,
+              f"{name}: {r.mean['requests']:.0f} requests, slo_attainment "
+              f"{r.mean['slo_attainment']:.4f}, energy/request "
+              f"{r.mean['energy_per_request_j']:.6g} J; every summary number card = CPU")
+    cc, cpu_cc = card.results["greedy_oracle"].cross_check, cpu.results["greedy_oracle"].cross_check
+    recs = cc["records"] if cc else []
+    want = _launches(flash_attention=2 * small.n_layers * len(recs),
+                     quant_matmul=sum(2 * _w8_qmm(small) for r in recs if r["version"] == "w8"))
+    check(bool(recs) and cc["bytes_exact"] and all(r["logits_finite"] for r in recs)
+          and cpu_cc is not None and cpu_cc["bytes_exact"]
+          and cpu_cc["samples"] == cc["samples"] and launches == want,
+          f"execute cross-check through reduced {small.name} on the card: {len(recs)} samples "
+          f"{[(r['version'], r['cut'][1], r['measured_bytes'], r['expected_bytes']) for r in recs]}"
+          f", act bytes exact; the CPU run's {cpu_cc and cpu_cc['samples']} samples exact too; "
+          f"launches {launches} (2 infers a sample)")
+    timing = {"card_s": card_s, "cpu_s": cpu_s, "samples": len(recs), "card": smi}
+    print(f"  CLI phase: card {card_s:.1f} s, CPU {cpu_s:.1f} s")
+    return launches, timing
+
+
 def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
     import torch
     print("== 7. kernel timing at the main path's shapes (CUDA events)")
     g = torch.Generator(device=dev).manual_seed(3)
     qmm_row = time_quant_matmul(dev, g, qmm_err, launches)
 
-    fa_main, fa_split, fa_prefill, fa_qwen3, fa_sc2 = FA_PATHS
+    fa_main, fa_split, fa_prefill, fa_qwen3, fa_sc2, fa_mix, fa_mix_prefill = FA_PATHS
     fa_row = time_attention(dev, g, *fa_main, "")
     fa_row.update(_d256(time_attention(dev, g, *fa_split, f" ({RG_ARCH} split path)")))
     fa_row.update(_prefixed("prefill_", time_attention(dev, g, *fa_prefill,
@@ -2743,11 +2956,17 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
                                                      " (qwen3-0.6b split path)")))
     fa_row.update(_prefixed("sc2_", time_attention(dev, g, *fa_sc2,
                                                    " (starcoder2-3b decode prefill)")))
-    fd_main, fd_rg, fd_sc2 = FD_PATHS
+    fa_row.update(_prefixed("mix_", time_attention(dev, g, *fa_mix,
+                                                   " (mixtral-8x22b split path)")))
+    fa_row.update(_prefixed("mix_prefill_", time_attention(dev, g, *fa_mix_prefill,
+                                                           " (mixtral-8x22b decode prefill)")))
+    fd_main, fd_rg, fd_sc2, fd_mix = FD_PATHS
     fd_row = time_decode(dev, g, *fd_main, "")
     fd_row.update(_d256(time_decode(dev, g, *fd_rg, f" ({RG_ARCH} decode path)")))
     fd_row.update(_prefixed("sc2_", time_decode(dev, g, *fd_sc2,
                                                 " (starcoder2-3b decode path)")))
+    fd_row.update(_prefixed("mix_", time_decode(dev, g, *fd_mix,
+                                                " (mixtral-8x22b decode path)")))
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -2767,7 +2986,7 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
               f"library_ms={kern['library_ms']} bound_ms={kern['bound_ms']:.4f} "
               f"({kern['bound_by']}) [{kern['shape']}]")
         for pre in ("d256_", "prefill_", "cohort_", "decode_", "rg_", "head_", "qwen3_", "sc2_",
-                    "phi3_", "phi3_head_"):
+                    "phi3_", "phi3_head_", "mix_", "mix_prefill_", "mix_head_"):
             if f"{pre}ms" in kern:
                 print(f"  {kern['name']} {pre[:-1]}: ms={kern[pre + 'ms']:.4f} "
                       f"plain_ms={kern[pre + 'plain_ms']:.4f} "
@@ -2775,7 +2994,7 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
                       f"bound_ms={kern[pre + 'bound_ms']:.4f} ({kern[pre + 'bound_by']}) "
                       f"[{kern[pre + 'shape']}]")
         for pre in ("", "d256_", "prefill_", "cohort_", "decode_", "sc2_", "phi3_",
-                    "phi3_head_"):
+                    "phi3_head_", "mix_", "mix_head_"):
             if f"{pre}device_ms" in kern:
                 print(f"  {kern['name']} {pre[:-1] or 'main'} device time (CUDA graph) "
                       f"{kern[pre + 'device_ms']:.4f} ms")
@@ -3016,6 +3235,14 @@ def time_quant_matmul(dev, g, err, launches):
                                             f"{phi3.name} w8 layer, split path", 10)))
     row.update(_prefixed("phi3_head_", _time_qmm(dev, g, m, ((phi3.d_model, phi3.vocab_size),),
                                                  f"{phi3.name} w8 lm_head, split path", 10)))
+    # mixtral's w8 layer is its attention's four projections (the experts
+    # stay f32)
+    mix = get_config("mixtral-8x22b")
+    m = math.prod(FAMILIES[mix.name]["split"])
+    row.update(_prefixed("mix_", _time_qmm(dev, g, m, _dense_layer_shapes(mix)[:4],
+                                           f"{mix.name} w8 layer (attention), split path", 10)))
+    row.update(_prefixed("mix_head_", _time_qmm(dev, g, m, ((mix.d_model, mix.vocab_size),),
+                                                f"{mix.name} w8 lm_head, split path", 10)))
     # the decode step's projections as the model runs them: per-row
     # activation quantization (its launches) and the kernel, the leaves as
     # the model holds them, K-major
@@ -3092,6 +3319,7 @@ def main() -> int:
     cluster_launches, cluster_timing = phase_cluster_loop(dev, smi)
     scan_launches, scan_timing = phase_scan_engine(dev, smi)
     mix_launches, mix_timing = phase_mixed_fleet(dev, cfg, eng, smi)
+    cli_launches, cli_timing = phase_cli(dev, smi)
     dec_launches, dec_timing = phase_decode_serving(cfg, model, batch)
     phase_split_equals_full(cfg, model, batch)
     cpu_model = phase_card_vs_cpu(cfg, model, eng, batch)
@@ -3121,7 +3349,7 @@ def main() -> int:
              "edge-cluster loop": cluster_launches, "megafleet scan": scan_launches,
              f"{cfg.name} decode": dec_launches,
              f"{RG_ARCH} split": rg_launches, f"{RG_ARCH} decode": rg_dec_launches,
-             "mixed fleet": mix_launches}
+             "mixed fleet": mix_launches, "simulate CLI (mixtral-8x22b execute)": cli_launches}
     for arch, d in families.items():
         paths.update({f"{arch} split": d["split"], f"{arch} decode": d["decode"]})
     for kern in kernels:
@@ -3140,12 +3368,15 @@ def main() -> int:
     print(f"{RG_ARCH} decode serving: " + json.dumps(rg_dec_timing))
     print(f"{RG_ARCH} peak device memory: {rg_peak} bytes")
     print("mixed fleet: " + json.dumps(mix_timing))
+    print("simulate CLI: " + json.dumps(cli_timing))
     for arch, d in families.items():
         B, S = FAMILIES[arch]["split"]
         print(f"{arch} per-infer ms (median of 3), {B} x {S} tokens: " + json.dumps(
             {k: statistics.median(v) for k, v in d["times"].items()}))
         print(f"{arch} decode serving: " + json.dumps(d["decode_timing"]))
         print(f"{arch} peak device memory: {d['peak']} bytes; phase {d['seconds']:.1f} s")
+        if d["profiles"]:
+            print(f"{arch} split infer profiles: " + json.dumps(d["profiles"]))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,8 @@
 
 The same ``ModelConfig`` dataclass with every field of the reference, so a
 configuration compares field by field across the two packages. ``pdtype``
-and ``cdtype`` return torch dtypes. The dense, ssm and hybrid families run
-in the port so far (``repro_torch.models.model.check_ported`` raises for
+and ``cdtype`` return torch dtypes. The dense, ssm, hybrid and moe families
+run in the port so far (``repro_torch.models.model.check_ported`` raises for
 the others).
 """
 from __future__ import annotations

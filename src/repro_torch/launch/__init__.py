@@ -1,3 +1,4 @@
-"""Launchers (port in progress): the serving CLI, the closed loop of
-controller and split serving, the fleet simulation CLI, the obs-trace and
+"""Launchers: the serving CLI, the closed loop of controller and split
+serving, the fleet simulation CLI and its markdown renderer, the
+quickstart and fleet-simulation examples, the obs-trace and
 flight-recorder viewers, and the decode profile."""

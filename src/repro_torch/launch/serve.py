@@ -6,6 +6,7 @@ another; random weights from seed 0.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --full
 """
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Trace-driven fleet simulation CLI over the scenario/policy registries
 (port of ``scripts/simulate.py``): run a registered policy roster against
-a named scenario preset and report per-request latency percentiles, SLO
-attainment, goodput and energy. Runs on the CUDA card unless ``--device``
-names another.
+a named scenario preset (or an ad-hoc scenario assembled from flags) and
+report per-request latency percentiles, SLO attainment, goodput and
+energy. Runs on the CUDA card unless ``--device`` names another.
 
     # what's on the menu
     PYTHONPATH=src python -m repro_torch.launch.simulate --list-scenarios
@@ -35,6 +35,13 @@ names another.
     # execution on a reduced transformer, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.simulate --scenario tpu-execute --device cpu
 
+    # no --scenario: flags assemble a custom scenario (the reference's
+    # legacy behavior; default roster a2c)
+    PYTHONPATH=src python -m repro_torch.launch.simulate --trace diurnal --devices 8 \
+        --requests 100000
+    PYTHONPATH=src python -m repro_torch.launch.simulate --env tpu --arch mixtral-8x22b \
+        --execute --devices 2 --requests 400 --compare device_only,greedy_oracle --device cpu
+
     # heterogeneous edge-server pool: learned (version, cut, server)
     # routing against the classic routers (repro_torch.cluster)
     PYTHONPATH=src python -m repro_torch.launch.simulate --scenario edge-cluster
@@ -58,34 +65,51 @@ names another.
     PYTHONPATH=src python -m repro_torch.launch.simulate --scenario diurnal-fleet \
         --compare device_only --timeline-out - | PYTHONPATH=src python -m \
         repro_torch.launch.fleetview -
-
-The reference script's ad-hoc-scenario flags wait for the rest of the
-CLI, and are refused naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import sys
 
+import numpy as np
+
 from repro_torch import obs
+from repro_torch.core import RewardWeights
 from repro_torch.policies import get_policy_spec
-from repro_torch.scenarios import (get_scenario, run_scenario, scenario_names,
+from repro_torch.scenarios import (Scenario, get_scenario, run_scenario, scenario_names,
                                    split_policy_name)
 from repro_torch.sim import ENGINES
 
-# the reference script's flags this port refuses: flag -> (takes a value,
-# what it waits for)
-_ITEM3 = "ROADMAP section 1, item 3"
-REFUSED = {
-    **{flag: (True, f"ad-hoc scenarios assembled from flags ({_ITEM3}, with the "
-                    "reference CLI's remaining flags); use --scenario")
-       for flag in ("--trace", "--devices", "--slo-ms", "--slot-seconds", "--rate",
-                    "--rate-low", "--rate-high", "--peak-rps", "--replay-file",
-                    "--models", "--w-acc", "--w-lat", "--w-energy", "--w-stab",
-                    "--env", "--arch")},
+# Flag defaults live here (not on the parser): the parser suppresses
+# absent flags so a preset scenario only sees the overrides the user
+# actually typed, while the no-scenario path fills in from this table.
+DEFAULTS = dict(
+    scenario=None, list_scenarios=False,
+    trace="diurnal", devices=8, requests=100_000, engine="loop",
+    policy=None, compare=None, seeds="0",
+    online=False, drift_schedule=None,
+    pool=None, topology=None, autoscale=None,
+    episodes=300, train_seed=0, save_policy=None, load_policy=None,
+    slo_ms=2000.0, slot_seconds=10.0,
+    rate=6.0, rate_low=2.0, rate_high=30.0, peak_rps=30.0,
+    replay_file=None, models="cycle",
+    w_acc=0.05, w_lat=0.10, w_energy=0.15, w_stab=0.70,
+    env="paper", arch="qwen2-0.5b", execute=False, sample=16, exec_seq=32,
+    json=None, quiet=False, verbose=0, trace_out=None, timeline_out=None,
+    device=None,
+)
+
+# which CLI rate flags feed which trace constructor kwargs
+_TRACE_ARGS = {
+    "poisson": {"rate": "rate_rps"},
+    "mmpp": {"rate_low": "rate_low_rps", "rate_high": "rate_high_rps"},
+    "diurnal": {"rate_low": "base_rps", "rate_high": "peak_rps"},
+    "uniform": {"rate_high": "max_rps"},
+    "replay": {},
 }
 
 
@@ -98,6 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "its fields (see --list-scenarios)")
     ap.add_argument("--list-scenarios", action="store_true",
                     help="print registered scenario presets and exit")
+    ap.add_argument("--trace", choices=tuple(_TRACE_ARGS))
+    ap.add_argument("--devices", type=int)
     ap.add_argument("--requests", type=int)
     ap.add_argument("--engine", choices=ENGINES,
                     help="fleet epoch-flow engine: loop = per-device oracle, "
@@ -136,6 +162,27 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--load-policy", metavar="PATH",
                     help="load trainable policies from artifacts instead "
                     "of retraining (same PATH convention)")
+    ap.add_argument("--slo-ms", type=float)
+    ap.add_argument("--slot-seconds", type=float)
+    ap.add_argument("--rate", type=float,
+                    help="poisson rate (requests/s/device)")
+    ap.add_argument("--rate-low", type=float,
+                    help="mmpp calm rate / diurnal base rate")
+    ap.add_argument("--rate-high", type=float,
+                    help="mmpp burst rate / diurnal peak / uniform max")
+    ap.add_argument("--peak-rps", type=float,
+                    help="load-feature saturation rate; 0 disables the "
+                    "stability reward term (paper-faithful)")
+    ap.add_argument("--replay-file")
+    ap.add_argument("--models", choices=("cycle", "vgg", "resnet", "densenet"),
+                    help="paper-env fleet composition")
+    ap.add_argument("--w-acc", type=float)
+    ap.add_argument("--w-lat", type=float)
+    ap.add_argument("--w-energy", type=float)
+    ap.add_argument("--w-stab", type=float)
+    ap.add_argument("--env", choices=("paper", "tpu"))
+    ap.add_argument("--arch", help="tpu env: the transformer every device "
+                    "serves (repro_torch.configs.ALL_ARCHS)")
     ap.add_argument("--execute", action="store_true",
                     help="cross-check a sampled subset through the real "
                     "SplitServingEngine (tpu env)")
@@ -157,10 +204,105 @@ def build_parser() -> argparse.ArgumentParser:
                     help="more console detail (-v: debug narration)")
     ap.add_argument("--device",
                     help="torch device; default: the current CUDA card")
-    for flag, (takes_value, _) in REFUSED.items():
-        ap.add_argument(flag, action="store" if takes_value else "store_true",
-                        help=argparse.SUPPRESS)
     return ap
+
+
+def replay_kw(replay_file, slot_seconds) -> dict:
+    """The one spelling of the replay-trace kwargs (both the preset
+    override path and the bare --trace replay path build them here)."""
+    if not replay_file:
+        raise SystemExit("--trace replay needs --replay-file (.npy)")
+    return {"counts": np.load(replay_file),
+            "slot_seconds_recorded": slot_seconds}
+
+
+def trace_override(sc: Scenario, provided: dict, merged: dict) -> Scenario:
+    """Apply --trace/--rate*/--replay-file on top of a scenario: a trace
+    *kind* change rebuilds its kwargs from the merged flag values; rate
+    flags alone patch only the matching kwargs of the current kind."""
+    rate_flags = {"rate", "rate_low", "rate_high", "replay_file"}
+    if not ({"trace"} | rate_flags) & set(provided):
+        return sc
+    name = merged["trace"] if "trace" in provided else sc.trace
+    argmap = _TRACE_ARGS[name]
+    applicable = set(argmap) | ({"replay_file"} if name == "replay" else set())
+    stray = (rate_flags & set(provided)) - applicable
+    if stray:
+        flags = ", ".join("--" + f.replace("_", "-") for f in sorted(stray))
+        expects = ", ".join("--" + f.replace("_", "-")
+                            for f in sorted(applicable)) or "no rate flags"
+        raise SystemExit(f"{flags}: not applicable to trace {name!r} "
+                         f"(which takes {expects}); the override would "
+                         "be silently ignored")
+    if name == sc.trace:
+        kw, src = dict(sc.trace_kw), provided
+    else:
+        kw, src = {}, merged     # fresh kind: every mapped kwarg from merged
+    for flag, key in argmap.items():
+        if flag in src:
+            kw[key] = src[flag]
+    if name == "replay":
+        kw = replay_kw(merged.get("replay_file"),
+                       merged["slot_seconds"] if "slot_seconds" in provided
+                       else sc.slot_seconds)
+    return sc.replace(trace=name, trace_kw=kw)
+
+
+def apply_overrides(sc: Scenario, provided: dict, merged: dict) -> Scenario:
+    """Explicitly-typed flags override preset fields, field by field."""
+    direct = {"devices": "devices", "requests": "n_requests",
+              "slot_seconds": "slot_seconds", "peak_rps": "peak_rps",
+              "models": "models", "env": "env", "arch": "arch",
+              "execute": "execute", "sample": "sample",
+              "exec_seq": "exec_seq", "episodes": "episodes",
+              "train_seed": "train_seed", "engine": "engine"}
+    repl = {field: provided[flag] for flag, field in direct.items() if flag in provided}
+    if "slo_ms" in provided:
+        repl["slo_s"] = provided["slo_ms"] / 1e3
+    if "seeds" in provided:
+        repl["seeds"] = tuple(int(s) for s in provided["seeds"].split(","))
+    wkw = {flag: provided[flag] for flag in ("w_acc", "w_lat", "w_energy", "w_stab")
+           if flag in provided}
+    if wkw:
+        repl["weights"] = dataclasses.replace(sc.weights, **wkw)
+    if "drift_schedule" in provided:
+        repl["drift"] = provided["drift_schedule"]
+        if provided["drift_schedule"] != sc.drift:
+            repl["drift_kw"] = {}    # new kind: factory defaults
+    for field in ("pool", "topology", "autoscale"):
+        if field in provided:
+            repl[field] = provided[field]
+            if provided[field] != getattr(sc, field):
+                repl[f"{field}_kw"] = {}    # new kind: preset defaults
+    if repl:
+        sc = sc.replace(**repl)
+    return trace_override(sc, provided, merged)
+
+
+def scenario_from_args(merged: dict) -> Scenario:
+    """No --scenario: assemble an ad-hoc scenario from the flag values
+    (the reference CLI's historical default behavior)."""
+    trace = merged["trace"]
+    kw = {key: merged[flag] for flag, key in _TRACE_ARGS[trace].items()}
+    if trace == "replay":
+        kw = replay_kw(merged["replay_file"], merged["slot_seconds"])
+    return Scenario(
+        name="custom",
+        description="ad-hoc scenario assembled from CLI flags",
+        env=merged["env"], devices=merged["devices"],
+        arch=merged["arch"], models=merged["models"],
+        weights=RewardWeights(w_acc=merged["w_acc"], w_lat=merged["w_lat"],
+                              w_energy=merged["w_energy"], w_stab=merged["w_stab"]),
+        slot_seconds=merged["slot_seconds"], peak_rps=merged["peak_rps"],
+        slo_s=merged["slo_ms"] / 1e3,
+        seeds=tuple(int(s) for s in merged["seeds"].split(",")),
+        n_requests=merged["requests"], episodes=merged["episodes"],
+        train_seed=merged["train_seed"], execute=merged["execute"],
+        sample=merged["sample"], exec_seq=merged["exec_seq"],
+        drift=merged["drift_schedule"], engine=merged["engine"],
+        pool=merged["pool"], topology=merged["topology"] or "uniform",
+        autoscale=merged["autoscale"],
+        trace=trace, trace_kw=kw)
 
 
 def artifact_path(path: str, name: str, multi: bool) -> str:
@@ -178,20 +320,18 @@ def main(argv=None):
     ``--quiet``, 1, 2 with ``-v``) is restored on return."""
     ap = build_parser()
     provided = vars(ap.parse_args(argv))
-    for flag, (_, waits_for) in REFUSED.items():
-        if flag[2:].replace("-", "_") in provided:
-            ap.error(f"{flag} is not ported yet: it waits for {waits_for}")
+    merged = {**DEFAULTS, **provided}
     before = obs.get_verbosity()
-    obs.set_verbosity(0 if provided.get("quiet") else 1 + provided.get("verbose", 0))
+    obs.set_verbosity(0 if merged["quiet"] else 1 + (merged["verbose"] or 0))
     try:
-        return _run(ap, provided)
+        return _run(ap, provided, merged)
     finally:
         obs.set_verbosity(before)
 
 
-def _run(ap, provided):
+def _run(ap, provided, merged):
     say = obs.info
-    if provided.get("list_scenarios"):
+    if merged["list_scenarios"]:
         for name in scenario_names():
             sc = get_scenario(name)
             say(f"{name:18s} {sc.description}")
@@ -200,31 +340,16 @@ def _run(ap, provided):
                 f"seeds={list(sc.seeds)} requests={sc.n_requests} "
                 f"policies={','.join(sc.policies)}")
         return None
-    if "scenario" not in provided:
-        ap.error("--scenario is required: the ad-hoc scenario the reference "
-                 f"assembles from flags waits for {_ITEM3}")
-    try:
-        sc = get_scenario(provided["scenario"])
-    except KeyError as e:
-        ap.error(str(e.args[0]))
-    direct = {"requests": "n_requests", "engine": "engine", "episodes": "episodes",
-              "train_seed": "train_seed", "execute": "execute", "sample": "sample",
-              "exec_seq": "exec_seq"}
-    repl = {field: provided[flag] for flag, field in direct.items() if flag in provided}
-    if "seeds" in provided:
-        repl["seeds"] = tuple(int(s) for s in provided["seeds"].split(","))
-    if "drift_schedule" in provided:
-        repl["drift"] = provided["drift_schedule"]
-        if provided["drift_schedule"] != sc.drift:
-            repl["drift_kw"] = {}    # new kind: factory defaults
-    for field in ("pool", "topology", "autoscale"):
-        if field in provided:
-            repl[field] = provided[field]
-            if provided[field] != getattr(sc, field):
-                repl[f"{field}_kw"] = {}    # new kind: preset defaults
-    sc = sc.replace(**repl)
+    if merged["scenario"]:
+        try:
+            sc = get_scenario(merged["scenario"])
+        except KeyError as e:
+            ap.error(str(e.args[0]))
+        sc = apply_overrides(sc, provided, merged)
+    else:
+        sc = scenario_from_args(merged)
     if sc.execute and sc.env != "tpu":
-        ap.error("--execute needs a tpu-env scenario (the executable engine "
+        ap.error("--execute needs --env tpu (the executable engine "
                  "serves the transformer stack)")
     try:
         sc.build_schedule()
@@ -233,18 +358,20 @@ def _run(ap, provided):
     except (KeyError, ValueError) as e:
         ap.error(str(e.args[0]))
 
-    if "compare" in provided:
-        names = tuple(provided["compare"].split(","))
-    elif "policy" in provided:
-        names = (provided["policy"],)
-    else:
+    if merged["compare"]:
+        names = tuple(merged["compare"].split(","))
+    elif merged["policy"]:
+        names = (merged["policy"],)
+    elif merged["scenario"]:
         names = sc.policies
+    else:
+        names = ("a2c",)
     try:
         parsed = [split_policy_name(n) for n in names]
         specs = [get_policy_spec(base) for base, _ in parsed]
     except KeyError as e:
         ap.error(str(e.args[0]))
-    if provided.get("online"):
+    if merged["online"]:
         # every trainable roster entry gains its '+online' adapted
         # variant (before the frozen one, matching the preset layout)
         expanded = []
@@ -256,7 +383,7 @@ def _run(ap, provided):
         names = tuple(dict.fromkeys(expanded))
     trainable = sorted({split_policy_name(n)[0] for n in names
                         if get_policy_spec(split_policy_name(n)[0]).trainable})
-    save, load = provided.get("save_policy"), provided.get("load_policy")
+    save, load = merged["save_policy"], merged["load_policy"]
     if (save or load) and not trainable:
         ap.error("--save-policy/--load-policy need a trainable policy "
                  f"(a2c, ppo) in the roster; got {','.join(names)}")
@@ -264,7 +391,7 @@ def _run(ap, provided):
     save_map = {n: artifact_path(save, n, multi) for n in trainable} if save else None
     load_map = {n: artifact_path(load, n, multi) for n in trainable} if load else None
 
-    trace_out, timeline_out = provided.get("trace_out"), provided.get("timeline_out")
+    trace_out, timeline_out = merged["trace_out"], merged["timeline_out"]
     rec_ctx = obs.recording(
         trace_out, meta={"tool": "simulate", "scenario": sc.name,
                          "policies": list(names), "seeds": list(sc.seeds)}) \
@@ -276,7 +403,7 @@ def _run(ap, provided):
         if timeline_out == "-" else contextlib.nullcontext()
     with human_ctx:
         with rec_ctx:
-            report = run_scenario(sc, names, device=provided.get("device"),
+            report = run_scenario(sc, names, device=merged["device"],
                                   save_policies=save_map, load_policies=load_map,
                                   verbose=True, timeline=bool(timeline_out))
         cross = next((r.cross_check for r in report.results.values()
@@ -291,12 +418,13 @@ def _run(ap, provided):
                 f"max={cross['latency_ratio_max']:.2f} "
                 f"(tolerance {cross['latency_tolerance']}x, within="
                 f"{cross['latency_within_tolerance']})")
-        if "json" in provided:
+        if merged["json"]:
             out = report.to_json()
-            out["config"] = {k: v for k, v in provided.items() if k != "json"}
-            with open(provided["json"], "w") as f:
+            out["config"] = {k: v for k, v in merged.items()
+                             if k not in ("json", "list_scenarios")}
+            with open(merged["json"], "w") as f:
                 json.dump(out, f, indent=2, default=str)
-            say(f"\nwrote {provided['json']}")
+            say(f"\nwrote {merged['json']}")
         if trace_out:
             say(f"wrote obs trace {trace_out}; summarize with: python -m "
                 f"repro_torch.launch.obsview {trace_out}")

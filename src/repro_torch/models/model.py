@@ -1,5 +1,5 @@
 """Model assembly (port of ``repro.models.model``) for the dense, the
-Mamba-1 SSM and the Griffin hybrid families.
+Mamba-1 SSM, the Griffin hybrid and the mixture-of-experts families.
 
 ``CausalLM`` holds the embedding, one ``nn.ModuleList`` of steps per stack,
 the final norm and, for an untied head, the ``lm_head`` projection. A step
@@ -7,10 +7,13 @@ is a ``SuperBlock``: one block per sub of the stack, in order, as the
 reference scans a superblock. Dense and ssm models have one stack, ``main``,
 of one sub ``blk`` (``attn`` or ``ssm`` blocks); recurrentgemma has a
 ``period`` stack of (s0 rec, s1 rec, s2 attn) steps and a ``tail`` of
-``rec`` steps. The model is built from a flat mapping of tensors in the JAX
-package's layout (leaf paths ``tok_embed``, ``final_norm/scale``,
-``stacks/main/blk/attn/wq``, ``stacks/period/s0/rec/w_a``, ..., stacked
-leaves with the step on dim 0), so one constructor serves both
+``rec`` steps; an MoE model has a ``dense0`` stack of its
+``first_dense_layers`` dense layers, if any, then a ``main`` stack whose
+``attn`` blocks hold the experts in place of the MLP. The model is built
+from a flat mapping of tensors in the JAX package's layout (leaf paths
+``tok_embed``, ``final_norm/scale``, ``stacks/main/blk/attn/wq``,
+``stacks/period/s0/rec/w_a``, ..., stacked leaves with the step on dim
+0), so one constructor serves both
 ``params.init`` and ``params.load_jax_params``. ``DenseLM`` is the same
 class under the name it had while only dense models ran.
 
@@ -41,6 +44,7 @@ class Sub:
     name: str
     kind: str
     repeat: int = 1
+    moe: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,15 +60,19 @@ def check_ported(cfg: ModelConfig) -> None:
     norm, RoPE or none, RMSNorm or LayerNorm, SwiGLU, GeGLU or the plain
     gelu MLP with its biases, a tied or untied head, head_dim apart from
     d_model / n_heads, an optional sliding window), a Mamba-1 model with
-    falcon-mamba's features, or a Griffin hybrid with recurrentgemma's (a
+    falcon-mamba's features, a Griffin hybrid with recurrentgemma's (a
     block pattern of ``rec`` and ``attn`` blocks, local attention, the
-    Gemma embedding scale). The moe, vlm and audio families and MLA
-    attention are not ported yet, and each is refused by name."""
-    families = (("moe", cfg.moe), ("vlm", bool(cfg.cross_attn_every)),
-                ("audio", cfg.enc_dec), ("MLA", cfg.use_mla))
+    Gemma embedding scale), or a mixture-of-experts model (top-k routed
+    experts with capacity, shared experts, leading dense layers). The vlm
+    and audio families and MLA attention are not ported yet, and each is
+    refused by name."""
+    families = (("vlm", bool(cfg.cross_attn_every)), ("audio", cfg.enc_dec),
+                ("MLA", cfg.use_mla))
     missing = [name for name, on in families if on]
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
         missing.insert(0, cfg.family)
+    elif cfg.moe != (cfg.family == "moe"):
+        missing.insert(0, f"family={cfg.family} with moe={cfg.moe}")
     elif cfg.ssm != (cfg.family == "ssm"):
         missing.insert(0, f"family={cfg.family} with ssm={cfg.ssm}")
     elif bool(cfg.block_pattern) != (cfg.family == "hybrid"):
@@ -81,7 +89,9 @@ def stack_defs(cfg: ModelConfig) -> Tuple[StackDef, ...]:
     sub for dense and ssm models; for a block pattern, a ``period`` stack
     whose step holds one sub per kind of the pattern (s0, s1, ...), then
     the remainder layers as a ``tail`` stack (one kind) or as ``tail0``,
-    ``tail1``, ... of one layer each (mixed kinds)."""
+    ``tail1``, ... of one layer each (mixed kinds); for an MoE model, a
+    ``dense0`` stack of ``first_dense_layers`` dense layers (when there are
+    any), then ``main`` of MoE layers."""
     check_ported(cfg)
     L = cfg.n_layers
     if cfg.ssm:
@@ -98,6 +108,10 @@ def stack_defs(cfg: ModelConfig) -> Tuple[StackDef, ...]:
             defs += [StackDef(f"tail{i}", 1, (Sub("blk", k),))
                      for i, k in enumerate(rem_kinds)]
         return tuple(defs)
+    if cfg.moe:
+        dense0 = cfg.first_dense_layers
+        return ((StackDef("dense0", dense0, (Sub("blk", "attn"),)),) if dense0 else ()) + (
+            StackDef("main", L - dense0, (Sub("blk", "attn", 1, True),)),)
     return (StackDef("main", L, (Sub("blk", "attn"),)),)
 
 
@@ -136,7 +150,7 @@ class SuperBlock(nn.Module):
         self.windows = {sub.name: _sub_window(cfg, sub) for sub in sdef.subs}
         for sub in sdef.subs:
             self.add_module(sub.name, build_block(cfg, sub.kind, _strip(p, f"{sub.name}/"),
-                                                  window=self.windows[sub.name]))
+                                                  window=self.windows[sub.name], moe=sub.moe))
 
     def forward(self, x: torch.Tensor, *, pos0: int = 0, mode: str = "train",
                 cache=None, total_len: Optional[int] = None):

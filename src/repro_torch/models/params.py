@@ -1,5 +1,5 @@
-"""Parameter plan, init and weight exchange for the dense, ssm and hybrid
-models (port of ``repro.models.params`` and ``plan_model`` in
+"""Parameter plan, init and weight exchange for the dense, ssm, hybrid and
+MoE models (port of ``repro.models.params`` and ``plan_model`` in
 ``repro.models.model``).
 
 The plan maps each leaf path of the JAX package's flattened parameters
@@ -79,20 +79,34 @@ def _norm_plan(cfg: ModelConfig, name: str) -> Dict[str, P]:
     return plan
 
 
-def _mlp_plan(cfg: ModelConfig, bias: bool = False) -> Dict[str, P]:
-    """The MLP's leaves (``plan_mlp``): w_gate and w_up for SwiGLU and
-    GeGLU, w_up alone for the plain gelu MLP; b_up and b_down with
-    ``bias``."""
-    d, f = cfg.d_model, cfg.d_ff
-    plan = {"mlp/w_up": P((d, f)), "mlp/w_down": P((f, d))}
+def _mlp_plan(cfg: ModelConfig, bias: bool = False, prefix: str = "mlp",
+              d_ff: Optional[int] = None) -> Dict[str, P]:
+    """The MLP's leaves (``plan_mlp``) under ``prefix``: w_gate and w_up for
+    SwiGLU and GeGLU, w_up alone for the plain gelu MLP; b_up and b_down
+    with ``bias``; hidden width ``d_ff`` (default ``cfg.d_ff``)."""
+    d, f = cfg.d_model, d_ff if d_ff is not None else cfg.d_ff
+    plan = {f"{prefix}/w_up": P((d, f)), f"{prefix}/w_down": P((f, d))}
     if cfg.mlp_act in ("swiglu", "geglu"):
-        plan["mlp/w_gate"] = P((d, f))
+        plan[f"{prefix}/w_gate"] = P((d, f))
     if bias:
-        plan.update({"mlp/b_up": P((f,), "zeros"), "mlp/b_down": P((d,), "zeros")})
+        plan.update({f"{prefix}/b_up": P((f,), "zeros"), f"{prefix}/b_down": P((d,), "zeros")})
     return plan
 
 
-def _block_plan(cfg: ModelConfig, kind: str) -> Dict[str, P]:
+def _moe_plan(cfg: ModelConfig) -> Dict[str, P]:
+    """The MoE's leaves (``plan_moe``): the router, the experts' stacked
+    SwiGLU weights and, with ``n_shared_experts``, the shared experts' MLP
+    of ``moe_d_ff * n_shared_experts``."""
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    plan = {"moe/router": P((d, E), scale=d ** -0.5),
+            "moe/w_gate": P((E, d, f)), "moe/w_up": P((E, d, f)), "moe/w_down": P((E, f, d))}
+    if cfg.n_shared_experts:
+        plan.update(_mlp_plan(cfg, prefix="moe/shared", d_ff=f * cfg.n_shared_experts))
+    return plan
+
+
+def _block_plan(cfg: ModelConfig, kind: str, moe: bool = False) -> Dict[str, P]:
+    """One block's leaves; ``moe`` puts the MoE's in place of the MLP's."""
     if kind == "ssm":
         return _ssm_block_plan(cfg)
     if kind == "rec":
@@ -107,7 +121,7 @@ def _block_plan(cfg: ModelConfig, kind: str) -> Dict[str, P]:
         "attn/wo": P((H * Dh, d)),
         **_norm_plan(cfg, "norm2"),
         # the reference's MLP biases ride along with the attention's
-        **_mlp_plan(cfg, bias=cfg.attn_bias),
+        **(_moe_plan(cfg) if moe else _mlp_plan(cfg, bias=cfg.attn_bias)),
     }
     if cfg.qkv_bias:
         plan.update({"attn/bq": P((H * Dh,), "zeros"),
@@ -128,7 +142,7 @@ def plan_model(cfg: ModelConfig) -> Dict[str, P]:
         plan["lm_head"] = P((cfg.d_model, cfg.vocab_size))
     for s in stack_defs(cfg):
         for sub in s.subs:
-            for path, p in _block_plan(cfg, sub.kind).items():
+            for path, p in _block_plan(cfg, sub.kind, sub.moe).items():
                 plan[f"stacks/{s.name}/{sub.name}/{path}"] = dataclasses.replace(
                     p, shape=(s.length,) + p.shape)
     return dict(sorted(plan.items()))
@@ -228,11 +242,12 @@ def export_params(model: CausalLM) -> Dict[str, np.ndarray]:
     for s in stack_defs(cfg):
         steps = model.stacks[s.name]
         for sub in s.subs:
-            for path in _block_plan(cfg, sub.kind):
+            for path in _block_plan(cfg, sub.kind, sub.moe):
                 mod_path, leaf = path.rsplit("/", 1)
                 per_step = []
                 for step in steps:
-                    t = getattr(step.get_submodule(f"{sub.name}.{mod_path}"), leaf)
+                    t = getattr(step.get_submodule(f"{sub.name}.{mod_path.replace('/', '.')}"),
+                                leaf)
                     if isinstance(t, Dense):
                         t = t.w
                     if not isinstance(t, torch.Tensor):

@@ -129,13 +129,18 @@ def quantize_tree(model: nn.Module, mode: str,
                   names: FrozenSet[str] = DENSE_WEIGHTS) -> nn.Module:
     """A copy of ``model`` whose ``Dense`` leaves named in ``names`` hold a
     ``QTensor``. Every other parameter is shared with ``model``, not
-    copied; ``model`` itself is left as it was."""
+    copied; ``model`` itself is left as it was. A module named ``moe`` is
+    left whole, as the reference leaves its ``moe`` subtree: the routed
+    experts reuse the MLP's leaf names but run through the dispatch
+    einsums, and its shared experts stay with them."""
     from repro_torch.models.layers import Dense
 
     if mode not in MODES:
         raise ValueError(f"unknown quant mode {mode!r}; known: {MODES}")
 
     def rec(module: nn.Module, name: str) -> nn.Module:
+        if name == "moe":
+            return module
         if isinstance(module, Dense):
             if name in names and isinstance(module.w, torch.Tensor):
                 return Dense(quantize(module.w, mode))

@@ -151,7 +151,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
 def test_unported_families_raise():
     from repro_torch.models import stack_defs
     cfg = get_config("qwen2-0.5b").reduced()
-    for kw in (dict(family="moe", moe=True), dict(family="ssm"),
+    for kw in (dict(family="ssm"),
                dict(family="hybrid"),
                dict(family="vlm", cross_attn_every=2),
                dict(family="audio", enc_dec=True), dict(use_mla=True),

@@ -422,11 +422,23 @@ def test_unported_options_raise(worlds, tmp_path):
                        [SplitServingEngine(vlm, init(small, torch.Generator().manual_seed(0),
                                                      device="cpu"), device="cpu")],
                        seq_len=8)
-    for flag in (["--trace", "mmpp"], ["--devices", "4"]):
-        with pytest.raises(SystemExit):
+    # the reference's own refusals: a rate flag its trace does not take,
+    # replay without a file
+    for flag, words in ((["--rate-low", "3"], "not applicable to trace 'poisson'"),
+                        (["--trace", "replay"], "needs --replay-file")):
+        with pytest.raises(SystemExit, match=words):
             cli.main(["--scenario", "tpu-submesh", "--device", "cpu", *flag])
-    with pytest.raises(SystemExit):
-        cli.main(["--device", "cpu"])                  # no --scenario
+    # no --scenario: the ad-hoc scenario of the reference's defaults (A2C
+    # trained for 300 episodes, 100,000 requests), on one torch thread so
+    # that it does not spin against the other test workers
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        report = cli.main(["--device", "cpu", "--quiet"])
+    finally:
+        torch.set_num_threads(threads)
+    assert report.scenario == "custom" and list(report.results) == ["a2c"]
+    assert report.results["a2c"].mean["count"] > 0
     with pytest.raises(SystemExit):
         cli.main(["--scenario", "tpu-submesh", "--engine", "warp"])
 
