@@ -20,7 +20,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    and 5, S no multiple of its 32-step chunk and a bf16 u, flash_attention
    at B = 1 x 512 tokens (the fleet loop's, also in the model's layout),
    at head_dim 128 (causal and not, 40 and 512 tokens), MQA at head_dim 256 with a window
-   of 2048 over 2304 positions and over a wrapped ring, flash_decode's
+   of 2048 over 2304 positions and over a wrapped ring, at MLA's head dims
+   (q/k 192 with v 128, and 48 with 32: 16 heads over 16 and over 4 kv
+   heads, 40, 100 and 512 tokens, causal and not, window None and 64, f32
+   and bf16, views of (B, S, H, D) tensors), flash_decode's
    split edges (a window of 96 in a wrapped 2048-slot ring, C = 200, G = 1,
    2, 7, 10 and 20), its split calls alternating on two streams (a
    workspace each) and its refusal to make a workspace inside a CUDA graph
@@ -134,7 +137,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    device_only and greedy_oracle, seed 0), its tables on the card and the
    sampled requests executed through reduced mixtral on the card: act
    bytes at the cut exact, launches those of the executed infers; the same
-   argv with ``--device cpu`` gives every summary number identically.
+   argv with ``--device cpu`` gives every summary number identically. Then
+   the same run over deepseek-v2-lite-16b (CLI_ARGV_MLA): reduced MLA on
+   the card, its prefill attention through flash_attention's (48, 32)
+   instance.
 3b. Decode serving: ``ServingEngine`` generates 64 tokens greedily for
    8 x 512-token prompts (cache_len 576), 24 flash_attention launches per
    prefill and 24 flash_decode launches per decode step; one more generate
@@ -215,6 +221,21 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    teacher-forced check on the same weights at the non-dropping capacity
    n_experts / top_k (at 1.25 the prefill drops and a decode step never
    does); card against CPU at depth 1 over 64 tokens.
+9e. deepseek-v2-lite-16b through the same phases at its published widths
+   and full depth (27 layers: one dense, then 26 of 64 routed experts of
+   1408, top-6, and 2 shared; MLA with 16 heads, q/k head dim 128 + rope
+   64, v 128, a 512-wide latent; vocab 102,400, untied; 15,647,895,040
+   parameters, 62.6 GB f32): split 4 x 512 at cuts ('dense0', 1), 13 and
+   26 (27 flash_attention an infer at (192, 128), 58 quant_matmul a w8
+   infer: MLA's wq and wo, the dense layer's MLP and the head), the first
+   MoE layer's dropped share, one torch.profiler pass a version; decode 4 x
+   512 + 32 in the expanded form and a scheduler of 8 requests in 4 slots
+   (flash_attention in the prefills only, no flash_decode: MLA's decode is
+   plain attention, as the reference's); the teacher-forced check at the
+   non-dropping capacity; 8 absorbed decode steps (mla_absorb) against the
+   expanded form from clones of one prefill cache; card against CPU at
+   depth 2 over 64 tokens, with the first MoE layer's top-6 choices card
+   against CPU and the probability gap at any flip.
 7. Timing: each kernel at the main path's shapes beside its plain version,
    one PyTorch library call for the same function where there is one, and
    its bound; flash_attention and flash_decode also at recurrentgemma's
@@ -237,7 +258,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    shapes: flash_attention at its split path (1 x 48/8 x 2048, G = 6) and
    its 4608-token prefill under the 4096 window, flash_decode at its decode
    step (G = 6, a wrapped 4096-slot ring, 4 layers in turn), quant_matmul
-   at its attention's four projections and its head (M = 2048).
+   at its attention's four projections and its head (M = 2048). At
+   deepseek-v2-lite-16b's: flash_attention at its split path (4 x 16/16 x
+   512, q/k 192, v 128; SDPA with v of 128 as the library call),
+   quant_matmul at MLA's wq and wo and its head (M = 2048).
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -404,6 +428,12 @@ FA256_CASES = ((2, 10, 1, 40, None), (2, 10, 1, 256, 64), (2, 10, 1, 2304, 2048)
 # flash_attention at head_dim 128 (B, H, HK, S, causal): GQA 14/2 (h % HK
 # and h // G differ), a ragged and a full 512-token tile set
 FA128_CASES = tuple((2, 14, 2, S, causal) for S in (40, 512) for causal in (True, False))
+# flash_attention at MLA's head dims (D of q and k, Dv of v and the
+# output): deepseek-v2-lite-16b's (192, 128) and its reduced (48, 32); (B, H,
+# HK, S): H = HK = 16 as MLA expands k and v to every head, and GQA 16/4 at
+# the new widths, over ragged (40, 100) and whole (512) tiles
+FA_MLA_DIMS = ((192, 128), (48, 32))
+FA_MLA_CASES = tuple((2, 16, HK, S) for HK in (16, 4) for S in (40, 100, 512))
 # H100 SXM dense TF32 tensor-core rate; 3xTF32 runs three TF32 products for
 # each f32 product
 PEAK_3XTF32 = 495e12 / 3
@@ -438,6 +468,15 @@ FAMILIES = {
     "mixtral-8x22b": dict(label="9d", split=(1, 2048), cuts=(1, 2, 4), decode=(1, 4608, 33),
                           srv=(4, 4, 256, (64, 200), (8, 16)), params=10_418_903_040,
                           layers=4, cpu_layers=1, cpu_seq=64),
+    # the published widths at full depth (62.6 GB of f32): one leading dense
+    # layer (stack dense0), then 26 MoE layers of 64 routed experts (top-6)
+    # and 2 shared; MLA attention, whose prefill runs flash_attention at (q/k
+    # 192, v 128) and whose decode is plain attention (no flash_decode); the
+    # split path's 512-token rows are one MoE chunk each (C 64); the card-CPU
+    # comparison at depth 2 (dense0 and one MoE layer, 4.1 GB of f32)
+    "deepseek-v2-lite-16b": dict(label="9e", split=(4, 512), cuts=(("dense0", 1), 13, 26),
+                                 decode=(4, 512, 32), srv=(8, 4, 256, (64, 200), (8, 16)),
+                                 params=15_647_895_040, cpu_seq=64),
 }
 # teacher-forced decode against forward on the card: the same f32 function
 # through the prefill's kernel and the decode step; the CPU comparison's
@@ -448,6 +487,9 @@ FAM_CPU_LAYERS, FAM_CPU_STEPS = 2, 8
 # world over mixtral-8x22b, executed through its reduced model
 CLI_ARGV = ("--env", "tpu", "--arch", "mixtral-8x22b", "--execute", "--devices", "2",
             "--requests", "400", "--compare", "device_only,greedy_oracle", "--seeds", "0")
+# the same run over deepseek-v2-lite-16b: reduced MLA on the card, through
+# flash_attention's (48, 32) instance
+CLI_ARGV_MLA = tuple("deepseek-v2-lite-16b" if a == "mixtral-8x22b" else a for a in CLI_ARGV)
 # the mixed fleet (phase 3g): three dense archs, device i serving model i
 # (rotated so that each model takes its turn on device 0, whose request is
 # the one an epoch executes), sampled requests a run
@@ -460,6 +502,9 @@ FA_PATHS = ((BATCH, 14, 2, SEQ, 64, None), (RG_SPLIT_BATCH, 10, 1, RG_SPLIT_SEQ,
             # mixtral-8x22b's split path (48/8 heads, G = 6, 2048 tokens in its
             # 4096 window) and its decode prefill (4608 positions past it)
             (1, 48, 8, 2048, 128, 4096), (1, 48, 8, 4608, 128, 4096))
+# deepseek-v2-lite-16b's split attention (B, H, HK, S, D, Dv), causal, no
+# window: q and k of 192 (nope 128 + rope 64), v of 128, 16 heads each
+FA_MLA_PATH = (4, 16, 16, 512, 192, 128)
 FD_PATHS = ((BATCH, 14, 2, DEC_CACHE, 64, 24, DEC_CACHE - 1, None),
             (RG_BATCH, 10, 1, 2048, 256, RG_ATTN, RG_SEQ + 100, 2048),
             # starcoder2-3b's decode step: G = 12, one 4096-slot ring wrapped,
@@ -554,6 +599,7 @@ def phase_kernel_checks(dev):
     qmm_err = max(qmm_err, check_head_quant_matmul(dev, g))
     ms_err = check_mamba_scan(dev, g)
     check_flash_attention_wide(dev, g)
+    check_flash_attention_mla(dev, g)
     rs_err = check_rglru_scan(dev, g)
     return qmm_err, ms_err, rs_err
 
@@ -581,6 +627,33 @@ def check_flash_attention_wide(dev, g):
             check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
                   f"flash_attention {str(dtype)[6:]} B={B} H={H} HK={HK} S={S} D={D} "
                   f"causal={causal} window={window}: max_abs_err={err:.3g} (tol {tol})")
+
+
+def check_flash_attention_mla(dev, g):
+    """flash_attention with v's head dim apart from q's and k's, at MLA's
+    (192, 128) and (48, 32): FA_MLA_CASES, causal and not, window None and
+    64, f32 and bf16, q, k and v as views of (B, S, H, D) tensors."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    for D, Dv in FA_MLA_DIMS:
+        for B, H, HK, S in FA_MLA_CASES:
+            for causal in (True, False):
+                for window in (None, 64):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
+                        k = torch.randn(B, S, HK, D, generator=g, device=dev).to(dtype)
+                        v = torch.randn(B, S, HK, Dv, generator=g, device=dev).to(dtype)
+                        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+                        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+                        ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+                        torch.cuda.synchronize()
+                        tol = FA_TOL[str(dtype).split(".")[1]]
+                        err = (out.float() - ref.float()).abs().max().item()
+                        check(tuple(out.shape) == (B, H, S, Dv)
+                              and torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+                              f"flash_attention {str(dtype)[6:]} B={B} H={H} HK={HK} S={S} "
+                              f"D={D} Dv={Dv} causal={causal} window={window}: "
+                              f"max_abs_err={err:.3g} (tol {tol})")
 
 
 def _rglru_inputs(B, S, W, g, dev):
@@ -2410,21 +2483,32 @@ def phase_rg_card_vs_cpu(dev, cfg, model, batch):
 
 
 def _w8_qmm(cfg):
-    """quant_matmul launches a w8 infer, prefill or decode step of a
-    single-stack model: q, k, v, o and the MLP's projections (three gated,
-    two plain gelu) in every dense layer, q, k, v and o alone in an MoE
-    layer (w8 leaves the experts whole), none in a Mamba layer, and an
-    untied head."""
-    mlp = 0 if cfg.moe else 2 if cfg.mlp_act == "gelu" else 3
-    per_layer = 0 if cfg.ssm else 4 + mlp
-    return per_layer * cfg.n_layers + (not cfg.tie_embeddings)
+    """quant_matmul launches a w8 infer, prefill or decode step: the
+    attention's projections in every layer (q, k, v and o; MLA's q and o),
+    the MLP's (three gated, two plain gelu) in every dense layer (an MoE
+    model's leading dense layers; w8 leaves the experts whole), none in a
+    Mamba layer, and an untied head."""
+    if cfg.ssm:
+        return int(not cfg.tie_embeddings)
+    attn = 2 if cfg.use_mla else 4
+    mlp = 2 if cfg.mlp_act == "gelu" else 3
+    dense_layers = cfg.first_dense_layers if cfg.moe else cfg.n_layers
+    return attn * cfg.n_layers + mlp * dense_layers + (not cfg.tie_embeddings)
 
 
 def _family_kernels(cfg):
     """The kernel a prefill or infer launches once a layer, and the one a
     decode step launches once a layer (None: Mamba's step is the plain
-    one-token recurrence)."""
-    return ("mamba_scan", None) if cfg.ssm else ("flash_attention", "flash_decode")
+    one-token recurrence, MLA's decode plain attention)."""
+    if cfg.ssm:
+        return "mamba_scan", None
+    return "flash_attention", None if cfg.use_mla else "flash_decode"
+
+
+def _cut_label(cut):
+    """A cut as the family phases print it: its index in ``main``, else
+    stack:index."""
+    return str(cut[1]) if cut[0] == "main" else f"{cut[0]}:{cut[1]}"
 
 
 def _dense_layer_shapes(cfg):
@@ -2464,8 +2548,8 @@ def _first_moe_drops(cfg, model, run):
 
 
 def _profile_moe_infer(cfg, fn, what):
-    """One MoE infer under torch.profiler: device busy and idle share, and
-    the device time of the expert GEMMs (bmm over the experts' stacked
+    """One MoE infer or decode step under torch.profiler: device busy and
+    idle share, kernel launches, and the device time of the expert GEMMs (bmm over the experts' stacked
     weights), the dispatch and combine einsums (every other bmm), the dense
     projections and head (mm), flash_fwd (flash_attention) and qmm_*
     (quant_matmul); the kernels by time."""
@@ -2504,12 +2588,14 @@ def _profile_moe_infer(cfg, fn, what):
             ms["qmm (quant_matmul)"] += dev_us(e) / 1e3
     ms["other"] = busy - sum(ms.values())
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    n_kernels = sum(e.count for e in kernels)
     print(f"  profile of one {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms (idle "
-          f"{1 - busy / wall:.1%}); by operator: "
+          f"{1 - busy / wall:.1%}), {n_kernels} kernel launches; by operator: "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items()))
     for e in top:
         print(f"    {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
-    return {"wall_ms": wall, "device_busy_ms": busy, "by_operator_ms": ms}
+    return {"wall_ms": wall, "device_busy_ms": busy, "kernel_launches": n_kernels,
+            "by_operator_ms": ms}
 
 
 def phase_family_split(dev, arch, label):
@@ -2526,7 +2612,7 @@ def phase_family_split(dev, arch, label):
     from repro_torch.serving import SplitServingEngine
     spec = FAMILIES[arch]
     B, S = spec["split"]
-    cuts = tuple(("main", c) for c in spec["cuts"])
+    cuts = tuple(c if isinstance(c, tuple) else ("main", c) for c in spec["cuts"])
     cfg = get_config(arch)
     depth = "full depth"
     if "layers" in spec:
@@ -2547,10 +2633,15 @@ def phase_family_split(dev, arch, label):
              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff} "
              f"{cfg.mlp_act}, {cfg.norm}, qk_norm {cfg.qk_norm}, qkv_bias {cfg.qkv_bias}, "
              f"attn_bias {cfg.attn_bias}, window {cfg.sliding_window}")
+    if cfg.use_mla:
+        shape = (f"MLA: {cfg.n_heads} heads, q/k head dim {cfg.qk_nope_head_dim} + rope "
+                 f"{cfg.qk_rope_head_dim}, v {cfg.v_head_dim}, kv_lora_rank "
+                 f"{cfg.kv_lora_rank}, d_ff {cfg.d_ff} {cfg.mlp_act}, {cfg.norm}")
     if cfg.moe:
         shape += (f", {cfg.n_experts} experts of d_ff {cfg.moe_d_ff} top-{cfg.top_k}, "
-                  f"capacity factor {cfg.capacity_factor}, {cfg.moe_impl} dispatch in chunks "
-                  f"of {cfg.moe_chunk}")
+                  f"{cfg.n_shared_experts} shared, {cfg.first_dense_layers} leading dense "
+                  f"layer(s), capacity factor {cfg.capacity_factor}, {cfg.moe_impl} dispatch "
+                  f"in chunks of {cfg.moe_chunk}")
     check(n_params == spec["params"],
           f"init {cfg.name}: {L} layers, d_model {cfg.d_model}, {shape}, vocab "
           f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, {n_params} params (want "
@@ -2575,9 +2666,10 @@ def phase_family_split(dev, arch, label):
             finite = bool(torch.isfinite(logits).all())
             shape_ok = tuple(logits.shape) == (B, S, cfg.vocab_size)
             want_bytes = link_w8 if version == "w8" else link
-            times[f"{version}@{cut[1]}"] = ms
+            times[f"{version}@{_cut_label(cut)}"] = ms
             check(finite and shape_ok and act_bytes == want_bytes and delta == want,
-                  f"infer {version} cut={cut[1]}: act_bytes={act_bytes} (want {want_bytes}) "
+                  f"infer {version} cut={_cut_label(cut)}: act_bytes={act_bytes} "
+                  f"(want {want_bytes}) "
                   f"ms={[round(t, 3) for t in ms]} launches over {reps} infers={delta} "
                   f"logits {tuple(logits.shape)} finite={finite}")
             del logits
@@ -2586,7 +2678,7 @@ def phase_family_split(dev, arch, label):
             with torch.inference_mode():
                 profiles[version] = _profile_moe_infer(
                     cfg, lambda: eng.infer(batch, cuts[1], version),
-                    f"{version} infer at cut {cuts[1][1]}")
+                    f"{version} infer at cut {_cut_label(cuts[1])}")
         print(f"  peak device memory with the {version} model: "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         del eng
@@ -2608,7 +2700,8 @@ def phase_family_split(dev, arch, label):
         split = split_forward(cfg, model, batch, cuts[1])
     err = (full - split).abs().max().item()
     check(torch.allclose(split, full, rtol=2e-4, atol=2e-4),
-          f"{arch} split vs full at cut {cuts[1][1]}: max_abs_err={err:.3g} (tol 2e-4)")
+          f"{arch} split vs full at cut {_cut_label(cuts[1])}: max_abs_err={err:.3g} "
+          f"(tol 2e-4)")
     del full, split
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"  peak device memory of the split path: {peak / 2**30:.2f} GiB ({peak} bytes); "
@@ -2620,7 +2713,9 @@ def phase_family_decode(dev, cfg, model, label):
     """ServingEngine.generate and, where the spec names one, the scheduler,
     with launch counts; their launches are the path's. Then teacher-forced
     decode against the card's forward_logits (across a wrapped window ring
-    for starcoder2-3b), which the path's counts leave out."""
+    for starcoder2-3b), MLA's absorbed decode against its expanded one and
+    an MoE model's profiled decode step, which the path's counts leave
+    out."""
     import numpy as np
     import torch
     from repro_torch.models import decode_step, forward_logits, prefill
@@ -2697,7 +2792,8 @@ def phase_family_decode(dev, cfg, model, label):
     with torch.inference_mode(), nd:
         want = forward_logits(cfg, model, {"tokens": full_toks})
         lg, cache = prefill(cfg, model, batch, total_len=S + FAM_TF_STEPS)
-        k = cache["main"]["blk"].get("k")
+        blk = cache["main"]["blk"]
+        k = blk.get("k", blk.get("ckv"))         # MLA's ring holds the latent
         ring = None if k is None else tuple(k.shape)
         errs = [(lg - want[:, S - 1]).abs().max().item()]
         for j in range(FAM_TF_STEPS):
@@ -2709,6 +2805,15 @@ def phase_family_decode(dev, cfg, model, label):
           f"prefill + {FAM_TF_STEPS} teacher-forced decode steps against forward_logits on "
           f"the card{tf_note}: max_abs_err {max(errs):.3g} (tol {FAM_DECODE_TOL}), per step "
           f"{[float(f'{e:.3g}') for e in errs]}; rings {ring}")
+    if cfg.use_mla:
+        timing.update(_mla_absorbed_vs_expanded(cfg, model, batch, toks, S))
+    if cfg.moe:                          # where an MoE decode step's time goes
+        with torch.inference_mode():
+            _, cache = prefill(cfg, model, batch, total_len=S + 2)
+            decode_step(cfg, model, cache, toks[:, 0], S)           # warm
+            timing["decode_profile"] = _profile_moe_infer(
+                cfg, lambda: decode_step(cfg, model, cache, toks[:, 1], S + 1), "decode step")
+        del cache
 
     pre_ms, _ = _median_ms(lambda: torch.inference_mode()(prefill)(cfg, model, batch), 3)
     gen, pre_med = statistics.median(gen_ms), statistics.median(pre_ms)
@@ -2719,6 +2824,52 @@ def phase_family_decode(dev, cfg, model, label):
           f"memory of the split and decode phases {timing['peak_bytes'] / 2**30:.2f} GiB; "
           f"phase {time.perf_counter() - t_phase:.1f} s")
     return batch, launches, timing
+
+
+def _mla_absorb(model, on):
+    """Every MLA layer of ``model`` set to the absorbed (``on``) or the
+    expanded decode form."""
+    from repro_torch.models.attention import MLAttention
+    for m in model.modules():
+        if isinstance(m, MLAttention):
+            m.absorb = on
+
+
+def _mla_absorbed_vs_expanded(cfg, model, batch, toks, S):
+    """FAM_TF_STEPS decode steps in the absorbed form (``mla_absorb``) from a
+    clone of the prefill cache that the expanded form steps from, fed the
+    same tokens: logits within FAM_DECODE_TOL (the two contract in another
+    order; the reference holds them to 2e-4 at reduced size), and each
+    form's ms a step."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    errs, ms = [], {"expanded": [], "absorbed": []}
+    with torch.inference_mode():
+        _, cache = prefill(cfg, model, batch, total_len=S + FAM_TF_STEPS)
+        twin = {s: {b: {n: t.clone() for n, t in d.items()} for b, d in x.items()}
+                for s, x in cache.items()}
+        try:
+            for j in range(FAM_TF_STEPS):
+                t, (base, cache) = _median_ms(
+                    lambda: decode_step(cfg, model, cache, toks[:, j], S + j), 1)
+                ms["expanded"] += t
+                _mla_absorb(model, True)
+                t, (absorbed, twin) = _median_ms(
+                    lambda: decode_step(cfg, model, twin, toks[:, j], S + j), 1)
+                _mla_absorb(model, False)
+                ms["absorbed"] += t
+                errs.append((absorbed - base).abs().max().item())
+        finally:
+            _mla_absorb(model, False)
+    del cache, twin
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    check(max(errs) <= FAM_DECODE_TOL and max(errs) > 0,
+          f"{FAM_TF_STEPS} absorbed decode steps (mla_absorb) against the expanded form from "
+          f"clones of one prefill cache: max_abs_err {max(errs):.3g} (tol {FAM_DECODE_TOL}), "
+          f"per step {[float(f'{e:.3g}') for e in errs]}; median ms a step: expanded "
+          f"{med['expanded']:.2f}, absorbed {med['absorbed']:.2f}")
+    return {"expanded_step_ms": ms["expanded"], "absorbed_step_ms": ms["absorbed"],
+            "absorbed_max_abs_err": max(errs)}
 
 
 def _moe_capacity(model, factor):
@@ -2748,28 +2899,70 @@ def phase_family_card_vs_cpu(dev, cfg, model, batch, label):
     import copy
     import torch
     from torch import nn
-    from repro_torch.models import CausalLM, export_params, load_jax_params
+    from repro_torch.core.partition import cut_points
+    from repro_torch.models import CausalLM, export_params, load_jax_params, stack_defs
     from repro_torch.serving import SplitServingEngine
     spec = FAMILIES[cfg.name]
     layers, seq = spec.get("cpu_layers", FAM_CPU_LAYERS), spec.get("cpu_seq", CPU_SEQ)
     small = cfg.with_overrides(n_layers=layers)
+    cut = cut_points(small)[0]           # after the first layer
     print(f"== {label}. {cfg.name} card against CPU: full width, {layers} layer(s), 1 x "
-          f"{seq} tokens per version at cut 1, then {FAM_CPU_STEPS} decode steps")
+          f"{seq} tokens per version at cut {_cut_label(cut)}, then {FAM_CPU_STEPS} decode "
+          f"steps")
     t0 = time.perf_counter()
     head = copy.copy(model)              # shares every tensor of the card model
     head._modules = dict(model._modules)
-    head.stacks = nn.ModuleDict({"main": model.stacks["main"][:layers]})
+    head.stacks = nn.ModuleDict({s.name: model.stacks[s.name][:s.length]
+                                 for s in stack_defs(small)})
     head.cfg = small
     flat = export_params(head)
     del head
     card = load_jax_params(small, flat, device=dev)
     cpu = CausalLM(small, {k: torch.from_numpy(flat.pop(k)) for k in sorted(flat)})
     one = {"tokens": batch["tokens"][:1, :seq]}
+    if cfg.moe:
+        _route_gaps(small, card, cpu, one)
     compare_split_card_cpu(SplitServingEngine(small, card, versions=VERSIONS),
                            SplitServingEngine(small, cpu, versions=VERSIONS, device="cpu"),
-                           one, ("main", 1))
+                           one, cut)
     compare_decode_card_cpu(small, card, cpu, one["tokens"], FAM_CPU_STEPS + 1)
     print(f"  {cfg.name} card vs CPU phase: {time.perf_counter() - t0:.1f} s")
+
+
+def _route_gaps(cfg, card, cpu, one):
+    """The first MoE layer's routing of ``one`` on the card and on the CPU:
+    how many tokens choose other top-k experts on the two devices, the
+    probability gap between the k-th and the (k+1)-th expert at each such
+    flip (a flip at a gap above 1e-6 is no rounding tie), and the smallest
+    gap over all tokens."""
+    import torch
+    seen = {}
+
+    def probs(model, key):
+        moe = model.stacks["main"][0].blk.moe
+        hook = moe.register_forward_pre_hook(lambda mod, args: seen.__setitem__(key, args[0]))
+        try:
+            with torch.inference_mode():
+                model(one["tokens"].to(model.tok_embed.device))
+        finally:
+            hook.remove()
+        x = seen[key].float()
+        return torch.softmax(x @ moe.router.float(), dim=-1).cpu()
+
+    pg, pc = probs(card, "card"), probs(cpu, "cpu")
+    K = cfg.top_k
+    sc, _ = torch.sort(pc, dim=-1, descending=True)
+    gap = (sc[..., K - 1] - sc[..., K]).flatten()
+    eg = torch.topk(pg, K, dim=-1).indices.sort(-1).values
+    ec = torch.topk(pc, K, dim=-1).indices.sort(-1).values
+    flips = (eg != ec).any(-1).flatten()
+    at_flips = gap[flips].tolist()
+    check(all(g_ <= 1e-6 for g_ in at_flips),
+          f"first MoE layer's top-{K} routing, card against CPU: {int(flips.sum())} of "
+          f"{flips.numel()} tokens choose other experts, gaps at those flips "
+          f"{[float(f'{x:.3g}') for x in at_flips]} (a flip above 1e-6 is a fault); smallest "
+          f"k-th to (k+1)-th probability gap {gap.min().item():.3g}; max |p card - p CPU| "
+          f"{(pg - pc).abs().max().item():.3g}")
 
 
 def phase_family(dev, arch):
@@ -2900,25 +3093,26 @@ def phase_mixed_fleet(dev, q2_cfg, q2_eng, smi):
     return launches, timing
 
 
-def phase_cli(dev, smi):
-    """3h. The simulate CLI with no --scenario (CLI_ARGV): the ad-hoc tpu
-    world over mixtral-8x22b, its tables built on the card and the sampled
-    requests executed through reduced mixtral on the card; then the same
-    argv with ``--device cpu``. The act bytes at the cut exact, the launches
-    those of the executed infers, every SimResult number card = CPU."""
+def phase_cli(dev, smi, argv=CLI_ARGV):
+    """3h. The simulate CLI with no --scenario (``argv``): the ad-hoc tpu
+    world over mixtral-8x22b (CLI_ARGV) or deepseek-v2-lite-16b
+    (CLI_ARGV_MLA), its tables built on the card and the sampled requests
+    executed through the reduced model on the card; then the same argv with
+    ``--device cpu``. The act bytes at the cut exact, the launches those of
+    the executed infers, every SimResult number card = CPU."""
     from repro_torch.configs import get_config
     from repro_torch.launch import simulate as cli
-    print(f"== 3h. the simulate CLI without --scenario on the card: {' '.join(CLI_ARGV)}; "
+    print(f"== 3h. the simulate CLI without --scenario on the card: {' '.join(argv)}; "
           f"then with --device cpu")
     t0 = time.perf_counter()
     _reset_counts()
-    card = cli.main([*CLI_ARGV, "--quiet"])
+    card = cli.main([*argv, "--quiet"])
     launches = _counts()
     card_s = time.perf_counter() - t0
     t1 = time.perf_counter()
-    cpu = cli.main([*CLI_ARGV, "--quiet", "--device", "cpu"])
+    cpu = cli.main([*argv, "--quiet", "--device", "cpu"])
     cpu_s = time.perf_counter() - t1
-    small = get_config(CLI_ARGV[CLI_ARGV.index("--arch") + 1]).reduced()
+    small = get_config(argv[argv.index("--arch") + 1]).reduced()
     for name, r in card.results.items():
         c = cpu.results[name]
         check(r.per_seed == c.per_seed and r.mean == c.mean,
@@ -2960,6 +3154,9 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
                                                    " (mixtral-8x22b split path)")))
     fa_row.update(_prefixed("mix_prefill_", time_attention(dev, g, *fa_mix_prefill,
                                                            " (mixtral-8x22b decode prefill)")))
+    B, H, HK, S, D, Dv = FA_MLA_PATH
+    fa_row.update(_prefixed("mla_", time_attention(
+        dev, g, B, H, HK, S, D, None, " (deepseek-v2-lite-16b split path, MLA)", Dv=Dv)))
     fd_main, fd_rg, fd_sc2, fd_mix = FD_PATHS
     fd_row = time_decode(dev, g, *fd_main, "")
     fd_row.update(_d256(time_decode(dev, g, *fd_rg, f" ({RG_ARCH} decode path)")))
@@ -2986,7 +3183,8 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
               f"library_ms={kern['library_ms']} bound_ms={kern['bound_ms']:.4f} "
               f"({kern['bound_by']}) [{kern['shape']}]")
         for pre in ("d256_", "prefill_", "cohort_", "decode_", "rg_", "head_", "qwen3_", "sc2_",
-                    "phi3_", "phi3_head_", "mix_", "mix_prefill_", "mix_head_"):
+                    "phi3_", "phi3_head_", "mix_", "mix_prefill_", "mix_head_", "mla_", "ds_",
+                    "ds_head_"):
             if f"{pre}ms" in kern:
                 print(f"  {kern['name']} {pre[:-1]}: ms={kern[pre + 'ms']:.4f} "
                       f"plain_ms={kern[pre + 'plain_ms']:.4f} "
@@ -2994,7 +3192,7 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
                       f"bound_ms={kern[pre + 'bound_ms']:.4f} ({kern[pre + 'bound_by']}) "
                       f"[{kern[pre + 'shape']}]")
         for pre in ("", "d256_", "prefill_", "cohort_", "decode_", "sc2_", "phi3_",
-                    "phi3_head_", "mix_", "mix_head_"):
+                    "phi3_head_", "mix_", "mix_head_", "ds_", "ds_head_"):
             if f"{pre}device_ms" in kern:
                 print(f"  {kern['name']} {pre[:-1] or 'main'} device time (CUDA graph) "
                       f"{kern[pre + 'device_ms']:.4f} ms")
@@ -3038,20 +3236,22 @@ def graph_ms(fn, iters: int) -> float:
     return ms
 
 
-def time_attention(dev, g, B, H, HK, S, D, window, path):
+def time_attention(dev, g, B, H, HK, S, D, window, path, Dv=None):
     """flash_attention per call (one layer), f32, causal, q and k/v as views
-    of the model's (B, S, H, D) projections: its time, error, plain and
-    SDPA time and bound."""
+    of the model's (B, S, H, D) projections, v of head dim Dv (default D):
+    its time, error, plain and SDPA time and bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    Dv = D if Dv is None else Dv
     q = torch.randn(B, S, H, D, generator=g, device=dev).transpose(1, 2)
     k = torch.randn(B, S, HK, D, generator=g, device=dev).transpose(1, 2)
-    v = torch.randn(B, S, HK, D, generator=g, device=dev).transpose(1, 2)
+    v = torch.randn(B, S, HK, Dv, generator=g, device=dev).transpose(1, 2)
     err = (fa.flash_attention(q, k, v, causal=True, window=window)
            - fa.flash_attention_ref(q, k, v, causal=True, window=window)).abs().max().item()
+    dims = f"D={D}" + (f", Dv={Dv}" if Dv != D else "")
     check(err <= FA_TOL["float32"],
-          f"flash_attention at D={D}, the path shape{path}: max_abs_err={err:.3g}")
+          f"flash_attention at {dims}, the path shape{path}: max_abs_err={err:.3g}")
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=window), 50)
     plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=True, window=window), 10)
     # SDPA groups heads as h // G; expanding k, v to H heads as h % HK
@@ -3062,21 +3262,28 @@ def time_attention(dev, g, B, H, HK, S, D, window, path):
     visible = i[None, :] <= i[:, None]
     if window is not None and window < S:
         visible &= i[:, None] - i[None, :] < window
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=visible), 50)
-    else:
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True), 50)
-    # QK^T and PV over the visible pairs, at the rate of the arithmetic the
-    # kernel runs them in: 3xTF32 on the tensor cores (the f32 CUDA-core
-    # bound only printed, for comparison with the kernel's first design)
-    nbytes = 4 * (2 * B * H * S * D + 2 * B * HK * S * D)
-    nops = 4 * B * H * D * int(visible.sum())
+    try:
+        if window is not None and window < S:
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=visible),
+                          50)
+        else:
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True), 50)
+    except RuntimeError as e:    # a v head dim apart from q's that no backend takes
+        lib = None
+        print(f"  SDPA refuses q/k {D}, v {Dv}: {str(e).splitlines()[0]}")
+    # QK^T (D) and PV (Dv) over the visible pairs, at the rate of the
+    # arithmetic the kernel runs them in: 3xTF32 on the tensor cores (the
+    # f32 CUDA-core bound only printed, for comparison with the kernel's
+    # first design)
+    nbytes = 4 * (B * H * S * (D + Dv) + B * HK * S * (D + Dv))
+    nops = 2 * B * H * (D + Dv) * int(visible.sum())
     bound, by = _bound(nbytes, nops, PEAK_3XTF32)
-    print(f"  flash_attention at D={D}{path}: 3xTF32 bound {bound:.4f} ms ({by}), "
+    print(f"  flash_attention at {dims}{path}: 3xTF32 bound {bound:.4f} ms ({by}), "
           f"{bound / ms:.1%} of it reached; f32 CUDA-core bound {_bound(nbytes, nops)[0]:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": lib,
-            "shape": f"f32 q ({B},{H},{S},{D}) k/v ({B},{HK},{S},{D}) causal, window {window}, "
-                     f"per call{path}"}
+            "shape": f"f32 q ({B},{H},{S},{D}) k ({B},{HK},{S},{D}) v ({B},{HK},{S},{Dv}) "
+                     f"causal, window {window}, per call{path}"}
 
 
 def time_decode(dev, g, B, H, HK, C, D, L, pos, window, path):
@@ -3243,6 +3450,16 @@ def time_quant_matmul(dev, g, err, launches):
                                            f"{mix.name} w8 layer (attention), split path", 10)))
     row.update(_prefixed("mix_head_", _time_qmm(dev, g, m, ((mix.d_model, mix.vocab_size),),
                                                 f"{mix.name} w8 lm_head, split path", 10)))
+    # deepseek's w8 layer is MLA's wq and wo (the latent's projections and
+    # the experts stay f32)
+    ds = get_config("deepseek-v2-lite-16b")
+    m = math.prod(FAMILIES[ds.name]["split"])
+    hq = ds.n_heads * (ds.qk_nope_head_dim + ds.qk_rope_head_dim)
+    row.update(_prefixed("ds_", _time_qmm(dev, g, m, ((ds.d_model, hq),
+                                                      (ds.n_heads * ds.v_head_dim, ds.d_model)),
+                                          f"{ds.name} w8 layer (MLA wq, wo), split path", 10)))
+    row.update(_prefixed("ds_head_", _time_qmm(dev, g, m, ((ds.d_model, ds.vocab_size),),
+                                               f"{ds.name} w8 lm_head, split path", 10)))
     # the decode step's projections as the model runs them: per-row
     # activation quantization (its launches) and the kernel, the leaves as
     # the model holds them, K-major
@@ -3320,6 +3537,7 @@ def main() -> int:
     scan_launches, scan_timing = phase_scan_engine(dev, smi)
     mix_launches, mix_timing = phase_mixed_fleet(dev, cfg, eng, smi)
     cli_launches, cli_timing = phase_cli(dev, smi)
+    cli_mla_launches, cli_mla_timing = phase_cli(dev, smi, CLI_ARGV_MLA)
     dec_launches, dec_timing = phase_decode_serving(cfg, model, batch)
     phase_split_equals_full(cfg, model, batch)
     cpu_model = phase_card_vs_cpu(cfg, model, eng, batch)
@@ -3349,7 +3567,8 @@ def main() -> int:
              "edge-cluster loop": cluster_launches, "megafleet scan": scan_launches,
              f"{cfg.name} decode": dec_launches,
              f"{RG_ARCH} split": rg_launches, f"{RG_ARCH} decode": rg_dec_launches,
-             "mixed fleet": mix_launches, "simulate CLI (mixtral-8x22b execute)": cli_launches}
+             "mixed fleet": mix_launches, "simulate CLI (mixtral-8x22b execute)": cli_launches,
+             "simulate CLI (deepseek-v2-lite-16b execute)": cli_mla_launches}
     for arch, d in families.items():
         paths.update({f"{arch} split": d["split"], f"{arch} decode": d["decode"]})
     for kern in kernels:
@@ -3369,6 +3588,7 @@ def main() -> int:
     print(f"{RG_ARCH} peak device memory: {rg_peak} bytes")
     print("mixed fleet: " + json.dumps(mix_timing))
     print("simulate CLI: " + json.dumps(cli_timing))
+    print("simulate CLI (deepseek-v2-lite-16b): " + json.dumps(cli_mla_timing))
     for arch, d in families.items():
         B, S = FAMILIES[arch]["split"]
         print(f"{arch} per-infer ms (median of 3), {B} x {S} tokens: " + json.dumps(

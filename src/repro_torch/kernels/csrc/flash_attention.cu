@@ -2,9 +2,10 @@
 // tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
-// (_flash_kernel). q is (B, H, Sq, D) and k, v are (B, HK, Skv, D), each
-// given by its b, h and s strides with d contiguous, so the model's
-// (B, S, H, D) projections are read and written in place. Query head h
+// (_flash_kernel). q is (B, H, Sq, D), k (B, HK, Skv, D) and v (B, HK, Skv,
+// Dv), each given by its b, h and s strides with d contiguous, so the model's
+// (B, S, H, D) projections are read and written in place; the output is
+// (B, H, Sq, Dv), as the TPU kernel reads Dv from v's shape. Query head h
 // reads kv head h % HK, as the TPU kernel's index map does. Query row i sits
 // at position i and key j at position j; a key is visible when j < Skv,
 // j <= i (causal) and i - j < window. Masked scores are the finite -1e30 of
@@ -18,8 +19,11 @@
 // TF32 products per f32 product, 495 / 3 = 165 TFLOP/s of f32 work) 23 us.
 // At head_dim 256 (recurrentgemma-2b's split path: B=4, H=10, HK=1, S=512)
 // 5.38 GFLOP: 80 us on CUDA cores, 33 us in 3xTF32; its prefill (B=2,
-// S=2304 under the 2048 window) 53.7 GFLOP: 0.80 ms and 0.33 ms. The kernel
-// is bound by operations.
+// S=2304 under the 2048 window) 53.7 GFLOP: 0.80 ms and 0.33 ms. With
+// D != Dv the products are 2 (D + Dv) FLOP a visible pair: at
+// deepseek-v2-lite-16b's MLA split path (B=4, H=HK=16, S=512, D=192 of q/k,
+// Dv=128 of v, causal) 5.38 GFLOP, 33 us in 3xTF32 and 80 us on CUDA cores;
+// q, k, v and o are 21 MB, 6.3 us. The kernel is bound by operations.
 //
 // The design (FlashAttention-2's split of work): one block per (64-query
 // tile, head, batch row); each 16 query rows belong to one warp (two at
@@ -54,10 +58,18 @@
 //    exact, since every query row sees its own key, so a row's first
 //    visible tile flushes what masked tiles added. The mask is applied only
 //    on tiles that cross a boundary; padded rows of a ragged tile are zero.
-//  - Shared memory, f32: (64 + 4 x BKV) x (D + 4) x 4 bytes = 87,040 at
-//    D = 64 (two blocks an SM), 101,376 at D = 128 (two), and 199,680 plus
-//    9,728 of P exchange at D = 256 (one block of 8 warps an SM).
-// Head dims 64, 128 and 256.
+//  - Q and K rows are D wide, V rows and the output accumulator Dv wide:
+//    the QK^T k-steps and the Q and K tiles follow D, the PV product's
+//    output column groups, the V tiles and the store follow Dv.
+//  - Shared memory, f32: 64 x (D + 4) x 4 for Q plus two stages of BKV x
+//    (D + 4) (K) and BKV x (Dv + 4) (V) = 87,040 bytes at (D, Dv) = (64, 64)
+//    (two blocks an SM), 101,376 at (128, 128) (two), 199,680 plus 9,728 of
+//    P exchange at (256, 256) (one block of 8 warps an SM), 134,144 at
+//    (192, 128) (BKV 32, one warp a 16 rows; one block of 4 warps an SM) and
+//    58,368 at (48, 32) (BKV 64). Above 48 KB it needs the opt-in limit
+//    (227 KB on the H100), which the launch sets and checks.
+// Instances (D, Dv), each in f32 and bf16: (64, 64), (128, 128), (256, 256),
+// and deepseek-v2-lite-16b's MLA widths (192, 128) and, reduced, (48, 32).
 #include "common.cuh"
 
 namespace {
@@ -72,32 +84,42 @@ struct Strides {
   long long b, h, s;
 };
 
-template <typename T, int D>
+// A row of W elements in shared memory, padded by 16 bytes.
+template <typename T, int W>
+struct Row {
+  static constexpr int VEC = 16 / sizeof(T);       // elements per 16-byte copy
+  static constexpr int LD = W + VEC;               // padded row, in elements
+  static constexpr int CPR = W / VEC;              // 16-byte pieces per row
+};
+
+// D: the head dim of q and k; DV: that of v and o.
+template <typename T, int D, int DV>
 struct Tile {
   static constexpr int BKV = D >= 128 ? 32 : 64;   // keys per tile
-  static constexpr int WN = D >= 256 ? 2 : 1;      // warps that share 16 query rows
+  static constexpr int WN = DV >= 256 ? 2 : 1;     // warps that share 16 query rows
   static constexpr int THREADS = 32 * ROW_GROUPS * WN;
-  static constexpr int VEC = 16 / sizeof(T);       // elements per 16-byte copy
-  static constexpr int LD = D + VEC;               // padded row, in elements
-  static constexpr int CPR = D / VEC;              // 16-byte pieces per row
+  static constexpr int LD = Row<T, D>::LD;         // padded Q and K row
+  static constexpr int LDV = Row<T, DV>::LD;       // padded V row
+  static constexpr int STAGE = BKV * (LD + LDV);   // one stage of the ring: K, then V
   static constexpr int LDP = BKV + 4;              // row of the shared P tile (WN > 1)
   // Q, two stages of K and V; with WN > 1 also P and the row exchange
   static constexpr size_t SMEM =
-      sizeof(T) * (size_t)LD * (BQ + 4 * BKV) +
+      sizeof(T) * ((size_t)LD * BQ + 2 * (size_t)STAGE) +
       (WN > 1 ? sizeof(float) * (size_t)ROW_GROUPS * 16 * (LDP + WN) : 0);
 };
 
-// ROWS rows starting at row0 of a (rows, D) matrix with row stride `stride`
-// into shared memory; rows at or past `limit` are zero-filled, not read.
-template <typename T, int D, int ROWS>
+// ROWS rows starting at row0 of a (rows, W) matrix with row stride `stride`
+// into shared memory (padded rows); rows at or past `limit` are zero-filled,
+// not read.
+template <typename T, int W, int ROWS, int THREADS>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride, int row0,
                                           int limit) {
-  using C = Tile<T, D>;
-  for (int i = threadIdx.x; i < ROWS * C::CPR; i += C::THREADS) {
-    const int r = i / C::CPR, c = i % C::CPR;
+  using R = Row<T, W>;
+  for (int i = threadIdx.x; i < ROWS * R::CPR; i += THREADS) {
+    const int r = i / R::CPR, c = i % R::CPR;
     const bool ok = row0 + r < limit;
-    const T* g = src + (ok ? (long long)(row0 + r) * stride : 0) + c * C::VEC;
-    cp_async16(dst + r * C::LD + c * C::VEC, g, ok ? 16 : 0);
+    const T* g = src + (ok ? (long long)(row0 + r) * stride : 0) + c * R::VEC;
+    cp_async16(dst + r * R::LD + c * R::VEC, g, ok ? 16 : 0);
   }
 }
 
@@ -109,7 +131,7 @@ __device__ __forceinline__ void pair_sync(int rg) {
 // s[n] += Q (this warp's 16 rows) . K^T for NT groups of 8 keys.
 template <int D, int NT>
 __device__ __forceinline__ void qk(float (*s)[4], const float* Qw, const float* Ks, int g, int t) {
-  constexpr int LD = Tile<float, D>::LD;
+  constexpr int LD = Row<float, D>::LD;
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
     uint32_t ab[4], as[4];
@@ -132,7 +154,7 @@ __device__ __forceinline__ void qk(float (*s)[4], const float* Qw, const float* 
 template <int D, int NT>
 __device__ __forceinline__ void qk(float (*s)[4], const __nv_bfloat16* Qw,
                                    const __nv_bfloat16* Ks, int g, int t) {
-  constexpr int LD = Tile<__nv_bfloat16, D>::LD;
+  constexpr int LD = Row<__nv_bfloat16, D>::LD;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     uint32_t a[4];
@@ -171,11 +193,11 @@ __device__ __forceinline__ void p_frag(const float* Pw, int kk, int g, int t, ui
   p_frag(p, ab, as);
 }
 
-// o[n] += P (8 keys) . V for the NO 8-column groups of V at Vs.
-template <int D, int NO>
+// o[n] += P (8 keys) . V for the NO 8-column groups of V at Vs (rows of DV).
+template <int DV, int NO>
 __device__ __forceinline__ void pv_step(float (*o)[4], const uint32_t* ab, const uint32_t* as,
                                         const float* Vs, int kk, int g, int t) {
-  constexpr int LD = Tile<float, D>::LD;
+  constexpr int LD = Row<float, DV>::LD;
   const float* vr = Vs + (kk * 8 + 2 * t) * LD + g;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -201,10 +223,10 @@ __device__ __forceinline__ void p_frag16(const float* Pw, int kk, int g, int t, 
   p_frag16(lo, hi, a);
 }
 
-template <int D, int NO>
+template <int DV, int NO>
 __device__ __forceinline__ void pv_step16(float (*o)[4], const uint32_t* a,
                                           const __nv_bfloat16* Vs, int kk, int g, int t) {
-  constexpr int LD = Tile<__nv_bfloat16, D>::LD;
+  constexpr int LD = Row<__nv_bfloat16, DV>::LD;
   const unsigned short* vr = reinterpret_cast<const unsigned short*>(Vs) + (kk * 16 + 2 * t) * LD + g;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -215,9 +237,10 @@ __device__ __forceinline__ void pv_step16(float (*o)[4], const uint32_t* a,
   }
 }
 
-// o += P . V over the tile's BKV keys: P from the score registers s (the
-// warp scored every key, WN = 1) or, SHARED, from the shared tile Pw.
-template <int D, int BKV, int NO, bool SHARED>
+// o += P . V over the tile's BKV keys (V rows of DV): P from the score
+// registers s (the warp scored every key, WN = 1) or, SHARED, from the
+// shared tile Pw.
+template <int DV, int BKV, int NO, bool SHARED>
 __device__ __forceinline__ void pv(float (*o)[4], float (*s)[4], const float* Pw, const float* Vs,
                                    int g, int t) {
   constexpr int LDP = BKV + 4;
@@ -226,11 +249,11 @@ __device__ __forceinline__ void pv(float (*o)[4], float (*s)[4], const float* Pw
     uint32_t ab[4], as[4];
     if constexpr (SHARED) p_frag<LDP>(Pw, kk, g, t, ab, as);
     else p_frag(s[kk], ab, as);
-    pv_step<D, NO>(o, ab, as, Vs, kk, g, t);
+    pv_step<DV, NO>(o, ab, as, Vs, kk, g, t);
   }
 }
 
-template <int D, int BKV, int NO, bool SHARED>
+template <int DV, int BKV, int NO, bool SHARED>
 __device__ __forceinline__ void pv(float (*o)[4], float (*s)[4], const float* Pw,
                                    const __nv_bfloat16* Vs, int g, int t) {
   constexpr int LDP = BKV + 4;
@@ -239,7 +262,7 @@ __device__ __forceinline__ void pv(float (*o)[4], float (*s)[4], const float* Pw
     uint32_t a[4];
     if constexpr (SHARED) p_frag16<LDP>(Pw, kk, g, t, a);
     else p_frag16(s[2 * kk], s[2 * kk + 1], a);
-    pv_step16<D, NO>(o, a, Vs, kk, g, t);
+    pv_step16<DV, NO>(o, a, Vs, kk, g, t);
   }
 }
 
@@ -250,20 +273,21 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Tile<T, D>::THREADS, Tile<T, D>::WN > 1 ? 1 : 2)
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(Tile<T, D, DV>::THREADS, Tile<T, D, DV>::WN > 1 ? 1 : 2)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int BH, int H,
           int HK, int Sq, int Skv, int causal, int window, float scale_log2, int n_qtiles) {
-  using C = Tile<T, D>;
-  constexpr int BKV = C::BKV, LD = C::LD, WN = C::WN, LDP = C::LDP;
+  using C = Tile<T, D, DV>;
+  constexpr int BKV = C::BKV, LD = C::LD, WN = C::WN, LDP = C::LDP, STAGE = C::STAGE;
+  constexpr int THREADS = C::THREADS;
   constexpr int KW = BKV / WN, NT = KW / 8;     // keys this warp scores, in 8s
-  constexpr int NO = D / 8 / WN;                 // output 8-column groups of this warp
+  constexpr int NO = DV / 8 / WN;                // output 8-column groups of this warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* ring = Qs + BQ * LD;  // stage s: K at ring + 2s BKV LD, V after it
+  T* ring = Qs + BQ * LD;  // stage s: K (rows of LD) at ring + s STAGE, V (rows of LDV) after it
   // WN > 1: the P tile of each row group, then each warp's 16 row values
-  float* Ps = reinterpret_cast<float*>(ring + 4 * BKV * LD);
+  float* Ps = reinterpret_cast<float*>(ring + 2 * STAGE);
   float* xch = Ps + ROW_GROUPS * 16 * LDP;
 
   // heaviest causal q-tiles first: the tile index is the slowest grid index
@@ -281,7 +305,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int g = lane >> 2, t = lane & 3;
   const int w_first = q0 + rg * 16, w_last = min(w_first + 15, Sq - 1);
   const int r0 = w_first + g, r1 = r0 + 8;
-  const int kw0 = wh * KW, dw0 = wh * (D / WN);  // this warp's keys and columns
+  const int kw0 = wh * KW, dw0 = wh * (DV / WN);  // this warp's keys and output columns
   float* Pw = Ps + rg * 16 * LDP;
   float* xw = xch + (rg * WN + wh) * 16;         // this warp's row values
   const float* xp = xch + (rg * WN + (wh ^ 1)) * 16;  // its partner's
@@ -292,9 +316,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_begin = kv_begin / BKV, t_end = (kv_end + BKV - 1) / BKV;
 
-  load_rows<T, D, BQ>(Qs, qb, sq.s, q0, Sq);
-  load_rows<T, D, BKV>(ring, kb, sk.s, t_begin * BKV, Skv);
-  load_rows<T, D, BKV>(ring + BKV * LD, vb, sv.s, t_begin * BKV, Skv);
+  load_rows<T, D, BQ, THREADS>(Qs, qb, sq.s, q0, Sq);
+  load_rows<T, D, BKV, THREADS>(ring, kb, sk.s, t_begin * BKV, Skv);
+  load_rows<T, DV, BKV, THREADS>(ring + BKV * LD, vb, sv.s, t_begin * BKV, Skv);
   cp_async_commit();
 
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
@@ -305,9 +329,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int st = (tile - t_begin) & 1;
     if (tile + 1 < t_end) {
-      T* nxt = ring + (st ^ 1) * 2 * BKV * LD;
-      load_rows<T, D, BKV>(nxt, kb, sk.s, (tile + 1) * BKV, Skv);
-      load_rows<T, D, BKV>(nxt + BKV * LD, vb, sv.s, (tile + 1) * BKV, Skv);
+      T* nxt = ring + (st ^ 1) * STAGE;
+      load_rows<T, D, BKV, THREADS>(nxt, kb, sk.s, (tile + 1) * BKV, Skv);
+      load_rows<T, DV, BKV, THREADS>(nxt + BKV * LD, vb, sv.s, (tile + 1) * BKV, Skv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -321,7 +345,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const bool skip = w_first >= Sq || (causal && k0 > w_last) ||
                       (window > 0 && w_first - (k0 + BKV - 1) >= window);
     if (!skip) {
-      const T* Ks = ring + st * 2 * BKV * LD;
+      const T* Ks = ring + st * STAGE;
       const T* Vs = Ks + BKV * LD;
       float s[NT][4];
 #pragma unroll
@@ -392,9 +416,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           *reinterpret_cast<float2*>(Pw + (g + 8) * LDP + col) = make_float2(s[n][2], s[n][3]);
         }
         pair_sync(rg);
-        pv<D, BKV, NO, true>(acc, s, Pw, Vs + dw0, g, t);
+        pv<DV, BKV, NO, true>(acc, s, Pw, Vs + dw0, g, t);
       } else {
-        pv<D, BKV, NO, false>(acc, s, Pw, Vs, g, t);
+        pv<DV, BKV, NO, false>(acc, s, Pw, Vs, g, t);
       }
     }
     __syncthreads();  // the stage (and P) is free for the load after next
@@ -423,20 +447,21 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
            int H, int HK, int Sq, int Skv, int causal, int window, float scale,
            cudaStream_t stream) {
-  const size_t smem = Tile<T, D>::SMEM;
+  const size_t smem = Tile<T, D, DV>::SMEM;
   static size_t allowed[MAX_DEVICES] = {};  // one record per instantiation
-  cudaError_t err = allow_smem((const void*)flash_fwd<T, D>, smem, allowed);
+  // above the device's opt-in limit the attribute is refused: the launch never runs
+  cudaError_t err = allow_smem((const void*)flash_fwd<T, D, DV>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
   const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   const int n_qtiles = (Sq + BQ - 1) / BQ;
   const long long blocks = (long long)B * H * n_qtiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_fwd<T, D><<<(unsigned)blocks, Tile<T, D>::THREADS, smem, stream>>>(
+  flash_fwd<T, D, DV><<<(unsigned)blocks, Tile<T, D, DV>::THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, B * H, H, HK, Sq, Skv,
       causal, window, scale * LOG2E, n_qtiles);
   return (int)cudaGetLastError();
@@ -444,31 +469,32 @@ int launch(const void* q, const void* k, const void* v, void* o, const long long
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. strides: (b, h, s) element strides of
-// q, k, v and o, in that order; every pointer and s stride must be 16-byte
-// aligned (the wrapper sees to it). window <= 0 means no window. Returns the
-// CUDA error code of the launch (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. D: the head dim of q and k, Dv: that of
+// v and o; (D, Dv) one of the instances' pairs. strides: (b, h, s) element
+// strides of q, k, v and o, in that order; every pointer and s stride must be
+// 16-byte aligned (the wrapper sees to it). window <= 0 means no window.
+// Returns the CUDA error code of the launch (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    const long long* strides, int B, int H, int HK, int Sq,
-                                   int Skv, int D, int dtype, int causal, int window,
+                                   int Skv, int D, int Dv, int dtype, int causal, int window,
                                    float scale, void* stream) {
   if (B <= 0 || H <= 0 || HK <= 0 || H % HK != 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window, scale, s);
-  if (dtype == 0 && D == 256)
-    return launch<float, 256>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window,
-                                     scale, s);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window,
-                                      scale, s);
-  if (dtype == 1 && D == 256)
-    return launch<__nv_bfloat16, 256>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window,
-                                      scale, s);
+#define FA_INSTANCE(DT, T, DQK, DVO)                                                        \
+  if (dtype == DT && D == DQK && Dv == DVO)                                                 \
+    return launch<T, DQK, DVO>(q, k, v, o, strides, B, H, HK, Sq, Skv, causal, window, scale, \
+                               s);
+  FA_INSTANCE(0, float, 64, 64)
+  FA_INSTANCE(0, float, 128, 128)
+  FA_INSTANCE(0, float, 256, 256)
+  FA_INSTANCE(0, float, 192, 128)
+  FA_INSTANCE(0, float, 48, 32)
+  FA_INSTANCE(1, __nv_bfloat16, 64, 64)
+  FA_INSTANCE(1, __nv_bfloat16, 128, 128)
+  FA_INSTANCE(1, __nv_bfloat16, 256, 256)
+  FA_INSTANCE(1, __nv_bfloat16, 192, 128)
+  FA_INSTANCE(1, __nv_bfloat16, 48, 32)
+#undef FA_INSTANCE
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,10 @@ import torch
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None,
                         logit_scale=None):
-    """q: (B,H,Sq,D); k,v: (B,HK,Skv,D) -> (B,H,Sq,Dv)  [kernel layout].
+    """q: (B,H,Sq,D); k: (B,HK,Skv,D); v: (B,HK,Skv,Dv) -> (B,H,Sq,Dv)
+    [kernel layout]. v's head dim may differ from q's and k's (MLA's 192
+    and 128): the output has Dv columns and the default scale is D ** -0.5
+    of q's D, as ``plain_attention`` computes them.
 
     GQA: query head h reads kv head h % HK (plain_attention's grouping)."""
     # imported here (and in flash_decode_ref): models -> kernels.ops -> the

@@ -1,13 +1,15 @@
-"""GQA self-attention (port of ``repro.models.attention``, the dense path,
-with QKV and o biases, qwen3's per-head q/k norm and RoPE):
-whole sequences (train), prompt plus ring cache (prefill), and one token
-against the ring cache (decode).
+"""Self-attention (port of ``repro.models.attention``): GQA with QKV and o
+biases, qwen3's per-head q/k norm and RoPE; and DeepSeek-V2's MLA
+(multi-head latent attention, a compressed KV cache). Whole sequences
+(train), prompt plus ring cache (prefill), and one token against the ring
+cache (decode).
 
 Cache layout: {"k", "v"}: (B, C, HK, Dh) ring buffers indexed by
-``pos % C``, so sliding-window decode works with C == window. Slot validity
-is recovered positionally: slot s holds absolute position
-``pos - ((pos - s) mod C)`` (negative => empty). Decode writes the ring in
-place, where the reference returns a new buffer.
+``pos % C``, so sliding-window decode works with C == window; MLA's
+{"ckv": (B, C, R), "krope": (B, C, rope)} holds the compressed latent and
+the shared RoPE key instead. Slot validity is recovered positionally: slot
+s holds absolute position ``pos - ((pos - s) mod C)`` (negative => empty).
+Decode writes the ring in place, where the reference returns a new buffer.
 """
 from __future__ import annotations
 
@@ -122,3 +124,105 @@ class SelfAttention(nn.Module):
                              "v": ring_from_prefill(v, C)}
         out = self.wo(out.reshape(B, S, H * Dh))
         return (out if self.bo is None else out + self.bo), new_cache
+
+
+class MLAttention(nn.Module):
+    """DeepSeek-V2's multi-head latent attention (port of ``_apply_mla``).
+
+    q comes from one projection, ``wq`` (d, H * (nope + rope)), with RoPE on
+    its last ``rope`` columns of each head. k and v are expanded from a
+    compressed latent: ``dkv = x @ w_dkv`` (d, R + rope) splits into ``ckv``
+    (its first R columns, RMS-normed by ``kv_norm``) and one RoPE key of
+    ``rope`` columns shared by every head; k = [ckv @ w_uk per head, that
+    key], v = ckv @ w_uv per head. The cache holds ckv and the RoPE key
+    only. ``wq`` and ``wo`` (H * vd, d) are ``Dense`` leaves, which w8 and
+    w4 quantize; ``w_dkv``, ``w_uk`` (R, H * nope) and ``w_uv`` (R, H * vd)
+    stay float and are multiplied with ``@``, as in the reference.
+
+    Train and prefill attend through ``ac.attention`` at head dims (nope +
+    rope, vd): the flash kernel on CUDA. Decode re-expands k and v from the
+    whole ring each step and runs ``plain_attention`` (the expanded form),
+    or, with ``absorb`` (``cfg.mla_absorb``), scores q's latent ``q_nope @
+    w_uk`` and its RoPE part against [ckv, key] as one kv head and maps
+    ``probs @ ckv`` through ``w_uv`` (the absorbed form); both are plain
+    attention, as in the reference. ``absorb`` is an attribute, so one
+    model serves both forms."""
+
+    def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                 window: Optional[int] = None):
+        super().__init__()
+        self.n_heads = cfg.n_heads
+        self.nope, self.rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        self.v_dim, self.rank = cfg.v_head_dim, cfg.kv_lora_rank
+        self.rope_theta = cfg.rope_theta
+        self.window = window
+        self.absorb = cfg.mla_absorb
+        self.wq, self.wo = Dense(p["wq"]), Dense(p["wo"])
+        for n in ("w_dkv", "kv_norm", "w_uk", "w_uv"):
+            setattr(self, n, nn.Parameter(p[n], requires_grad=False))
+
+    def _expand(self, ckv: torch.Tensor, krope: torch.Tensor):
+        """Per-head k (..., H, nope + rope) and v (..., H, vd) from the latent
+        ckv (..., R) and the shared key krope (..., 1, rope)."""
+        H, lead = self.n_heads, ckv.shape[:-1]
+        k_nope = (ckv @ self.w_uk).view(*lead, H, self.nope)
+        v = (ckv @ self.w_uv).view(*lead, H, self.v_dim)
+        k = torch.cat([k_nope, krope.expand(*lead, H, self.rope)], dim=-1)
+        return k, v
+
+    def forward(self, x: torch.Tensor, pos0: int = 0, mode: str = "train",
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_len: Optional[int] = None):
+        """Returns (out, new_cache); new_cache is None in train mode.
+
+        prefill: attention over the whole prompt, and rings of ``cache_len``
+        slots (default S) of ckv and the RoPE key. decode (S == 1): both are
+        written in place at slot ``pos0 % C`` of ``cache``, which is
+        returned, then the query attends over the ring. ``pos0`` is a host
+        int."""
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r} not in {MODES}")
+        B, S, _ = x.shape
+        H, nope, rope, vd, R = self.n_heads, self.nope, self.rope, self.v_dim, self.rank
+        positions = pos0 + torch.arange(S, device=x.device)
+
+        q = self.wq(x).view(B, S, H, nope + rope)
+        q_nope = q[..., :nope]
+        q_rope = apply_rope(q[..., nope:], positions, self.rope_theta)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+
+        dkv = x @ self.w_dkv                                     # (B, S, R + rope)
+        ckv = apply_norm(dkv[..., :R], self.kv_norm)
+        krope = apply_rope(dkv[..., R:][:, :, None, :], positions,
+                           self.rope_theta)                      # (B, S, 1, rope)
+
+        scale = (nope + rope) ** -0.5
+        new_cache = None
+        if mode == "decode":
+            ckv_c = ring_write_step(cache["ckv"], ckv[:, 0], pos0)
+            kr_c = ring_write_step(cache["krope"], krope[:, 0, 0], pos0)
+            new_cache = {"ckv": ckv_c, "krope": kr_c}
+            kv_pos = slot_positions(pos0, ckv_c.shape[1], device=x.device)
+            if self.absorb:
+                q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, self.w_uk.view(R, H, nope))
+                q_cat = torch.cat([q_lat, q_rope], dim=-1)          # (B, 1, H, R + rope)
+                k_cat = torch.cat([ckv_c, kr_c], dim=-1)[:, :, None, :]   # (B, C, 1, R + rope)
+                out_lat = ac.plain_attention(
+                    q_cat, k_cat, ckv_c[:, :, None, :], q_positions=positions,
+                    kv_positions=kv_pos, causal=True, window=self.window,
+                    logit_scale=scale)                              # (B, 1, H, R)
+                out = torch.einsum("bqhr,rhv->bqhv", out_lat, self.w_uv.view(R, H, vd))
+            else:
+                k, v = self._expand(ckv_c, kr_c[:, :, None, :])
+                out = ac.plain_attention(q, k, v, q_positions=positions,
+                                         kv_positions=kv_pos, causal=True,
+                                         window=self.window, logit_scale=scale)
+        else:
+            k, v = self._expand(ckv, krope)
+            out = ac.attention(q, k, v, q_positions=positions, kv_positions=positions,
+                               causal=True, window=self.window, logit_scale=scale)
+            if mode == "prefill":
+                C = cache_len if cache_len is not None else S
+                new_cache = {"ckv": ring_from_prefill(ckv, C),
+                             "krope": ring_from_prefill(krope[:, :, 0], C)}
+        return self.wo(out.reshape(B, S, H * vd)), new_cache

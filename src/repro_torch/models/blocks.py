@@ -1,5 +1,5 @@
 """Blocks (port of ``repro.models.blocks``): the ``attn`` kind, pre-norm
-self-attention plus pre-norm MLP (with biases under ``attn_bias``) or, in
+self-attention (GQA, or MLA under ``use_mla``) plus pre-norm MLP (with biases under ``attn_bias``) or, in
 an MoE layer, the pre-norm mixture of experts, each with a residual; the
 ``ssm`` kind, a pre-norm Mamba mixer with a residual; the ``rec`` kind,
 a pre-norm RG-LRU mixer plus pre-norm MLP, each with a residual. The
@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import SelfAttention
+from repro_torch.models.attention import MLAttention, SelfAttention
 from repro_torch.models.layers import MLP, build_norm
 from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RecMixer
@@ -50,7 +50,8 @@ class Block(nn.Module):
                  window: Optional[int] = None, moe: bool = False):
         super().__init__()
         self.norm1 = build_norm(p, "norm1")
-        self.attn = SelfAttention(cfg, _sub(p, "attn/"), window=window)
+        attn = MLAttention if cfg.use_mla else SelfAttention
+        self.attn = attn(cfg, _sub(p, "attn/"), window=window)
         self.norm2 = build_norm(p, "norm2")
         self.moe = _moe(cfg, p) if moe else None
         self.mlp = None if moe else _mlp(cfg, p)

@@ -19,7 +19,8 @@ class under the name it had while only dense models ran.
 
 Serving runs ``prefill`` (the prompt, building one cache per layer) and
 then ``decode_step`` per token. The cache tree mirrors the reference's:
-{stack: {sub: {"k", "v": (steps, B, C, HK, Dh)}}} for attention rings,
+{stack: {sub: {"k", "v": (steps, B, C, HK, Dh)}}} for attention rings
+(MLA's {"ckv": (steps, B, C, R), "krope": (steps, B, C, rope)}),
 {stack: {sub: {"conv": (steps, B, K-1, di), "ssm": (steps, B, di, N)}}} for
 the Mamba state and {stack: {sub: {"conv": (steps, B, K-1, w), "lru":
 (steps, B, w)}}} for the RG-LRU state. Decode updates every leaf in place.
@@ -63,11 +64,10 @@ def check_ported(cfg: ModelConfig) -> None:
     falcon-mamba's features, a Griffin hybrid with recurrentgemma's (a
     block pattern of ``rec`` and ``attn`` blocks, local attention, the
     Gemma embedding scale), or a mixture-of-experts model (top-k routed
-    experts with capacity, shared experts, leading dense layers). The vlm
-    and audio families and MLA attention are not ported yet, and each is
-    refused by name."""
-    families = (("vlm", bool(cfg.cross_attn_every)), ("audio", cfg.enc_dec),
-                ("MLA", cfg.use_mla))
+    experts with capacity, shared experts, leading dense layers), with GQA
+    or MLA attention. The vlm and audio families are not ported yet, and
+    each is refused by name."""
+    families = (("vlm", bool(cfg.cross_attn_every)), ("audio", cfg.enc_dec))
     missing = [name for name, on in families if on]
     if cfg.family not in ("dense", "ssm", "hybrid", "moe"):
         missing.insert(0, cfg.family)
@@ -272,6 +272,8 @@ def _cache_shapes(cfg: ModelConfig, sub: Sub, seq_len: int):
         w = cfg.resolved_lru_width
         return {"conv": (cfg.ssm_conv - 1, w), "lru": (w,)}
     C = _cache_len(_sub_window(cfg, sub), seq_len)
+    if cfg.use_mla:
+        return {"ckv": (C, cfg.kv_lora_rank), "krope": (C, cfg.qk_rope_head_dim)}
     Dh, HK = cfg.resolved_head_dim, cfg.n_kv_heads
     return {"k": (C, HK, Dh), "v": (C, HK, Dh)}
 
@@ -295,10 +297,14 @@ _CACHE_AXES = {
     "rec": {"conv": ("layers", "batch", None, "lru"), "lru": ("layers", "batch", "lru")},
     "attn": {"k": ("layers", "batch", "kv_cache_seq", "kv_heads", None),
              "v": ("layers", "batch", "kv_cache_seq", "kv_heads", None)},
+    "mla": {"ckv": ("layers", "batch", "kv_cache_seq", None),
+            "krope": ("layers", "batch", "kv_cache_seq", None)},
 }
 
 
 def cache_axes(cfg: ModelConfig):
     """Logical axis names of every cache leaf, in ``init_cache``'s tree."""
-    return {s.name: {sub.name: dict(_CACHE_AXES[sub.kind]) for sub in s.subs}
+    def kind(sub):
+        return "mla" if cfg.use_mla and sub.kind == "attn" else sub.kind
+    return {s.name: {sub.name: dict(_CACHE_AXES[kind(sub)]) for sub in s.subs}
             for s in stack_defs(cfg)}

@@ -105,6 +105,21 @@ def _moe_plan(cfg: ModelConfig) -> Dict[str, P]:
     return plan
 
 
+def _mla_plan(cfg: ModelConfig) -> Dict[str, P]:
+    """MLA's attention leaves (``plan_self_attn`` under ``use_mla``): q's
+    projection, the latent's down projection and norm, its up projections
+    to k's nope part and to v, and the output projection."""
+    d, H = cfg.d_model, cfg.n_heads
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    vd, R = cfg.v_head_dim, cfg.kv_lora_rank
+    return {"attn/wq": P((d, H * (nope + rope))),
+            "attn/w_dkv": P((d, R + rope)),
+            "attn/kv_norm": P((R,), "ones"),
+            "attn/w_uk": P((R, H * nope)),
+            "attn/w_uv": P((R, H * vd)),
+            "attn/wo": P((H * vd, d))}
+
+
 def _block_plan(cfg: ModelConfig, kind: str, moe: bool = False) -> Dict[str, P]:
     """One block's leaves; ``moe`` puts the MoE's in place of the MLP's."""
     if kind == "ssm":
@@ -115,10 +130,11 @@ def _block_plan(cfg: ModelConfig, kind: str, moe: bool = False) -> Dict[str, P]:
     H, HK = cfg.n_heads, cfg.n_kv_heads
     plan = {
         **_norm_plan(cfg, "norm1"),
-        "attn/wq": P((d, H * Dh)),
-        "attn/wk": P((d, HK * Dh)),
-        "attn/wv": P((d, HK * Dh)),
-        "attn/wo": P((H * Dh, d)),
+        **(_mla_plan(cfg) if cfg.use_mla else {
+            "attn/wq": P((d, H * Dh)),
+            "attn/wk": P((d, HK * Dh)),
+            "attn/wv": P((d, HK * Dh)),
+            "attn/wo": P((H * Dh, d))}),
         **_norm_plan(cfg, "norm2"),
         # the reference's MLP biases ride along with the attention's
         **(_moe_plan(cfg) if moe else _mlp_plan(cfg, bias=cfg.attn_bias)),

@@ -154,7 +154,7 @@ def test_unported_families_raise():
     for kw in (dict(family="ssm"),
                dict(family="hybrid"),
                dict(family="vlm", cross_attn_every=2),
-               dict(family="audio", enc_dec=True), dict(use_mla=True),
+               dict(family="audio", enc_dec=True),
                dict(family="hybrid", block_pattern=("rec", "xattn"))):
         with pytest.raises(NotImplementedError):
             stack_defs(cfg.with_overrides(**kw))
