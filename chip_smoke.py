@@ -31,7 +31,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (one chunk, 1 x 1 x 100; a walk of 32 chunks over one tile, 1 x 8192 x
    32; ragged tiles and chunks, 3 x 4099 x 2600 and 6 x 1000 x 2600, in
    8-warp and 4-warp chunks) and at the paths' shapes
-   (RS_PATHS), two calls and two replays of a CUDA graph bit for bit.
+   (RS_PATHS), two calls and two replays of a CUDA graph bit for bit;
+   the cross-attention families' shapes: flash_attention without a mask
+   at Sq != Skv (64/8 heads of 128 over 1601 media tokens at Sq = 1, 40
+   and 512; 20/20 heads of 64 over 1500 frames at Sq = 1 and 448;
+   whisper's encoder at Sq = Skv = 1500; a GQA case whose h % HK and h //
+   G differ), flash_decode at G = 1 (20/20, D 64) over 448-slot rings and
+   over full cross caches at pos = C - 1 (C 1601, D 128, G 8; C 1500, D
+   64, G 1), and quant_matmul bit for bit at both families' w8 shapes.
 3. Main path: full-width qwen2-0.5b (random weights from torch.Generator
    seed 0) served by ``SplitServingEngine``: 8 requests x 512 tokens for
    each version (bf16, w8, w4) at cuts 1, 12 and 24, with the kernels'
@@ -236,6 +243,29 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    expanded form from clones of one prefill cache; card against CPU at
    depth 2 over 64 tokens, with the first MoE layer's top-6 choices card
    against CPU and the probability gap at any flip.
+9f. llama-3.2-vision-90b through the same phases at its published widths
+   (d_model 8192, 64/8 heads of 128, SwiGLU 28,672, vocab 128,256,
+   untied) with its depth cut from 100 to 11 layers: two periods of (4
+   attn, 1 xattn) and a 1-layer attn tail, 11,513,552,900 parameters
+   (46.05 GB f32), the gates drawn nonzero from a seed; split 2 x 512,
+   each row with 1601 random media embeddings, at cuts ('period', 1),
+   ('period', 2), ('tail', 1) (11 flash_attention an infer: 9 self, 2
+   cross; 78 quant_matmul a w8 infer); decode 2 x 512 + 32 (11
+   flash_attention in the prefill, 9 self flash_decode and 2 one-token
+   cross steps through flash_decode a step) and 4 requests in 2 slots
+   (zero media, as the reference feeds); the teacher-forced check; card
+   against CPU at 2 layers with cross_attn_every 2 (one attn, one xattn;
+   3,812,663,298 parameters built fresh) over 64 tokens.
+9g. whisper-large-v3 through the same phases, whole (32 encoder and 32
+   decoder layers, d_model 1280, 20/20 heads of 64, gelu 5120,
+   LayerNorm, attention and MLP biases, sinusoidal positions, untied head
+   of 51,866; 1,601,812,480 parameters): split 4 x 448 over 4 x 1500
+   random frames at cuts 1, 16, 32 (128 flash_attention an infer: the
+   encoder's 32 in the head and again in the tail, 32 self, 32 cross; 705
+   quant_matmul a w8 infer); decode 4 x 416 + 32 (96 flash_attention in
+   the prefill, 64 flash_decode a step: 32 self at G = 1 and 32 cross
+   steps) and 8 requests in 4 slots (zero frames); the teacher-forced
+   check; card against CPU at 2 + 2 layers over 64 tokens.
 7. Timing: each kernel at the main path's shapes beside its plain version,
    one PyTorch library call for the same function where there is one, and
    its bound; flash_attention and flash_decode also at recurrentgemma's
@@ -261,7 +291,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    at its attention's four projections and its head (M = 2048). At
    deepseek-v2-lite-16b's: flash_attention at its split path (4 x 16/16 x
    512, q/k 192, v 128; SDPA with v of 128 as the library call),
-   quant_matmul at MLA's wq and wo and its head (M = 2048).
+   quant_matmul at MLA's wq and wo and its head (M = 2048). At the
+   cross-attention families': flash_attention without a mask at the vlm
+   image layer (2 x 64/8 x 512 over 1601 media tokens), whisper's encoder
+   (4 x 20/20 x 1500 over 1500) and its cross-attention (448 over 1500),
+   each beside SDPA; the one-token cross steps over full cross caches
+   (flash_decode at pos = C - 1, the route the models take, beside
+   flash_attention at Sq = 1 and SDPA); quant_matmul at the vlm w8 layer
+   and head (M = 1024) and whisper's decoder layer and head (M = 1792).
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -386,6 +423,10 @@ SCAN_SLO_ABS, SCAN_MEAN_REL, SCAN_ENERGY_REL, SCAN_SHARE_ABS = 0.05, 0.15, 0.01,
 # 0.53x the mean.) A kernel or wiring fault gives errors well above it.
 CPU_TOL = 1e-3
 W8_GAP_MAX, W8_GAP_MEAN = 1.0, 0.75
+# the cross-attention families' w8 (compare_split_card_cpu's trace): a code
+# that f32 rounding flips sits within this of a half-way point of x / scale
+# (f32 sums in another order move x / scale by ~1e-5 of its range, 127)
+FLIP_HALF = 1e-2
 FM_ARCH, FM_BATCH, FM_SEQ = "falcon-mamba-7b", 2, 512
 # mamba_scan: tests/test_kernels.py::test_mamba_scan_sweep's cases and
 # tolerance (B, S, DI, N), a ragged one, then the path's shape
@@ -477,7 +518,66 @@ FAMILIES = {
     "deepseek-v2-lite-16b": dict(label="9e", split=(4, 512), cuts=(("dense0", 1), 13, 26),
                                  decode=(4, 512, 32), srv=(8, 4, 256, (64, 200), (8, 16)),
                                  params=15_647_895_040, cpu_seq=64),
+    # the published widths (d_model 8192, 64/8 heads of 128, SwiGLU 28,672,
+    # vocab 128,256) with the depth cut from 100 layers to 11: two periods of
+    # (4 attn, 1 xattn) and a 1-layer attn tail, 46.05 GB of f32 (three
+    # periods would be 59.7 GB plus ~14 GB of w8 codes, too close to 80 GB);
+    # each row attends to one image tile of 1601 random media embeddings,
+    # the gates drawn nonzero from a seed; the card-CPU comparison at 2
+    # layers with cross_attn_every 2 (one attn, one xattn: 3,812,663,298
+    # parameters, 15.3 GB of f32 on the host, built fresh)
+    "llama-3.2-vision-90b": dict(label="9f", split=(2, 512),
+                                 cuts=(("period", 1), ("period", 2), ("tail", 1)),
+                                 decode=(2, 512, 32), srv=(4, 2, 256, (64, 200), (8, 16)),
+                                 params=11_513_552_900, layers=11,
+                                 cpu=dict(n_layers=2, cross_attn_every=2), cpu_seq=64),
+    # the published model whole (32 encoder and 32 decoder layers, 6.41 GB of
+    # f32): the decoder's published 448-token context over 1500 random frame
+    # embeddings a row; the encoder runs in the head and again in the tail
+    # of a split infer, as in the reference; the card-CPU comparison at 2 + 2
+    # layers, built fresh
+    "whisper-large-v3": dict(label="9g", split=(4, 448), cuts=(1, 16, 32), decode=(4, 416, 32),
+                             srv=(8, 4, 448, (64, 200), (8, 16)), params=1_601_812_480,
+                             cpu=dict(n_layers=2, n_encoder_layers=2), cpu_seq=64),
 }
+# the cross-attention families' new kernel shapes (phase 2): flash_attention
+# without a mask, q of (B, H, Sq, D) against k, v over Skv media tokens or
+# encoder frames, (B, H, HK, Sq, Skv, D): llama-3.2-vision's image layers
+# (64/8 heads of 128 over 1601 media tokens) at one token, a short prompt
+# and the split path's 512; whisper's cross-attention (20/20 heads of 64
+# over 1500 frames) at one token and its 448-token context; whisper's
+# encoder (Sq = Skv = 1500); a GQA case where h % HK and h // G differ
+FA_CROSS_CASES = tuple((2, 64, 8, Sq, 1601, 128) for Sq in (1, 40, 512)) + tuple(
+    (4, 20, 20, Sq, 1500, 64) for Sq in (1, 448)) + ((4, 20, 20, 1500, 1500, 64),
+                                                     (2, 14, 2, 40, 100, 64))
+# flash_decode at whisper's G = 1 over a ring (B, H, HK, C, D, pos, window):
+# its decode step's 448-slot rings, and one wrapped; then the one-token
+# cross step over full cross caches (pos = C - 1, every slot visible):
+# llama-3.2-vision's 1601 media tokens at G 8, whisper's 1500 frames at G 1
+FD_CROSS_CASES = ((4, 20, 20, 448, 64, 430, None), (4, 20, 20, 448, 64, 700, None),
+                  (2, 64, 8, 1601, 128, 1600, None), (4, 20, 20, 1500, 64, 1499, None))
+# quant_matmul at the cross-attention families' w8 shapes (M, (K, N)...):
+# llama-3.2-vision's projections at the split path's 2 x 512 rows and the
+# media's 2 x 1601 (the cross-attention's wk, wv), its head at 1024 rows;
+# whisper's at the encoder's 4 x 1500 frames and the decoder's 4 x 448
+# tokens, its head at 1792
+VLM_QMM = ((8192, 8192), (8192, 1024), (8192, 28_672), (28_672, 8192))
+WH_QMM = ((1280, 1280), (1280, 5120), (5120, 1280))
+QMM_CROSS_CASES = ([(M, K, N) for M in (1024, 3202) for K, N in VLM_QMM]
+                   + [(1024, 8192, 128_256)]
+                   + [(M, K, N) for M in (6000, 1792) for K, N in WH_QMM]
+                   + [(1792, 1280, 51_866)])
+# the cross-attention families' attention shapes timed in phase 7 (and by
+# scripts/kernel_timing.py), (B, H, HK, Sq, Skv, D), no mask: the vlm image
+# layer at the split path's 512 tokens, whisper's encoder, whisper's cross
+# attention at its 448-token context; and the one-token cross steps (B, H,
+# HK, C, D, caches), each over full cross caches at pos = C - 1, read in
+# turn: whisper's 32 cross layers; llama-3.2-vision's 2 read 4 times over,
+# so that they do not sit in the 50 MB L2 (the path reads 9 self-attention
+# rings between them)
+FA_CROSS_PATHS = ((2, 64, 8, 512, 1601, 128), (4, 20, 20, 1500, 1500, 64),
+                  (4, 20, 20, 448, 1500, 64))
+FD_CROSS_PATHS = ((2, 64, 8, 1601, 128, 4), (4, 20, 20, 1500, 64, 32))
 # teacher-forced decode against forward on the card: the same f32 function
 # through the prefill's kernel and the decode step; the CPU comparison's
 # depth (unless the family names its own) and decode steps
@@ -600,8 +700,85 @@ def phase_kernel_checks(dev):
     ms_err = check_mamba_scan(dev, g)
     check_flash_attention_wide(dev, g)
     check_flash_attention_mla(dev, g)
+    qmm_err = max(qmm_err, check_cross_kernels(dev, g))
     rs_err = check_rglru_scan(dev, g)
     return qmm_err, ms_err, rs_err
+
+
+def check_cross_kernels(dev, g):
+    """The cross-attention families' shapes: flash_attention without a mask
+    at Sq != Skv (FA_CROSS_CASES, f32 and bf16, views of (B, S, H, D)
+    tensors; the GQA case also against the h // G map), flash_decode at
+    whisper's G = 1 and over full cross caches at pos = C - 1
+    (FD_CROSS_CASES, (B, C, HK, D) caches viewed as (B, HK, C, D)), and
+    quant_matmul bit for bit at both families' w8 shapes (QMM_CROSS_CASES,
+    w_q K-major as a w8a8 leaf holds it), each line naming its plan.
+    Returns quant_matmul's largest error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import quant_matmul as qmm
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, H, HK, Sq, Skv, D in FA_CROSS_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+            k, v = (torch.randn(B, Skv, HK, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+                    for _ in range(2))
+            out = fa.flash_attention(q, k, v, causal=False)
+            ref = fa.flash_attention_ref(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            tol = FA_TOL[str(dtype).split(".")[1]]
+            err = (out.float() - ref.float()).abs().max().item()
+            what = (f"flash_attention {str(dtype)[6:]} B={B} H={H} HK={HK} Sq={Sq} Skv={Skv} "
+                    f"D={D} causal=False: max_abs_err={err:.3g} (tol {tol})")
+            ok = tuple(out.shape) == (B, H, Sq, D) and torch.allclose(
+                out.float(), ref.float(), rtol=tol, atol=tol)
+            if H // HK not in (1, H) and dtype == torch.float32:
+                G = H // HK
+                by_div = fa.flash_attention_ref(q, k.repeat_interleave(G, 1),
+                                                v.repeat_interleave(G, 1), causal=False)
+                e_div = (out - by_div).abs().max().item()
+                ok = ok and e_div > 0.1
+                what += f"; |out - ref(h // G)| = {e_div:.3g}"
+            check(ok, what)
+    for B, H, HK, C, D, pos, window in FD_CROSS_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
+            k, v = (torch.randn(B, C, HK, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+                    for _ in range(2))
+            out = fd.flash_decode(q, k, v, pos, window=window)
+            ref = fd.flash_decode_ref(q, k, v, pos, window=window)
+            torch.cuda.synchronize()
+            tol = FA_TOL[str(dtype).split(".")[1]]
+            err = (out.float() - ref.float()).abs().max().item()
+            p = fd.plan(B, H, HK, C, D, pos, window, sms)
+            full = pos == C - 1
+            if full and dtype == torch.float32:
+                # the cross step's contract: every slot visible, the
+                # reference's unmasked softmax over all C keys
+                plain = fa.flash_attention_ref(q[:, :, None], k, v, causal=False)[:, :, 0]
+                err = max(err, (out - plain).abs().max().item())
+            check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol) and err <= tol,
+                  f"flash_decode {str(dtype)[6:]} B={B} H={H} HK={HK} C={C} D={D} pos={pos} "
+                  f"{'(a full cross cache) ' if full else ''}window={window}: "
+                  f"max_abs_err={err:.3g} (tol {tol}); plan {p}")
+    err_max = 0.0
+    for M, K, N in QMM_CROSS_CASES:
+        xq, wq, xs, ws = _qmm_inputs(M, K, N, g, dev)
+        ref = qmm.quant_matmul_ref(xq, wq, xs, ws)
+        w = wq.t().contiguous().t()
+        del wq
+        out = qmm.quant_matmul(xq, w, xs, ws)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        err_max = max(err_max, err)
+        p = qmm.plan(M, N, K, sms)
+        check(torch.equal(out, ref),
+              f"quant_matmul M={M} K={K} N={N} ({p.regime}, {p.tiles} tiles of {p.mt} x "
+              f"{p.bn}, {p.splits} split(s), w_q K-major): bit-exact, max_abs_err={err}")
+        del xq, w, ref, out
+    _free()
+    return err_max
 
 
 def check_flash_attention_wide(dev, g):
@@ -2216,14 +2393,65 @@ def phase_split_equals_full(cfg, model, batch):
           f"split vs full: max_abs_err={err:.3g} (tol 2e-4)")
 
 
-def compare_split_card_cpu(eng, cpu_eng, one, cut):
+@contextlib.contextmanager
+def _recording_quantize_act(rec):
+    """Every activation quantization of the port (the projections' in
+    ``kernels.ops`` and the link's in ``serving.engine``) appended to
+    ``rec`` in call order as host arrays (x, codes, scale)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine
+    fn = ops.quantize_act
+
+    def quantize_act(x):
+        q, scale = fn(x)
+        rec.append(tuple(t.detach().cpu().numpy() for t in (x, q, scale)))
+        return q, scale
+    ops.quantize_act = engine.quantize_act = quantize_act
+    try:
+        yield rec
+    finally:
+        ops.quantize_act = engine.quantize_act = fn
+
+
+def _first_flip(card_rec, cpu_rec):
+    """Where the int8 codes of two runs' activation quantizations first
+    part, and how: (index or None, calls, inputs' max gap there, largest
+    code step, largest distance of a moved code's x / scale from a half-way
+    point). Codes that part by one step at a half-way point come from f32
+    rounding (sums in another order); any other start is a fault."""
+    import numpy as np
+    if [r[1].shape for r in card_rec] != [r[1].shape for r in cpu_rec]:
+        return -1, len(card_rec), math.inf, math.inf, math.inf
+    for i, (a, b) in enumerate(zip(card_rec, cpu_rec)):
+        moved = a[1] != b[1]
+        if moved.any():
+            steps = np.abs(a[1].astype(np.int32) - b[1].astype(np.int32))[moved]
+            t = (b[0] / b[2])[moved]
+            half = np.abs(np.abs(t - np.floor(t)) - 0.5)
+            return (i, len(card_rec), float(np.abs(a[0] - b[0]).max()), int(steps.max()),
+                    float(half.max()))
+    return None, len(card_rec), 0.0, 0, 0.0
+
+
+def compare_split_card_cpu(eng, cpu_eng, one, cut, trace_w8=False):
     """One request through every version at ``cut``, on the card and on the
-    CPU: bf16 and w4 within CPU_TOL, w8 within its own quantization error."""
+    CPU: bf16 and w4 within CPU_TOL, w8 within its own quantization error.
+    With ``trace_w8`` (the cross-attention families, whose media or
+    frames feed every cross layer, so that one int8 code flipped by f32
+    rounding cascades through every layer after it) w8 is held within the
+    max of that error and by where its first flipped code comes from:
+    every activation quantization traced on both devices, the first that
+    parts must part by single steps at half-way points (within
+    FLIP_HALF), or none parts."""
     import torch
     cpu_logits = {}
     for version in VERSIONS:
-        gl, gb = eng.infer(one, cut, version)
-        cl, cb = cpu_eng.infer({"tokens": one["tokens"].cpu()}, cut, version)
+        traced = trace_w8 and version == "w8"
+        card_rec, cpu_rec = [], []
+        with _recording_quantize_act(card_rec) if traced else contextlib.nullcontext():
+            gl, gb = eng.infer(one, cut, version)
+        with _recording_quantize_act(cpu_rec) if traced else contextlib.nullcontext():
+            cl, cb = cpu_eng.infer({k: v.cpu() for k, v in one.items()}, cut, version)
         cpu_logits[version] = cl
         diff = (gl.cpu() - cl).abs()
         err, mean = diff.max().item(), diff.mean().item()
@@ -2231,10 +2459,20 @@ def compare_split_card_cpu(eng, cpu_eng, one, cut):
                 f"mean_abs_err={mean:.3g}; max |logit| {cl.abs().max().item():.3g}")
         if version == "w8":
             qerr = (cl - cpu_logits["bf16"]).abs()
-            ok = (err <= W8_GAP_MAX * qerr.max().item()
-                  and mean <= W8_GAP_MEAN * qerr.mean().item())
+            within_max = err <= W8_GAP_MAX * qerr.max().item()
             what += (f" (w8 quantization error on the CPU: max {qerr.max().item():.3g}, "
-                     f"mean {qerr.mean().item():.3g}; limits x{W8_GAP_MAX}, x{W8_GAP_MEAN})")
+                     f"mean {qerr.mean().item():.3g}; limits x{W8_GAP_MAX}")
+            if traced:
+                first, n, x_gap, step, half = _first_flip(card_rec, cpu_rec)
+                ok = within_max and (first is None or (
+                    first >= 0 and step == 1 and half <= FLIP_HALF))
+                what += (f"; mean at x{mean / qerr.mean().item():.2f} of it; the first of "
+                         f"{n} activation quantizations whose codes part: {first} (inputs "
+                         f"within {x_gap:.3g}, largest step {step}, moved codes within "
+                         f"{half:.3g} of a half-way point, limit {FLIP_HALF}))")
+            else:
+                ok = within_max and mean <= W8_GAP_MEAN * qerr.mean().item()
+                what += f", x{W8_GAP_MEAN})"
         else:
             ok = torch.allclose(gl.cpu(), cl, rtol=CPU_TOL, atol=CPU_TOL)
             what += f" (tol {CPU_TOL})"
@@ -2253,21 +2491,25 @@ def phase_card_vs_cpu(cfg, model, eng, batch):
     return cpu_model
 
 
-def compare_decode_card_cpu(cfg, model, cpu_model, one, n_new):
-    """``n_new`` greedy tokens of the prompt ``one`` (1, S) on the card; then
-    the prefill's logits and each decode step's, fed the card's tokens, on
-    both devices, held within CPU_TOL step by step."""
+def compare_decode_card_cpu(cfg, model, cpu_model, one, n_new, extra=None):
+    """``n_new`` greedy tokens of the prompt ``one`` (1, S) on the card (with
+    the media or frames of ``extra``, on the card, for a cross-attention
+    family); then the prefill's logits and each decode step's, fed the
+    card's tokens, on both devices, held within CPU_TOL step by step."""
     import torch
     from repro_torch.models import decode_step, prefill
     from repro_torch.serving import ServeConfig, ServingEngine
     S = one.shape[1]
     total = S + n_new
+    extra = extra or {}
     toks = ServingEngine(cfg, model, ServeConfig(max_new_tokens=n_new, cache_len=total)
-                         ).generate({"tokens": one}).cpu()
+                         ).generate({"tokens": one, **extra}).cpu()
 
     @torch.inference_mode()
     def logits(m, device):
-        lg, cache = prefill(cfg, m, {"tokens": one.to(device)}, total_len=total)
+        lg, cache = prefill(cfg, m, {"tokens": one.to(device),
+                                     **{k: v.to(device) for k, v in extra.items()}},
+                            total_len=total)
         out = [lg]
         for j in range(n_new - 1):
             lg, cache = decode_step(cfg, m, cache, toks[:, j].to(device), S + j)
@@ -2483,26 +2725,71 @@ def phase_rg_card_vs_cpu(dev, cfg, model, batch):
 
 
 def _w8_qmm(cfg):
-    """quant_matmul launches a w8 infer, prefill or decode step: the
-    attention's projections in every layer (q, k, v and o; MLA's q and o),
-    the MLP's (three gated, two plain gelu) in every dense layer (an MoE
-    model's leading dense layers; w8 leaves the experts whole), none in a
-    Mamba layer, and an untied head."""
+    """quant_matmul launches a w8 infer: the attention's projections in
+    every layer (q, k, v and o; MLA's q and o; a cross-attention's four
+    more in a whisper decoder layer), the MLP's (three gated, two plain
+    gelu) in every dense layer (an MoE model's leading dense layers; w8
+    leaves the experts whole), the whisper encoder's layers twice (it runs
+    in the head and in the tail), none in a Mamba layer, and an untied
+    head."""
     if cfg.ssm:
         return int(not cfg.tie_embeddings)
     attn = 2 if cfg.use_mla else 4
     mlp = 2 if cfg.mlp_act == "gelu" else 3
     dense_layers = cfg.first_dense_layers if cfg.moe else cfg.n_layers
-    return attn * cfg.n_layers + mlp * dense_layers + (not cfg.tie_embeddings)
+    enc = 2 * cfg.n_encoder_layers * (attn + mlp) if cfg.enc_dec else 0
+    cross = attn * cfg.n_layers if cfg.enc_dec else 0
+    return attn * cfg.n_layers + mlp * dense_layers + cross + enc + (not cfg.tie_embeddings)
 
 
-def _family_kernels(cfg):
-    """The kernel a prefill or infer launches once a layer, and the one a
-    decode step launches once a layer (None: Mamba's step is the plain
-    one-token recurrence, MLA's decode plain attention)."""
+def _family_launches(cfg):
+    """The kernel launches of one split infer, one prefill and one decode
+    step: a layer's scan or flash_attention (self or cross, every layer
+    one) in an infer and a prefill, and one flash_decode a layer in a
+    decode step (none for Mamba's plain one-token recurrence or MLA's plain
+    decode attention); a whisper layer adds its cross-attention's launch
+    to each, and its encoder's layers run twice an infer (head and tail)
+    and once a prefill."""
+    L = cfg.n_layers
     if cfg.ssm:
-        return "mamba_scan", None
-    return "flash_attention", None if cfg.use_mla else "flash_decode"
+        return {"mamba_scan": L}, {"mamba_scan": L}, {}
+    if cfg.use_mla:
+        return {"flash_attention": L}, {"flash_attention": L}, {}
+    if cfg.enc_dec:
+        E = cfg.n_encoder_layers
+        return ({"flash_attention": 2 * E + 2 * L}, {"flash_attention": E + 2 * L},
+                {"flash_decode": 2 * L})
+    return {"flash_attention": L}, {"flash_attention": L}, {"flash_decode": L}
+
+
+def _times(counts, n):
+    return {k: v * n for k, v in counts.items()}
+
+
+def _cross_inputs(cfg, B, dev, seed):
+    """Random media (B, n_media, d) for a vlm model or frames (B,
+    encoder_seq, d) for an audio model, standard normal from ``seed``; {}
+    for the other families."""
+    import torch
+    from repro_torch.models.model import zero_cross_inputs
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {k: torch.randn(v.shape, generator=g, device=dev)
+            for k, v in zero_cross_inputs(cfg, B, dev).items()}
+
+
+def _nonzero_gates(model, seed):
+    """Every xattn gate of ``model`` drawn from ``seed``: either sign, |gate|
+    in [0.5, 1.5] (the init's zeros would switch the cross path off)."""
+    import torch
+    from repro_torch.models.blocks import XAttnBlock
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, XAttnBlock):
+                for gate in (m.gate_attn, m.gate_mlp):
+                    val = (torch.rand(gate.shape, generator=g) + 0.5) * (
+                        torch.randint(0, 2, gate.shape, generator=g) * 2 - 1)
+                    gate.copy_(val)
 
 
 def _cut_label(cut):
@@ -2624,10 +2911,11 @@ def phase_family_split(dev, arch, label):
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    _nonzero_gates(model, 1)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     L, qmm = cfg.n_layers, _w8_qmm(cfg)
-    pre, _ = _family_kernels(cfg)
+    per_infer = _family_launches(cfg)[0]
     shape = (f"d_inner {cfg.d_inner}, N {cfg.ssm_state}, dt_rank {cfg.resolved_dt_rank}"
              if cfg.ssm else
              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff} "
@@ -2637,6 +2925,12 @@ def phase_family_split(dev, arch, label):
         shape = (f"MLA: {cfg.n_heads} heads, q/k head dim {cfg.qk_nope_head_dim} + rope "
                  f"{cfg.qk_rope_head_dim}, v {cfg.v_head_dim}, kv_lora_rank "
                  f"{cfg.kv_lora_rank}, d_ff {cfg.d_ff} {cfg.mlp_act}, {cfg.norm}")
+    if cfg.cross_attn_every:
+        shape += (f", an xattn layer every {cfg.cross_attn_every} (gated cross-attention over "
+                  f"{cfg.n_media_tokens} media tokens, gates drawn nonzero)")
+    if cfg.enc_dec:
+        shape += (f", {cfg.n_encoder_layers} encoder layers over {cfg.encoder_seq} frames, "
+                  f"cross-attention in every decoder layer, sinusoidal positions")
     if cfg.moe:
         shape += (f", {cfg.n_experts} experts of d_ff {cfg.moe_d_ff} top-{cfg.top_k}, "
                   f"{cfg.n_shared_experts} shared, {cfg.first_dense_layers} leading dense "
@@ -2647,7 +2941,8 @@ def phase_family_split(dev, arch, label):
           f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, {n_params} params (want "
           f"{spec['params']}), {time.perf_counter() - t0:.2f} s")
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device=dev,
-                                     generator=torch.Generator(device=dev).manual_seed(2))}
+                                     generator=torch.Generator(device=dev).manual_seed(2)),
+             **_cross_inputs(cfg, B, dev, 3)}
     reps = 3
     link = cut_activation_bytes(cfg, (B, S))
     link_w8 = B * S * (cfg.d_model + 4)
@@ -2661,7 +2956,7 @@ def phase_family_split(dev, arch, label):
             before = _counts()
             ms, (logits, act_bytes) = _median_ms(lambda: eng.infer(batch, cut, version), reps)
             delta = {k: v - before[k] for k, v in _counts().items()}
-            want = _launches(**{pre: L * reps},
+            want = _launches(**_times(per_infer, reps),
                              quant_matmul=qmm * reps if version == "w8" else 0)
             finite = bool(torch.isfinite(logits).all())
             shape_ok = tuple(logits.shape) == (B, S, cfg.vocab_size)
@@ -2685,8 +2980,8 @@ def phase_family_split(dev, arch, label):
         _free()
     n_infer = reps * len(VERSIONS) * len(cuts)
     print(f"{arch} split path: {n_infer} infers, launches {launches}")
-    check(launches == _launches(**{pre: n_infer * L}, quant_matmul=reps * len(cuts) * qmm),
-          f"launch counts over the {arch} split path run ({L} {pre} an infer, {qmm} "
+    check(launches == _launches(**_times(per_infer, n_infer), quant_matmul=reps * len(cuts) * qmm),
+          f"launch counts over the {arch} split path run ({per_infer} an infer, {qmm} "
           f"quant_matmul a w8 infer)")
     with torch.inference_mode():
         if cfg.moe:
@@ -2725,13 +3020,14 @@ def phase_family_decode(dev, cfg, model, label):
     B, S, new = spec["decode"]
     L, V = cfg.n_layers, cfg.vocab_size
     steps = new - 1
-    pre, step = _family_kernels(cfg)
+    _, per_prefill, per_step = _family_launches(cfg)
     print(f"== {label}. {cfg.name} decode: {B} x {S}-token prompts, {new} new tokens"
           + (f" (past the {cfg.sliding_window}-token window)"
              if cfg.sliding_window and S > cfg.sliding_window else ""))
     t_phase = time.perf_counter()
     batch = {"tokens": torch.randint(0, V, (B, S), device=dev,
-                                     generator=torch.Generator(device=dev).manual_seed(4))}
+                                     generator=torch.Generator(device=dev).manual_seed(4)),
+             **_cross_inputs(cfg, B, dev, 5)}
     eng = ServingEngine(cfg, model, ServeConfig(max_new_tokens=new))
     eng.generate(batch)                  # warm-up
     torch.cuda.synchronize()
@@ -2744,9 +3040,9 @@ def phase_family_decode(dev, cfg, model, label):
         delta = {k: v - before[k] for k, v in _counts().items()}
         in_range = 0 <= toks.min().item() and toks.max().item() < V
         check(tuple(toks.shape) == (B, new) and in_range
-              and delta == _launches(**{pre: L}, **({step: L * steps} if step else {})),
-              f"generate f32: {ms[0]:.1f} ms, launches {delta} ({L} {pre} in the prefill, "
-              + (f"{L} {step} in each" if step else "no kernel in any")
+              and delta == _launches(**_times(per_prefill, 1), **_times(per_step, steps)),
+              f"generate f32: {ms[0]:.1f} ms, launches {delta} ({per_prefill} in the prefill, "
+              + (f"{per_step} in each" if per_step else "no kernel in any")
               + f" of the {steps} decode steps)")
     timing = {}
     if spec["srv"] is not None:
@@ -2768,8 +3064,8 @@ def phase_family_decode(dev, cfg, model, label):
         n_tok = sum(len(q.out) for q in done)
         check(len(done) == n_req and all(q.done and not q.truncated for q in done)
               and all(len(q.out) == q.max_new_tokens for q in done)
-              and delta == _launches(**{pre: L * st.prefills},
-                                     **({step: L * st.decode_steps} if step else {})),
+              and delta == _launches(**_times(per_prefill, st.prefills),
+                                     **_times(per_step, st.decode_steps)),
               f"scheduler: {len(done)} requests (prompts {[len(q.tokens) for q in reqs]}), "
               f"{n_tok} tokens in {srv_s:.2f} s ({n_tok / srv_s:.1f} tokens/s), prefills "
               f"{st.prefills}, decode steps {st.decode_steps}, wall steps {st.wall_steps}, "
@@ -2790,21 +3086,19 @@ def phase_family_decode(dev, cfg, model, label):
                    f"the rule of .reduced(): no pair dropped; at {cfg.capacity_factor} the "
                    f"prefill drops and a decode step never does)")
     with torch.inference_mode(), nd:
-        want = forward_logits(cfg, model, {"tokens": full_toks})
+        want = forward_logits(cfg, model, {**batch, "tokens": full_toks})
         lg, cache = prefill(cfg, model, batch, total_len=S + FAM_TF_STEPS)
-        blk = cache["main"]["blk"]
-        k = blk.get("k", blk.get("ckv"))         # MLA's ring holds the latent
-        ring = None if k is None else tuple(k.shape)
+        ring = _ring_slots(cache)
         errs = [(lg - want[:, S - 1]).abs().max().item()]
         for j in range(FAM_TF_STEPS):
             lg, cache = decode_step(cfg, model, cache, toks[:, j], S + j)
             errs.append((lg - want[:, S + j]).abs().max().item())
     del want, cache
     slots = min(S + FAM_TF_STEPS, cfg.sliding_window or S + FAM_TF_STEPS)
-    check(max(errs) <= FAM_DECODE_TOL and (ring is None or ring[2] == slots),
+    check(max(errs) <= FAM_DECODE_TOL and (ring is None or ring == slots),
           f"prefill + {FAM_TF_STEPS} teacher-forced decode steps against forward_logits on "
           f"the card{tf_note}: max_abs_err {max(errs):.3g} (tol {FAM_DECODE_TOL}), per step "
-          f"{[float(f'{e:.3g}') for e in errs]}; rings {ring}")
+          f"{[float(f'{e:.3g}') for e in errs]}; ring slots {ring}")
     if cfg.use_mla:
         timing.update(_mla_absorbed_vs_expanded(cfg, model, batch, toks, S))
     if cfg.moe:                          # where an MoE decode step's time goes
@@ -2824,6 +3118,18 @@ def phase_family_decode(dev, cfg, model, label):
           f"memory of the split and decode phases {timing['peak_bytes'] / 2**30:.2f} GiB; "
           f"phase {time.perf_counter() - t_phase:.1f} s")
     return batch, launches, timing
+
+
+def _ring_slots(cache):
+    """The slots of the first attention ring in a cache tree (MLA's ring
+    holds the latent), or None where there is none (Mamba's states)."""
+    for stack in cache.values():
+        for leaves in stack.values():
+            if "k" in leaves:
+                return leaves["k"].shape[-3]       # (..., B, C, HK, Dh)
+            if "ckv" in leaves:
+                return leaves["ckv"].shape[-2]     # (..., B, C, R)
+    return None
 
 
 def _mla_absorb(model, on):
@@ -2895,37 +3201,50 @@ def phase_family_card_vs_cpu(dev, cfg, model, batch, label):
     """Full width at depth FAM_CPU_LAYERS (or the family's own): the card
     model's embedding, head, final norm and first layers, on both devices.
     The CPU model takes over the exported arrays, so the host holds that
-    depth's weights once."""
+    depth's weights once. A family whose spec names a ``cpu`` config (the
+    cross-attention families: another period, or an encoder to cut too)
+    gets a model of that config built fresh on the card from seed 0, its
+    gates drawn nonzero, after the big one is freed (``model`` None)."""
     import copy
     import torch
     from torch import nn
+    from repro_torch.configs import get_config
     from repro_torch.core.partition import cut_points
-    from repro_torch.models import CausalLM, export_params, load_jax_params, stack_defs
+    from repro_torch.models import CausalLM, export_params, init, load_jax_params, stack_defs
     from repro_torch.serving import SplitServingEngine
     spec = FAMILIES[cfg.name]
     layers, seq = spec.get("cpu_layers", FAM_CPU_LAYERS), spec.get("cpu_seq", CPU_SEQ)
-    small = cfg.with_overrides(n_layers=layers)
-    cut = cut_points(small)[0]           # after the first layer
-    print(f"== {label}. {cfg.name} card against CPU: full width, {layers} layer(s), 1 x "
-          f"{seq} tokens per version at cut {_cut_label(cut)}, then {FAM_CPU_STEPS} decode "
-          f"steps")
+    small = (get_config(cfg.name).with_overrides(**spec["cpu"]) if "cpu" in spec
+             else cfg.with_overrides(n_layers=layers))
+    cut = cut_points(small)[0]           # after the first step
+    print(f"== {label}. {cfg.name} card against CPU: full width, {small.n_layers} layer(s)"
+          + (f" and {small.n_encoder_layers} encoder layer(s)" if small.enc_dec else "")
+          + f", 1 x {seq} tokens per version at cut {_cut_label(cut)}, then "
+          f"{FAM_CPU_STEPS} decode steps")
     t0 = time.perf_counter()
-    head = copy.copy(model)              # shares every tensor of the card model
-    head._modules = dict(model._modules)
-    head.stacks = nn.ModuleDict({s.name: model.stacks[s.name][:s.length]
-                                 for s in stack_defs(small)})
-    head.cfg = small
-    flat = export_params(head)
-    del head
-    card = load_jax_params(small, flat, device=dev)
+    if model is None:
+        card = init(small, torch.Generator(device=dev).manual_seed(0), device=dev)
+        _nonzero_gates(card, 1)
+        flat = export_params(card)
+        print(f"  {sum(p.numel() for p in card.parameters())} parameters")
+    else:
+        head = copy.copy(model)          # shares every tensor of the card model
+        head._modules = dict(model._modules)
+        head.stacks = nn.ModuleDict({s.name: model.stacks[s.name][:s.length]
+                                     for s in stack_defs(small)})
+        head.cfg = small
+        flat = export_params(head)
+        del head
+        card = load_jax_params(small, flat, device=dev)
     cpu = CausalLM(small, {k: torch.from_numpy(flat.pop(k)) for k in sorted(flat)})
-    one = {"tokens": batch["tokens"][:1, :seq]}
+    one = {k: v[:1, :seq] if k == "tokens" else v[:1] for k, v in batch.items()}
     if cfg.moe:
         _route_gaps(small, card, cpu, one)
     compare_split_card_cpu(SplitServingEngine(small, card, versions=VERSIONS),
                            SplitServingEngine(small, cpu, versions=VERSIONS, device="cpu"),
-                           one, cut)
-    compare_decode_card_cpu(small, card, cpu, one["tokens"], FAM_CPU_STEPS + 1)
+                           one, cut, trace_w8=bool(small.cross_attn_every or small.enc_dec))
+    compare_decode_card_cpu(small, card, cpu, one["tokens"], FAM_CPU_STEPS + 1,
+                            extra={k: v for k, v in one.items() if k != "tokens"})
     print(f"  {cfg.name} card vs CPU phase: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2966,12 +3285,16 @@ def _route_gaps(cfg, card, cpu, one):
 
 
 def phase_family(dev, arch):
-    """Phases 6 and 9-9c: one single-stack family's split path, decode path
-    and card-CPU comparison; its model is freed at the end."""
+    """Phases 6 and 9-9g: one family's split path, decode path and card-CPU
+    comparison; its model is freed at the end."""
     label = FAMILIES[arch]["label"]
     t0 = time.perf_counter()
     cfg, model, split_launches, times, peak, profiles = phase_family_split(dev, arch, label)
     batch, dec_launches, dec_timing = phase_family_decode(dev, cfg, model, label + " decode")
+    if "cpu" in FAMILIES[arch]:          # its CPU comparison builds a model of its own
+        del model
+        _free()
+        model = None
     phase_family_card_vs_cpu(dev, cfg, model, batch, label + " card vs CPU")
     del model, batch
     _free()
@@ -3157,6 +3480,13 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
     B, H, HK, S, D, Dv = FA_MLA_PATH
     fa_row.update(_prefixed("mla_", time_attention(
         dev, g, B, H, HK, S, D, None, " (deepseek-v2-lite-16b split path, MLA)", Dv=Dv)))
+    vlm_x, wh_enc, wh_x = FA_CROSS_PATHS
+    fa_row.update(_prefixed("vlm_x_", time_cross_attention(
+        dev, g, *vlm_x, " (llama-3.2-vision-90b image layer, split path)")))
+    fa_row.update(_prefixed("wh_enc_", time_cross_attention(
+        dev, g, *wh_enc, " (whisper-large-v3 encoder)")))
+    fa_row.update(_prefixed("wh_x_", time_cross_attention(
+        dev, g, *wh_x, " (whisper-large-v3 cross-attention, split path)")))
     fd_main, fd_rg, fd_sc2, fd_mix = FD_PATHS
     fd_row = time_decode(dev, g, *fd_main, "")
     fd_row.update(_d256(time_decode(dev, g, *fd_rg, f" ({RG_ARCH} decode path)")))
@@ -3164,6 +3494,11 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
                                                 " (starcoder2-3b decode path)")))
     fd_row.update(_prefixed("mix_", time_decode(dev, g, *fd_mix,
                                                 " (mixtral-8x22b decode path)")))
+    vlm_step, wh_step = FD_CROSS_PATHS
+    fd_row.update(_prefixed("vlm_x_", time_cross_step(
+        dev, g, *vlm_step, " (llama-3.2-vision-90b one-token cross step)")))
+    fd_row.update(_prefixed("wh_x_", time_cross_step(
+        dev, g, *wh_step, " (whisper-large-v3 one-token cross step)")))
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -3184,7 +3519,8 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
               f"({kern['bound_by']}) [{kern['shape']}]")
         for pre in ("d256_", "prefill_", "cohort_", "decode_", "rg_", "head_", "qwen3_", "sc2_",
                     "phi3_", "phi3_head_", "mix_", "mix_prefill_", "mix_head_", "mla_", "ds_",
-                    "ds_head_"):
+                    "ds_head_", "vlm_x_", "wh_enc_", "wh_x_", "vlm_", "vlm_head_", "wh_",
+                    "wh_head_"):
             if f"{pre}ms" in kern:
                 print(f"  {kern['name']} {pre[:-1]}: ms={kern[pre + 'ms']:.4f} "
                       f"plain_ms={kern[pre + 'plain_ms']:.4f} "
@@ -3192,7 +3528,8 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
                       f"bound_ms={kern[pre + 'bound_ms']:.4f} ({kern[pre + 'bound_by']}) "
                       f"[{kern[pre + 'shape']}]")
         for pre in ("", "d256_", "prefill_", "cohort_", "decode_", "sc2_", "phi3_",
-                    "phi3_head_", "mix_", "mix_head_", "ds_", "ds_head_"):
+                    "phi3_head_", "mix_", "mix_head_", "ds_", "ds_head_", "vlm_x_", "wh_x_",
+                    "vlm_", "vlm_head_", "wh_", "wh_head_"):
             if f"{pre}device_ms" in kern:
                 print(f"  {kern['name']} {pre[:-1] or 'main'} device time (CUDA graph) "
                       f"{kern[pre + 'device_ms']:.4f} ms")
@@ -3284,6 +3621,60 @@ def time_attention(dev, g, B, H, HK, S, D, window, path, Dv=None):
             "library_ms": lib,
             "shape": f"f32 q ({B},{H},{S},{D}) k ({B},{HK},{S},{D}) v ({B},{HK},{S},{Dv}) "
                      f"causal, window {window}, per call{path}"}
+
+
+def time_cross_attention(dev, g, B, H, HK, Sq, Skv, D, path):
+    """flash_attention per call without a mask at Sq queries over Skv keys
+    (a cross-attention layer, or whisper's encoder at Sq = Skv), f32, q, k
+    and v as views of (B, S, H, D) projections: its time, error, plain and
+    SDPA time and its 3xTF32 bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn(B, Sq, H, D, generator=g, device=dev).transpose(1, 2)
+    k, v = (torch.randn(B, Skv, HK, D, generator=g, device=dev).transpose(1, 2)
+            for _ in range(2))
+    err = (fa.flash_attention(q, k, v, causal=False)
+           - fa.flash_attention_ref(q, k, v, causal=False)).abs().max().item()
+    check(err <= FA_TOL["float32"],
+          f"flash_attention without a mask, the path shape{path}: max_abs_err={err:.3g}")
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=False), 50)
+    plain = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=False), 10)
+    # SDPA groups heads as h // G; k, v repeated to H heads read kv head h % HK
+    kr, vr = k.repeat(1, H // HK, 1, 1), v.repeat(1, H // HK, 1, 1)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr), 50)
+    # q read and the output written once, k and v read once; QK^T and PV
+    # over every (query, key) pair at the 3xTF32 rate
+    nbytes = 4 * (2 * B * H * Sq * D + 2 * B * HK * Skv * D)
+    bound, by = _bound(nbytes, 4 * B * H * Sq * Skv * D, PEAK_3XTF32)
+    print(f"  flash_attention without a mask{path}: 3xTF32 bound {bound:.4f} ms ({by}), "
+          f"{bound / ms:.1%} of it reached")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib,
+            "shape": f"f32 q ({B},{H},{Sq},{D}) k/v ({B},{HK},{Skv},{D}), no mask, per "
+                     f"call{path}"}
+
+
+def time_cross_step(dev, g, B, H, HK, C, D, L, path):
+    """The one-token cross step at a decode path's shape, over L full cross
+    caches in turn (one per cross-attention layer): the route the model
+    takes (flash_decode at pos = C - 1, every slot visible) with its plain
+    and SDPA times and bound (time_decode), and beside it the other route,
+    flash_attention at Sq = 1 without a mask over the same caches."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    row = time_decode(dev, g, B, H, HK, C, D, L, C - 1, None, path)
+    q = torch.randn(B, H, 1, D, generator=g, device=dev)
+    kv = [tuple(torch.randn(B, C, HK, D, generator=g, device=dev).transpose(1, 2)
+                for _ in range(2)) for _ in range(L)]
+    row["fa_ms"] = cuda_ms(lambda: [fa.flash_attention(q, k, v, causal=False) for k, v in kv],
+                           50) / L
+    row["fa_device_ms"] = graph_ms(
+        lambda: [fa.flash_attention(q, k, v, causal=False) for k, v in kv], 50) / L
+    print(f"  one-token cross step{path}: flash_decode {row['ms']:.4f} ms (device "
+          f"{row['device_ms']:.4f}), flash_attention at Sq = 1 {row['fa_ms']:.4f} ms (device "
+          f"{row['fa_device_ms']:.4f}), SDPA {row['library_ms']:.4f} ms a call")
+    return row
 
 
 def time_decode(dev, g, B, H, HK, C, D, L, pos, window, path):
@@ -3460,6 +3851,23 @@ def time_quant_matmul(dev, g, err, launches):
                                           f"{ds.name} w8 layer (MLA wq, wo), split path", 10)))
     row.update(_prefixed("ds_head_", _time_qmm(dev, g, m, ((ds.d_model, ds.vocab_size),),
                                                f"{ds.name} w8 lm_head, split path", 10)))
+    # the cross-attention families' w8 layers and heads: llama-3.2-vision's
+    # attention and MLP at its split path's 2 x 512 rows (an xattn layer
+    # has the same seven shapes), whisper's decoder layer (self and cross
+    # attention, the gelu MLP) at 4 x 448 rows
+    vlm = get_config("llama-3.2-vision-90b")
+    m = math.prod(FAMILIES[vlm.name]["split"])
+    row.update(_prefixed("vlm_", _time_qmm(dev, g, m, _dense_layer_shapes(vlm),
+                                           f"{vlm.name} w8 layer, split path", 5)))
+    row.update(_prefixed("vlm_head_", _time_qmm(dev, g, m, ((vlm.d_model, vlm.vocab_size),),
+                                                f"{vlm.name} w8 lm_head, split path", 5)))
+    wh = get_config("whisper-large-v3")
+    m = math.prod(FAMILIES[wh.name]["split"])
+    shapes = _dense_layer_shapes(wh)
+    row.update(_prefixed("wh_", _time_qmm(dev, g, m, shapes[:4] + shapes,
+                                          f"{wh.name} w8 decoder layer, split path", 10)))
+    row.update(_prefixed("wh_head_", _time_qmm(dev, g, m, ((wh.d_model, wh.vocab_size),),
+                                               f"{wh.name} w8 lm_head, split path", 10)))
     # the decode step's projections as the model runs them: per-row
     # activation quantization (its launches) and the kernel, the leaves as
     # the model holds them, K-major

@@ -2,9 +2,9 @@
 
 The same ``ModelConfig`` dataclass with every field of the reference, so a
 configuration compares field by field across the two packages. ``pdtype``
-and ``cdtype`` return torch dtypes. The dense, ssm, hybrid and moe families
-run in the port so far (``repro_torch.models.model.check_ported`` raises for
-the others).
+and ``cdtype`` return torch dtypes. Every family runs in the port
+(``repro_torch.models.model.check_ported`` raises for flags that do not
+match the family).
 """
 from __future__ import annotations
 

@@ -4,9 +4,12 @@
 The device runs the embedding and the blocks before the cut (the head),
 the cut activation crosses the link, the server runs the rest (the tail).
 A cut ``(stack_name, i)`` sits between step i-1 and step i of that stack (a
-step is one superblock: recurrentgemma's (rec, rec, attn) period, or one
-block); head and tail run ``steps[lo:hi]`` of each stack's ModuleList.
-``split_forward`` == tail(head(x)) equals the full forward.
+step is one superblock: recurrentgemma's (rec, rec, attn) period,
+llama-3.2-vision's (4 attn, xattn) period, or one block); head and tail
+run ``steps[lo:hi]`` of each stack's ModuleList. Both sides compute the
+cross-attention families' ``kv_src`` from the batch (the whisper encoder
+runs in the head and again in the tail, as in the reference) and pass it
+to every step. ``split_forward`` == tail(head(x)) equals the full forward.
 """
 from __future__ import annotations
 
@@ -59,24 +62,24 @@ def _segments(cfg: ModelConfig, cut: Tuple[str, int]):
     return heads, tails
 
 
-def _run_stacks(model: M.CausalLM, x: torch.Tensor, segments) -> torch.Tensor:
+def _run_stacks(model: M.CausalLM, x: torch.Tensor, segments, kv_src) -> torch.Tensor:
     for sdef, lo, hi in segments:
         for step in model.stacks[sdef.name][lo:hi]:
-            x, _ = step(x)
+            x, _ = step(x, kv_src=kv_src)
     return x
 
 
 def run_head(cfg: ModelConfig, model: M.CausalLM, batch, cut: Tuple[str, int]):
     """Device side: embed + head blocks. Returns the cut activation."""
     heads, _ = _segments(cfg, cut)
-    return _run_stacks(model, model.embed(batch["tokens"]), heads)
+    return _run_stacks(model, model.embed(batch["tokens"]), heads, model.kv_src(batch))
 
 
 def run_tail(cfg: ModelConfig, model: M.CausalLM, x: torch.Tensor, batch,
              cut: Tuple[str, int]):
     """Server side: tail blocks + final norm + logits."""
     _, tails = _segments(cfg, cut)
-    x = _run_stacks(model, x, tails)
+    x = _run_stacks(model, x, tails, model.kv_src(batch))
     return model.head(model.final_norm(x))
 
 

@@ -1,12 +1,16 @@
 """Serving launcher: batched generation through the ServingEngine (port of
 ``repro.launch.serve``). Runs on the CUDA card unless ``--device`` names
-another; random weights from seed 0.
+another; random weights from seed 0. The cross-attention families get zero
+media (llama-3.2-vision-90b) or zero frames (whisper-large-v3), as the
+reference feeds them.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --new-tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-90b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --full
 """
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init
+from repro_torch.models.model import zero_cross_inputs
 from repro_torch.serving import ServeConfig, ServingEngine
 
 
@@ -46,7 +51,8 @@ def main(argv=None):
             .reshape(args.batch, args.prompt_len) * 101) % cfg.vocab_size
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
-    out = eng.generate({"tokens": toks}, generator=gen)
+    batch = {"tokens": toks, **zero_cross_inputs(cfg, args.batch, dev)}
+    out = eng.generate(batch, generator=gen)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

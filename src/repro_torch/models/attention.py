@@ -1,8 +1,10 @@
-"""Self-attention (port of ``repro.models.attention``): GQA with QKV and o
-biases, qwen3's per-head q/k norm and RoPE; and DeepSeek-V2's MLA
-(multi-head latent attention, a compressed KV cache). Whole sequences
-(train), prompt plus ring cache (prefill), and one token against the ring
-cache (decode).
+"""Attention (port of ``repro.models.attention``): GQA self-attention with
+QKV and o biases, qwen3's per-head q/k norm and RoPE, causal or not (the
+whisper encoder's); DeepSeek-V2's MLA (multi-head latent attention, a
+compressed KV cache); and cross-attention (the whisper decoder's and
+llama-3.2-vision's image layers) over encoder or media states. Whole
+sequences (train), prompt plus ring cache (prefill), and one token against
+the ring cache (decode).
 
 Cache layout: {"k", "v"}: (B, C, HK, Dh) ring buffers indexed by
 ``pos % C``, so sliding-window decode works with C == window; MLA's
@@ -10,6 +12,8 @@ Cache layout: {"k", "v"}: (B, C, HK, Dh) ring buffers indexed by
 the shared RoPE key instead. Slot validity is recovered positionally: slot
 s holds absolute position ``pos - ((pos - s) mod C)`` (negative => empty).
 Decode writes the ring in place, where the reference returns a new buffer.
+Cross-attention caches {"xk", "xv"}: (B, Skv, HK, Dh), the projected
+encoder or media states, which decode reads and never writes.
 """
 from __future__ import annotations
 
@@ -66,15 +70,18 @@ class SelfAttention(nn.Module):
     wk, wv, wo; with ``cfg.qkv_bias`` bq, bk, bv; with ``cfg.attn_bias``
     bo; with ``cfg.qk_norm`` q_norm and k_norm, each (head_dim,). The
     heads may be narrower or wider than d_model / n_heads: wq is (d_model,
-    H * Dh) and wo (H * Dh, d_model)."""
+    H * Dh) and wo (H * Dh, d_model). ``causal=False`` is the whisper
+    encoder's bidirectional attention (train mode only, as the reference
+    runs the encoder)."""
 
     def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                 window: Optional[int] = None):
+                 window: Optional[int] = None, causal: bool = True):
         super().__init__()
         self.n_heads, self.n_kv_heads = cfg.n_heads, cfg.n_kv_heads
         self.head_dim = cfg.resolved_head_dim
         self.rope_theta = cfg.rope_theta if cfg.use_rope else None
         self.window = window
+        self.causal = causal
         self.wq, self.wk, self.wv, self.wo = (Dense(p[n]) for n in ("wq", "wk", "wv", "wo"))
         for names, on in ((("bq", "bk", "bv"), cfg.qkv_bias), (("bo",), cfg.attn_bias),
                           (("q_norm", "k_norm"), cfg.qk_norm)):
@@ -116,7 +123,7 @@ class SelfAttention(nn.Module):
                                        window=self.window)[:, None]
         else:
             out = ac.attention(q, k, v, q_positions=positions,
-                               kv_positions=positions, causal=True,
+                               kv_positions=positions, causal=self.causal,
                                window=self.window)
             if mode == "prefill":
                 C = cache_len if cache_len is not None else S
@@ -124,6 +131,70 @@ class SelfAttention(nn.Module):
                              "v": ring_from_prefill(v, C)}
         out = self.wo(out.reshape(B, S, H * Dh))
         return (out if self.bo is None else out + self.bo), new_cache
+
+
+class CrossAttention(nn.Module):
+    """Cross-attention (port of ``apply_cross_attn``): queries from x, keys
+    and values from the encoder or media states ``kv_src`` (B, Skv, d),
+    non-causal, no RoPE. q = wq(x) (+ bq), k = wk(kv_src) with no bias, v =
+    wv(kv_src) (+ bv), out = wo (+ bo); the biases under ``cfg.attn_bias``
+    (whisper). Every projection is a ``Dense`` leaf, which w8 and w4
+    quantize.
+
+    With ``kv_src`` the layer projects k and v and returns them as the cache
+    {"xk", "xv"}; without it (decode) it reads them from ``cache``. Train
+    and prefill attend through ``ac.attention``: the flash kernel on CUDA
+    (non-causal, Sq != Skv), the plain path on the CPU. A decode step (one
+    query) attends through ``ops.decode_attention`` with the cache read as a
+    full ring: ``pos = Skv - 1`` over C = Skv slots puts position s in slot
+    s and leaves every slot visible, so the flash decode kernel computes
+    the same unmasked softmax, and splits the key arc across blocks when B
+    x HK is small. The cache goes in as a (B, HK, Skv, Dh) view, as the self
+    attention's rings do."""
+
+    def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.n_heads, self.n_kv_heads = cfg.n_heads, cfg.n_kv_heads
+        self.head_dim = cfg.resolved_head_dim
+        self.wq, self.wk, self.wv, self.wo = (Dense(p[n]) for n in ("wq", "wk", "wv", "wo"))
+        for n in ("bq", "bv", "bo"):
+            setattr(self, n, nn.Parameter(p[n], requires_grad=False) if cfg.attn_bias else None)
+
+    def forward(self, x: torch.Tensor, kv_src: Optional[torch.Tensor] = None,
+                cache: Optional[Dict[str, torch.Tensor]] = None, mode: str = "train"):
+        """Returns (out, {"xk", "xv"}): the cache projected from ``kv_src``,
+        or ``cache`` itself when there is no ``kv_src``."""
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r} not in {MODES}")
+        B, S, _ = x.shape
+        H, HK, Dh = self.n_heads, self.n_kv_heads, self.head_dim
+        q = self.wq(x)
+        if self.bq is not None:
+            q = q + self.bq
+        q = q.view(B, S, H, Dh)
+        if kv_src is None:
+            if cache is None:
+                raise ValueError("cross-attention needs kv_src or a cache of xk, xv")
+            k, v = cache["xk"], cache["xv"]
+        else:
+            Skv = kv_src.shape[1]
+            k = self.wk(kv_src).view(B, Skv, HK, Dh)
+            v = self.wv(kv_src)
+            if self.bv is not None:
+                v = v + self.bv
+            v = v.view(B, Skv, HK, Dh)
+            cache = {"xk": k, "xv": v}
+        Skv = k.shape[1]
+        if mode == "decode":
+            out = ops.decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                                       Skv - 1)[:, None]
+        else:
+            # no mask: every position 0, as the reference passes them
+            out = ac.attention(q, k, v, q_positions=x.new_zeros(S, dtype=torch.long),
+                               kv_positions=x.new_zeros(Skv, dtype=torch.long),
+                               causal=False, window=None)
+        out = self.wo(out.reshape(B, S, H * Dh))
+        return (out if self.bo is None else out + self.bo), cache
 
 
 class MLAttention(nn.Module):

@@ -48,16 +48,19 @@ def attention(q, k, v, *, q_positions, kv_positions, causal=True, window=None,
     flash kernel on CUDA, its plain version on the CPU. Both place query i
     and key j at positions i and j, which is what self-attention over a
     whole sequence passes (masks depend only on position differences).
-    Other shapes take the plain path on the CPU; the port has no kernel
-    for them on the card yet, so a CUDA tensor raises."""
-    if q.shape[1] == k.shape[1]:
+    Unmasked attention with Sq != Skv (cross-attention: no causal mask, no
+    window, so positions do not matter) also takes the flash kernel on
+    CUDA; on the CPU it takes the plain path. A causal or windowed mask
+    with Sq != Skv has no kernel, so a CUDA tensor raises there."""
+    same = q.shape[1] == k.shape[1]
+    if same or (q.is_cuda and not causal and window is None):
         out = ops.attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=causal,
                                  window=window, logit_scale=logit_scale)
         return out.transpose(1, 2)
     if q.is_cuda:
         raise NotImplementedError(
-            "attention with Sq != Skv has no CUDA kernel in the port yet")
+            "causal or windowed attention with Sq != Skv has no CUDA kernel in the port")
     return plain_attention(q, k, v, q_positions=q_positions,
                            kv_positions=kv_positions, causal=causal,
                            window=window, logit_scale=logit_scale)

@@ -1,7 +1,8 @@
 """Shared primitive layers (port of ``repro.models.layers``): the dense
 projection, RMSNorm and LayerNorm, the gated MLP (SwiGLU, GeGLU) and the
-plain gelu MLP with its biases, rotary embeddings and the causal depthwise
-convolution of the Mamba and RG-LRU mixers."""
+plain gelu MLP with its biases, rotary embeddings, whisper's sinusoidal
+positions and the causal depthwise convolution of the Mamba and RG-LRU
+mixers."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Union
@@ -171,6 +172,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x2 = x[..., half:].to(torch.float32)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, offset: int = 0, device=None) -> torch.Tensor:
+    """Whisper's absolute positions ``offset .. offset + n - 1``: (n, d) f32,
+    sines in the first half, cosines in the second, frequencies
+    10000 ** (-i / max(half - 1, 1)), in the reference's f32 arithmetic."""
+    f32 = dict(dtype=torch.float32, device=device)
+    pos = (torch.arange(n, **f32) + offset)[:, None]
+    half = d // 2
+    freq = torch.exp(-torch.log(torch.tensor(10_000.0, **f32))
+                     * torch.arange(half, **f32) / max(half - 1, 1))
+    ang = pos * freq[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------------

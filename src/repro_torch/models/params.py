@@ -1,13 +1,14 @@
-"""Parameter plan, init and weight exchange for the dense, ssm, hybrid and
-MoE models (port of ``repro.models.params`` and ``plan_model`` in
-``repro.models.model``).
+"""Parameter plan, init and weight exchange for every model family (port
+of ``repro.models.params`` and ``plan_model`` in ``repro.models.model``).
 
 The plan maps each leaf path of the JAX package's flattened parameters
 (``tok_embed``, ``final_norm/scale``, ``stacks/main/blk/attn/wq``,
-``stacks/main/blk/ssm/a_log``, ``stacks/period/s0/rec/w_a``, ...) to its
-shape, initializer and, where it is fixed whatever ``param_dtype`` is, its
-dtype; stacked leaves carry the stack's step on dim 0. Dense weights are
-(in, out).
+``stacks/main/blk/ssm/a_log``, ``stacks/period/s0/rec/w_a``,
+``stacks/period/xattn/gate_attn``, ``enc_stacks/enc/blk/attn/wq``,
+``enc_norm/scale``, ...) to its shape, initializer and, where it is fixed
+whatever ``param_dtype`` is, its dtype; stacked leaves carry the stack's
+step on dim 0, and a repeated sub's leaves (step, repeat) on dims 0 and 1.
+Dense weights are (in, out).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import Dense
-from repro_torch.models.model import CausalLM, stack_defs
+from repro_torch.models.model import CausalLM, enc_stack_defs, stack_defs
 from repro_torch.models.rglru import LRU_C
 
 
@@ -120,25 +121,14 @@ def _mla_plan(cfg: ModelConfig) -> Dict[str, P]:
             "attn/wo": P((H * vd, d))}
 
 
-def _block_plan(cfg: ModelConfig, kind: str, moe: bool = False) -> Dict[str, P]:
-    """One block's leaves; ``moe`` puts the MoE's in place of the MLP's."""
-    if kind == "ssm":
-        return _ssm_block_plan(cfg)
-    if kind == "rec":
-        return _rec_block_plan(cfg)
+def _self_attn_plan(cfg: ModelConfig) -> Dict[str, P]:
+    """GQA self-attention's leaves (``plan_self_attn``): the projections, QKV
+    biases under ``qkv_bias``, the o bias under ``attn_bias``, qwen3's q/k
+    norms under ``qk_norm``."""
     d, Dh = cfg.d_model, cfg.resolved_head_dim
     H, HK = cfg.n_heads, cfg.n_kv_heads
-    plan = {
-        **_norm_plan(cfg, "norm1"),
-        **(_mla_plan(cfg) if cfg.use_mla else {
-            "attn/wq": P((d, H * Dh)),
-            "attn/wk": P((d, HK * Dh)),
-            "attn/wv": P((d, HK * Dh)),
-            "attn/wo": P((H * Dh, d))}),
-        **_norm_plan(cfg, "norm2"),
-        # the reference's MLP biases ride along with the attention's
-        **(_moe_plan(cfg) if moe else _mlp_plan(cfg, bias=cfg.attn_bias)),
-    }
+    plan = {"attn/wq": P((d, H * Dh)), "attn/wk": P((d, HK * Dh)),
+            "attn/wv": P((d, HK * Dh)), "attn/wo": P((H * Dh, d))}
     if cfg.qkv_bias:
         plan.update({"attn/bq": P((H * Dh,), "zeros"),
                      "attn/bk": P((HK * Dh,), "zeros"),
@@ -150,17 +140,68 @@ def _block_plan(cfg: ModelConfig, kind: str, moe: bool = False) -> Dict[str, P]:
     return plan
 
 
+def _cross_attn_plan(cfg: ModelConfig) -> Dict[str, P]:
+    """Cross-attention's leaves (``plan_cross_attn``) under ``xattn/``: the
+    four projections, and under ``attn_bias`` the q, v and o biases (k has
+    none)."""
+    d, Dh = cfg.d_model, cfg.resolved_head_dim
+    H, HK = cfg.n_heads, cfg.n_kv_heads
+    plan = {"xattn/wq": P((d, H * Dh)), "xattn/wk": P((d, HK * Dh)),
+            "xattn/wv": P((d, HK * Dh)), "xattn/wo": P((H * Dh, d))}
+    if cfg.attn_bias:
+        plan.update({"xattn/bq": P((H * Dh,), "zeros"), "xattn/bv": P((HK * Dh,), "zeros"),
+                     "xattn/bo": P((d,), "zeros")})
+    return plan
+
+
+def _block_plan(cfg: ModelConfig, kind: str, moe: bool = False) -> Dict[str, P]:
+    """One block's leaves; ``moe`` puts the MoE's in place of the MLP's."""
+    if kind == "ssm":
+        return _ssm_block_plan(cfg)
+    if kind == "rec":
+        return _rec_block_plan(cfg)
+    if kind == "xattn":
+        # the gates start at zero, f32 whatever param_dtype is; the MLP has
+        # no biases whatever attn_bias says
+        gate = P((1,), "zeros", dtype="float32")
+        return {**_norm_plan(cfg, "norm1"), **_cross_attn_plan(cfg), "gate_attn": gate,
+                **_norm_plan(cfg, "norm2"), **_mlp_plan(cfg), "gate_mlp": gate}
+    plan = {
+        **_norm_plan(cfg, "norm1"),
+        **(_mla_plan(cfg) if cfg.use_mla else _self_attn_plan(cfg)),
+        **_norm_plan(cfg, "norm2"),
+        # the reference's MLP biases ride along with the attention's
+        **(_moe_plan(cfg) if moe else _mlp_plan(cfg, bias=cfg.attn_bias)),
+    }
+    if kind == "dec":
+        plan.update({**_cross_attn_plan(cfg), **_norm_plan(cfg, "norm3")})
+    elif kind not in ("attn", "enc"):
+        raise ValueError(f"unknown block kind {kind!r}")
+    return plan
+
+
+def _stack_plans(cfg: ModelConfig, defs, prefix: str) -> Dict[str, P]:
+    """The leaves of the stacks ``defs`` under ``<prefix>/<stack>/<sub>/``,
+    each with the stack's steps, and a repeated sub's repeat, in front."""
+    plan = {}
+    for s in defs:
+        for sub in s.subs:
+            lead = (s.length,) if sub.repeat == 1 else (s.length, sub.repeat)
+            for path, p in _block_plan(cfg, sub.kind, sub.moe).items():
+                plan[f"{prefix}/{s.name}/{sub.name}/{path}"] = dataclasses.replace(
+                    p, shape=lead + p.shape)
+    return plan
+
+
 def plan_model(cfg: ModelConfig) -> Dict[str, P]:
     """{leaf path: P}, in the JAX package's (sorted) flattening order."""
     plan = {"tok_embed": P((cfg.vocab_size, cfg.d_model), "normal", 0.01),
-            **_norm_plan(cfg, "final_norm")}
+            **_norm_plan(cfg, "final_norm"), **_stack_plans(cfg, stack_defs(cfg), "stacks")}
     if not cfg.tie_embeddings:
         plan["lm_head"] = P((cfg.d_model, cfg.vocab_size))
-    for s in stack_defs(cfg):
-        for sub in s.subs:
-            for path, p in _block_plan(cfg, sub.kind, sub.moe).items():
-                plan[f"stacks/{s.name}/{sub.name}/{path}"] = dataclasses.replace(
-                    p, shape=(s.length,) + p.shape)
+    if cfg.enc_dec:
+        plan.update({**_norm_plan(cfg, "enc_norm"),
+                     **_stack_plans(cfg, enc_stack_defs(cfg), "enc_stacks")})
     return dict(sorted(plan.items()))
 
 
@@ -247,7 +288,8 @@ def load_jax_params(cfg: ModelConfig, flat: Mapping[str, np.ndarray],
 
 def export_params(model: CausalLM) -> Dict[str, np.ndarray]:
     """The reverse of ``load_jax_params``: the model's float parameters as
-    the JAX package's flat {leaf path: ndarray}, steps stacked on dim 0."""
+    the JAX package's flat {leaf path: ndarray}, steps stacked on dim 0 (and
+    a repeated sub's blocks on dim 1)."""
     cfg = model.cfg
     flat = {"tok_embed": model.tok_embed,
             **{f"final_norm/{n}": t for n, t in model.final_norm.named_parameters()}}
@@ -255,19 +297,29 @@ def export_params(model: CausalLM) -> Dict[str, np.ndarray]:
         flat["lm_head"] = model.lm_head.w
         if not isinstance(flat["lm_head"], torch.Tensor):
             raise TypeError("lm_head is quantized; export the float model")
-    for s in stack_defs(cfg):
-        steps = model.stacks[s.name]
-        for sub in s.subs:
-            for path in _block_plan(cfg, sub.kind, sub.moe):
-                mod_path, leaf = path.rsplit("/", 1)
-                per_step = []
-                for step in steps:
-                    t = getattr(step.get_submodule(f"{sub.name}.{mod_path.replace('/', '.')}"),
-                                leaf)
-                    if isinstance(t, Dense):
-                        t = t.w
-                    if not isinstance(t, torch.Tensor):
-                        raise TypeError(f"{path} is quantized; export the float model")
-                    per_step.append(t)
-                flat[f"stacks/{s.name}/{sub.name}/{path}"] = torch.stack(per_step)
+    stacks = [("stacks", model.stacks, stack_defs(cfg))]
+    if model.enc_stacks is not None:
+        flat.update({f"enc_norm/{n}": t for n, t in model.enc_norm.named_parameters()})
+        stacks.append(("enc_stacks", model.enc_stacks, enc_stack_defs(cfg)))
+    for prefix, modules, defs in stacks:
+        for s in defs:
+            for sub in s.subs:
+                blocks = [[getattr(step, sub.name)] if sub.repeat == 1
+                          else list(getattr(step, sub.name)) for step in modules[s.name]]
+                for path in _block_plan(cfg, sub.kind, sub.moe):
+                    per_step = [torch.stack([_leaf(b, path) for b in bs]) if sub.repeat > 1
+                                else _leaf(bs[0], path) for bs in blocks]
+                    flat[f"{prefix}/{s.name}/{sub.name}/{path}"] = torch.stack(per_step)
     return {k: v.detach().cpu().numpy() for k, v in sorted(flat.items())}
+
+
+def _leaf(block: torch.nn.Module, path: str) -> torch.Tensor:
+    """The float tensor of ``block`` at the plan's leaf path (``attn/wq``,
+    ``gate_attn``, ...)."""
+    mod_path, _, leaf = path.rpartition("/")
+    t = getattr(block.get_submodule(mod_path.replace("/", ".")), leaf)
+    if isinstance(t, Dense):
+        t = t.w
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{path} is quantized; export the float model")
+    return t

@@ -56,8 +56,10 @@ class ServingEngine:
     @torch.inference_mode()
     def generate(self, batch: Dict,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """batch: {"tokens": (B, S) ints} -> (B, max_new_tokens) int64 on
-        the engine's device.
+        """batch: {"tokens": (B, S) ints, and "media" or "enc_frames" for
+        the cross-attention families} -> (B, max_new_tokens) int64 on the
+        engine's device. The prefill reads the media or frames; the decode
+        steps read the cross caches it built.
 
         Token 0 is the argmax of the prefill logits, as in the reference;
         each later token comes from one decode step, so N tokens take N - 1
@@ -67,11 +69,10 @@ class ServingEngine:
         device); torch's draws are not ``jax.random.categorical``'s, so
         sampled tokens differ from the reference's while greedy ones agree."""
         serve = self.serve
-        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        S = tokens.shape[1]
+        batch = M.batch_on(batch, self.device)
+        S = batch["tokens"].shape[1]
         total = serve.cache_len if serve.cache_len is not None else S + serve.max_new_tokens
-        logits, cache = M.prefill(self.cfg, self.model, {"tokens": tokens},
-                                  total_len=total)
+        logits, cache = M.prefill(self.cfg, self.model, batch, total_len=total)
         tok = torch.argmax(logits, dim=-1)
         out = [tok]
         for pos in range(S, S + serve.max_new_tokens - 1):
@@ -112,10 +113,12 @@ class SplitServingEngine:
 
     @torch.inference_mode()
     def infer(self, batch: Dict, cut: Tuple[str, int], version: str = "bf16"):
-        """batch: {"tokens": (B, S) ints}. Returns (logits, act_bytes):
-        act_bytes is the size of what crosses the device -> server link."""
+        """batch: {"tokens": (B, S) ints, and "media" or "enc_frames" for
+        the cross-attention families, which both sides read}. Returns
+        (logits, act_bytes): act_bytes is the size of what crosses the
+        device -> server link."""
         model = self._model_for(version)
-        batch = {"tokens": torch.as_tensor(batch["tokens"], device=self.device)}
+        batch = M.batch_on(batch, self.device)
         act = partition.run_head(self.cfg, model, batch, cut)
         if get_version(version).act_bits == 8:
             # the link carries int8 codes + per-row scales, like the w8a8

@@ -12,6 +12,10 @@ of every cache leaf), the freed slot re-admits queued work on the next loop
 turn, and a cohort whose ring cache is exhausted retires truncated instead
 of letting ``pos`` wrap over live history.
 
+The cross-attention families get zero media or zero frames for each
+admitted cohort, as the reference feeds them; compaction gathers their
+cross caches with the rings, by ``cache_axes``.
+
 Per-request accounting matches the ``sim.metrics`` schema: submit ->
 first-token (TTFT) and submit -> done wall steps, summarized by
 ``ServerStats.latency_summary``.
@@ -143,7 +147,8 @@ class ContinuousBatchingServer:
         toks = np.zeros((len(admit), S), np.int64)
         for i, r in enumerate(admit):
             toks[i, S - len(r.tokens):] = r.tokens   # left-pad
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = {"tokens": torch.from_numpy(toks).to(self.device),
+                 **M.zero_cross_inputs(self.cfg, len(admit), self.device)}
         logits, cache = M.prefill(self.cfg, self.model, batch,
                                   total_len=self.cache_len)
         first = torch.argmax(logits, dim=-1)

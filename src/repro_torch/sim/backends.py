@@ -25,6 +25,7 @@ import torch
 from repro_torch.core import pricing
 from repro_torch.core.env import EnvConfig, ProfileTables
 from repro_torch.core.pricing import PricingBreakdown, StateView
+from repro_torch.models.model import zero_cross_inputs
 
 
 class AnalyticalBackend:
@@ -96,13 +97,11 @@ class ExecuteBackend(AnalyticalBackend):
                          for c, e in zip(self.model_cfgs, self._engines)]
 
     def _make_batch(self, cfg, device):
-        if cfg.cross_attn_every or cfg.enc_dec:
-            raise NotImplementedError(
-                f"{cfg.name}: media and encoder-frame batches wait for the vlm and "
-                "audio families (ROADMAP section 1, item 4)")
+        """One (1, seq_len) request; the cross-attention families' zero media
+        or zero frames beside it, as the reference feeds them."""
         toks = (torch.arange(self.seq_len, dtype=torch.int64, device=device)[None] * 7) \
             % cfg.vocab_size
-        return {"tokens": toks}
+        return {"tokens": toks, **zero_cross_inputs(cfg, 1, device)}
 
     def expected_act_bytes(self, model_idx: int, j: int, k: int,
                            batch: int = 1) -> int:

@@ -76,6 +76,8 @@ def _port_sources():
 
 def test_port_imports_neither_jax_nor_reference():
     bad = []
+    assert {"llama_3_2_vision_90b.py", "whisper_large_v3.py", "blocks.py",
+            "chip_smoke.py"} <= {path.name for path in _port_sources()}
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -112,7 +114,8 @@ def test_every_module_imports_first_and_builds_nothing():
                                                          "repro_torch."))
     for name in ("kernels.flash_attention", "kernels.flash_decode", "kernels.mamba_scan",
                  "kernels.rglru_scan", "models.ssm", "models.rglru", "serving.scheduler",
-                 "sim.metrics", "launch.serve"):
+                 "sim.metrics", "launch.serve", "configs.llama_3_2_vision_90b",
+                 "configs.whisper_large_v3", "models.blocks", "sim.backends"):
         assert f"repro_torch.{name}" in names
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", _IMPORT_EACH_FIRST, *names],
@@ -153,8 +156,8 @@ def test_unported_families_raise():
     cfg = get_config("qwen2-0.5b").reduced()
     for kw in (dict(family="ssm"),
                dict(family="hybrid"),
-               dict(family="vlm", cross_attn_every=2),
-               dict(family="audio", enc_dec=True),
+               dict(family="vlm"),                # no cross_attn_every
+               dict(family="audio"),              # no enc_dec
                dict(family="hybrid", block_pattern=("rec", "xattn"))):
         with pytest.raises(NotImplementedError):
             stack_defs(cfg.with_overrides(**kw))

@@ -472,10 +472,15 @@ def test_config_matches_reference_and_reaches_the_clis(arch):
 
 
 def test_check_ported_accepts_the_dense_families_and_refuses_the_rest():
-    for arch in ARCHS + ("mixtral-8x22b", "deepseek-v2-lite-16b"):
+    """Every arch runs in the port (the cross-attention families since they
+    were ported); a cross-attention family without its flag is refused,
+    naming the family."""
+    for arch in ARCHS + ("mixtral-8x22b", "deepseek-v2-lite-16b", "llama-3.2-vision-90b",
+                         "whisper-large-v3"):
         check_ported(get_config(arch))
-    for arch, name in (("llama-3.2-vision-90b", "vlm"), ("whisper-large-v3", "audio")):
-        cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch)))
+    for arch, name, off in (("llama-3.2-vision-90b", "vlm", dict(cross_attn_every=0)),
+                            ("whisper-large-v3", "audio", dict(enc_dec=False))):
+        cfg = ModelConfig(**{**dataclasses.asdict(jax_get_config(arch)), **off})
         with pytest.raises(NotImplementedError, match=name):
             check_ported(cfg)
 

@@ -387,8 +387,9 @@ def test_policy_roster():
 
 def test_unported_options_raise(worlds, tmp_path):
     """What stays refused: an unknown engine, the scan engine over a
-    cluster (the reference refuses it too, in these words), the vlm
-    execute backend and the CLI's ad-hoc-scenario flags. The scan engine
+    cluster (the reference refuses it too, in these words) and the CLI's
+    ad-hoc-scenario flags; the vlm execute backend, refused until the
+    cross-attention families were ported, now builds its zero-media batch. The scan engine
     and the flight recorder are ported (tests/test_torch_megafleet_scan.py,
     tests/test_torch_timeline.py)."""
     w = worlds("paper-mmpp-burst")
@@ -417,11 +418,17 @@ def test_unported_options_raise(worlds, tmp_path):
     env_cfg, tables = T.make_tpu_env(["qwen2-0.5b"], reduced=True, seq_len=8, device="cpu")
     vlm = dataclasses.replace(get_config("qwen2-0.5b").reduced(), cross_attn_every=2)
     small = get_config("qwen2-0.5b").reduced()
-    with pytest.raises(NotImplementedError, match="vlm"):
-        ExecuteBackend(env_cfg, tables, [vlm], [T.transformer_profile(small, seq_len=8)],
-                       [SplitServingEngine(vlm, init(small, torch.Generator().manual_seed(0),
-                                                     device="cpu"), device="cpu")],
-                       seq_len=8)
+    # the vlm execute backend is no longer refused: it feeds zero media
+    # beside the tokens, as the reference's does
+    vlm = dataclasses.replace(vlm, family="vlm")
+    backend = ExecuteBackend(env_cfg, tables, [vlm], [T.transformer_profile(small, seq_len=8)],
+                             [SplitServingEngine(vlm, init(small, torch.Generator().manual_seed(0),
+                                                           device="cpu"), device="cpu")],
+                             seq_len=8)
+    batch = backend._batches[0]
+    assert sorted(batch) == ["media", "tokens"] and tuple(batch["tokens"].shape) == (1, 8)
+    assert tuple(batch["media"].shape) == (1, vlm.n_media_tokens, vlm.d_model)
+    assert not batch["media"].any()
     # the reference's own refusals: a rate flag its trace does not take,
     # replay without a file
     for flag, words in ((["--rate-low", "3"], "not applicable to trace 'poisson'"),
