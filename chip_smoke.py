@@ -39,6 +39,16 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    G differ), flash_decode at G = 1 (20/20, D 64) over 448-slot rings and
    over full cross caches at pos = C - 1 (C 1601, D 128, G 8; C 1500, D
    64, G 1), and quant_matmul bit for bit at both families' w8 shapes.
+   The training path's kernels (FA_BWD_CASES, f32 and bf16): the forward's
+   log-sum-exp against the plain one within FA_TOL, and the backward
+   kernel's dq, dk and dv against the plain backward (f32: within 5e-5 of
+   each gradient's largest magnitude, both f32 versions also measured
+   against the plain backward in f64; bf16: within 2e-2) at qwen2-0.5b's
+   training shape (8 x 14/2 x 512, D 64, causal), qwen3-0.6b's 16/8 heads
+   at D 128, a window of 64 over 512, whisper's cross shape (448 queries
+   over 1500 frames, no mask) and ragged tiles; its GQA map (kv head h %
+   HK, not h // G); ``FlashAttentionFn`` under autograd equal to the
+   direct calls with one launch each.
 3. Main path: full-width qwen2-0.5b (random weights from torch.Generator
    seed 0) served by ``SplitServingEngine``: 8 requests x 512 tokens for
    each version (bf16, w8, w4) at cuts 1, 12 and 24, with the kernels'
@@ -266,6 +276,19 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    the prefill, 64 flash_decode a step: 32 self at G = 1 and 32 cross
    steps) and 8 requests in 4 slots (zero frames); the teacher-forced
    check; card against CPU at 2 + 2 layers over 64 tokens.
+10. Training: full-width, full-depth qwen2-0.5b (494,032,768 parameters,
+   f32, random weights from torch.Generator seed 0) takes 8 AdamW steps of
+   ``launch.steps.make_train_step`` (remat on) on ``SyntheticLMDataset``
+   batches of 8 x 512 tokens: every loss finite, the last below the first,
+   and each step's launches exact (48 flash_attention: 24 layers and
+   remat's recompute; 24 flash_attention_bwd; nothing else); ms a step
+   (median), peak memory, one profiled step (device busy and idle share,
+   time by kind of kernel). Then card against CPU at full width and depth 2
+   for qwen2-0.5b and qwen3-0.6b (D 128, q/k norm): one ``forward_train``
+   over 2 x 64 tokens and every exported gradient leaf; and two
+   microbatches against one batch from the same weights (gradients,
+   metrics, and the parameters after a step where Adam's update is
+   well-conditioned).
 7. Timing: each kernel at the main path's shapes beside its plain version,
    one PyTorch library call for the same function where there is one, and
    its bound; flash_attention and flash_decode also at recurrentgemma's
@@ -299,6 +322,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (flash_decode at pos = C - 1, the route the models take, beside
    flash_attention at Sq = 1 and SDPA); quant_matmul at the vlm w8 layer
    and head (M = 1024) and whisper's decoder layer and head (M = 1792).
+   flash_attention's backward at qwen2-0.5b's training shape, eager and as
+   a CUDA graph, beside the plain backward and the backward of SDPA (timed
+   alone), with its 3xTF32 bound (five products over the visible pairs).
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -475,6 +501,29 @@ FA128_CASES = tuple((2, 14, 2, S, causal) for S in (40, 512) for causal in (True
 # the new widths, over ragged (40, 100) and whole (512) tiles
 FA_MLA_DIMS = ((192, 128), (48, 32))
 FA_MLA_CASES = tuple((2, 16, HK, S) for HK in (16, 4) for S in (40, 100, 512))
+# flash_attention's backward kernel (phase 2), (B, H, HK, Sq, Skv, D, causal,
+# window), each in f32 and bf16: qwen2-0.5b's training shape, qwen3-0.6b's
+# 16/8 heads at D 128, a window of 64 over 512 tokens, whisper's
+# cross-attention shape (no mask, 448 queries over 1500 frames), and ragged
+# tiles (40 and 100 tokens; 40 queries over 100 keys) at both widths; 14/2
+# and 16/8 are GQA cases whose h % HK and h // G differ
+FA_BWD_CASES = ((8, 14, 2, 512, 512, 64, True, None), (8, 16, 8, 512, 512, 128, True, None),
+                (2, 14, 2, 512, 512, 64, True, 64), (2, 20, 20, 448, 1500, 64, False, None),
+                (2, 14, 2, 40, 40, 64, True, None), (2, 16, 8, 100, 100, 128, True, None),
+                (2, 14, 2, 100, 100, 64, False, None), (2, 16, 8, 40, 100, 128, False, None))
+FA_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the backward's phase-7 shape (B, H, HK, S, D): qwen2-0.5b's training
+# attention, f32, causal
+FA_BWD_PATH = (8, 14, 2, 512, 64)
+# the train path (phase 10): qwen2-0.5b at full width and depth, TRAIN_STEPS
+# AdamW steps of TRAIN_BATCH x TRAIN_SEQ synthetic tokens; card against CPU
+# at depth TRAIN_CPU_LAYERS for TRAIN_CPU_ARCHS; the microbatch check
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen2-0.5b", 8, 512, 8
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+TRAIN_CPU_ARCHS = ("qwen2-0.5b", "qwen3-0.6b")
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 2, 64
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_MB_TOL = 1e-4, 1e-4, 1e-5
+TRAIN_MB_WELL, TRAIN_MB_PARAM_TOL = 1e-4, 1e-6
 # H100 SXM dense TF32 tensor-core rate; 3xTF32 runs three TF32 products for
 # each f32 product
 PEAK_3XTF32 = 495e12 / 3
@@ -702,7 +751,8 @@ def phase_kernel_checks(dev):
     check_flash_attention_mla(dev, g)
     qmm_err = max(qmm_err, check_cross_kernels(dev, g))
     rs_err = check_rglru_scan(dev, g)
-    return qmm_err, ms_err, rs_err
+    fa_bwd_err = check_flash_attention_bwd(dev, g)
+    return qmm_err, ms_err, rs_err, fa_bwd_err
 
 
 def check_cross_kernels(dev, g):
@@ -1113,28 +1163,30 @@ def check_flash_decode(dev, g):
     check(refused, "flash_decode refuses to make a stream's workspace inside a graph capture")
 
 
-def _kernel_modules():
+def _kernel_counters():
+    """{kernel: (its wrapper module, the name of its launch count there)}."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import quant_matmul as qmm
     from repro_torch.kernels import rglru_scan as rs
-    return {"flash_attention": fa, "flash_decode": fd, "mamba_scan": ms,
-            "quant_matmul": qmm, "rglru_scan": rs}
+    return {"flash_attention": (fa, "launches"), "flash_attention_bwd": (fa, "bwd_launches"),
+            "flash_decode": (fd, "launches"), "mamba_scan": (ms, "launches"),
+            "quant_matmul": (qmm, "launches"), "rglru_scan": (rs, "launches")}
 
 
 def _counts():
-    return {name: mod.launches for name, mod in _kernel_modules().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _kernel_counters().items()}
 
 
 def _reset_counts():
-    for mod in _kernel_modules().values():
-        mod.launches = 0
+    for mod, attr in _kernel_counters().values():
+        setattr(mod, attr, 0)
 
 
 def _launches(**nonzero):
     """The expected launch counts: every kernel 0 unless named."""
-    return {name: nonzero.get(name, 0) for name in _kernel_modules()}
+    return {name: nonzero.get(name, 0) for name in _kernel_counters()}
 
 
 def phase_main_path(dev):
@@ -3458,7 +3510,411 @@ def phase_cli(dev, smi, argv=CLI_ARGV):
     return launches, timing
 
 
-def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
+# --------------------------------------------------------------------------
+# the backward kernel (phase 2) and the train path (phase 10)
+# --------------------------------------------------------------------------
+
+def check_flash_attention_bwd(dev, g):
+    """flash_attention's log-sum-exp and its backward kernel against the
+    plain versions on the card (FA_BWD_CASES, f32 and bf16, views of (B, S,
+    H, D) tensors as the model passes them): the lse within FA_TOL, the
+    gradients within FA_BWD_TOL (f32 also against the plain backward in f64,
+    which both f32 versions are measured against); the GQA map (kv head h %
+    HK, not h // G); and ``FlashAttentionFn`` under autograd equal to the
+    direct calls, one forward and one backward launch. Returns the largest
+    f32 gradient gap to the plain version."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    worst = 0.0
+    for B, H, HK, Sq, Skv, D, causal, window in FA_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = (torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+                     for _ in range(2))
+            k, v = (torch.randn(B, Skv, HK, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+                    for _ in range(2))
+            kw = dict(causal=causal, window=window)
+            o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+            _, lse_ref = fa.flash_attention_ref(q, k, v, with_lse=True, **kw)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            plain = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[1]
+            tol = FA_BWD_TOL[name]
+            e_lse = (lse - lse_ref).abs().max().item()
+            errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, plain)]
+            scale = [b.float().abs().max().item() for b in plain]
+            # f32: relative to the gradient's largest magnitude (see FA_BWD_TOL);
+            # bf16: the forward's absolute and relative 2e-2
+            ok = e_lse <= FA_TOL[name] and all(
+                torch.allclose(a.float(), b.float(), rtol=tol,
+                               atol=tol * m if dtype == torch.float32 else tol)
+                for a, b, m in zip(got, plain, scale))
+            extra = ""
+            if dtype == torch.float32:
+                worst = max(worst, *errs)
+                f64 = fa.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, o, lse, do)),
+                                                 **kw)
+                e_k = [(a.double() - c).abs().max().item() for a, c in zip(got, f64)]
+                e_p = [(b.double() - c).abs().max().item() for b, c in zip(plain, f64)]
+                extra = (f"; against the f64 plain backward: kernel {_fmt(e_k)}, plain f32 "
+                         f"{_fmt(e_p)}")
+                del f64
+            check(ok, f"flash_attention_bwd {name} B={B} H={H} HK={HK} Sq={Sq} Skv={Skv} D={D} "
+                      f"causal={causal} window={window}: lse err {e_lse:.3g}, dq/dk/dv "
+                      f"max_abs_err {_fmt(errs)} (largest |grad| {_fmt(scale)}, tol {tol}"
+                      + (" x largest" if dtype == torch.float32 else "") + f"){extra}")
+
+    # kv head h % HK: dk and dv summed over the heads h = hk, hk + HK, ...
+    B, H, HK, S, D = 2, 14, 2, 40, 64
+    G = H // HK
+    q, do = (torch.randn(B, H, S, D, generator=g, device=dev) for _ in range(2))
+    k, v = (torch.randn(B, HK, S, D, generator=g, device=dev) for _ in range(2))
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    _, dk, _ = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    ki, vi = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    oi, lsei = fa.flash_attention_ref(q, ki, vi, with_lse=True)
+    dk_div = fa.flash_attention_bwd_ref(q, ki, vi, oi, lsei, do)[1].reshape(B, HK, G, S, D).sum(2)
+    dk_mod = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)[1]
+    torch.cuda.synchronize()
+    e_mod, e_div = ((dk - dk_mod).abs().max().item(), (dk - dk_div).abs().max().item())
+    check(e_mod <= FA_BWD_TOL["float32"] * dk_mod.abs().max().item() and e_div > 0.1,
+          f"flash_attention_bwd GQA head map: |dk - ref(h % HK)| = {e_mod:.3g}, "
+          f"|dk - ref(h // G)| = {e_div:.3g}")
+
+    # through autograd, as a train step calls it: one forward with its lse and
+    # one backward, and the gradients of the direct calls bit for bit
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    before = _counts()
+    out = ops.attention_bhsd(qg, kg, vg, causal=True)
+    out.backward(do)
+    delta = {n: c - before[n] for n, c in _counts().items()}
+    want = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.grad, b) for a, b in zip((qg, kg, vg), want))
+    check(same and torch.equal(out, o)
+          and delta == _launches(flash_attention=1, flash_attention_bwd=1),
+          f"FlashAttentionFn under autograd: gradients equal to the direct calls {same}, "
+          f"launches {delta}")
+    return worst
+
+
+def _fmt(xs):
+    return "[" + ", ".join(f"{x:.3g}" for x in xs) + "]"
+
+
+def _profile_train_step(fn):
+    """One train step under torch.profiler: wall, device busy and idle
+    share, kernel launches, and device time by kind: the GEMMs (cuBLAS),
+    the flash attention forward (flash_fwd) and backward (bwd_dkdv, bwd_dq,
+    bwd_delta) kernels, and the rest (elementwise, reductions, the
+    optimizer, copies); the kernels by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return next((getattr(e, n) for n in ("self_device_time_total", "self_cuda_time_total")
+                     if getattr(e, n, None)), 0.0)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    kinds = {"GEMMs (cuBLAS)": ("gemm", "xmma", "cutlass"), "flash_fwd": ("::flash_fwd<",),
+             "bwd_dkdv": ("::bwd_dkdv<",), "bwd_dq": ("::bwd_dq<",),
+             "bwd_delta": ("::bwd_delta<",)}
+    ms = {k: 0.0 for k in kinds}
+    for e in kernels:
+        kind = next((k for k, keys in kinds.items() if any(x in e.key.lower() for x in keys)),
+                    None)
+        if kind is not None:
+            ms[kind] += dev_us(e) / 1e3
+    ms["other"] = busy - sum(ms.values())
+    n_kernels = sum(e.count for e in kernels)
+    print(f"  profile of one train step: wall {wall:.2f} ms, device busy {busy:.2f} ms (idle "
+          f"{1 - busy / wall:.1%}), {n_kernels} kernel launches; by kind: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items()))
+    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
+        print(f"    {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+            "kernel_launches": n_kernels, "by_kind_ms": ms}
+
+
+def phase_train(dev, smi):
+    """Phase 10: full-width, full-depth qwen2-0.5b trained through
+    ``launch.steps.make_train_step`` (remat on) for TRAIN_STEPS AdamW steps on
+    ``SyntheticLMDataset`` batches: every loss finite and the last below
+    the first, the launches of each step exact (the forward kernel once a
+    layer and again in remat's recompute, the backward kernel once a
+    layer, nothing else), ms a step, peak memory, one profiled step; then
+    card against CPU at depth TRAIN_CPU_LAYERS for TRAIN_CPU_ARCHS (loss and
+    every gradient leaf), and a step over two microbatches against one
+    over the whole batch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset, to_device
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init, param_tree
+    from repro_torch.optim import AdamWConfig, adamw_init
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    print(f"== 10. training: full-width {cfg.name} ({cfg.n_layers} layers), {TRAIN_STEPS} "
+          f"AdamW steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat on")
+    model = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    print(f"  {sum(p.numel() for p in model.parameters())} parameters, f32")
+    opt = AdamWConfig(**TRAIN_OPT)
+    state = adamw_init(param_tree(model))
+    step = make_train_step(cfg, opt, remat=True)
+    ds = SyntheticLMDataset(cfg, DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    batches = [to_device(ds.batch(i), dev) for i in range(TRAIN_STEPS + 1)]
+    L = cfg.n_layers
+    per_step = _launches(flash_attention=2 * L, flash_attention_bwd=L)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms, metrics = [], [], []
+    _reset_counts()
+    for i in range(TRAIN_STEPS):
+        before = _counts()
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, batches[i])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        delta = {n: c - before[n] for n, c in _counts().items()}
+        m = {k: float(v) for k, v in m.items()}
+        losses.append(m["loss"])
+        metrics.append(m)
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) and delta == per_step,
+              f"train step {i}: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.3f} lr "
+              f"{m['lr']:.3g}, {ms[-1]:.1f} ms, launches {delta}")
+    launches = _counts()
+    check(launches == {n: c * TRAIN_STEPS for n, c in per_step.items()},
+          f"train path launches over {TRAIN_STEPS} steps: {launches}")
+    check(losses[-1] < losses[0], f"train loss falls: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    profile = _profile_train_step(lambda: step(model, state, batches[TRAIN_STEPS]))
+    timing = {"ms_per_step": ms, "median_ms": statistics.median(ms), "peak_bytes": peak,
+              "losses": losses, "profile": profile, "card": smi}
+    print(f"  {cfg.name} train step: median {timing['median_ms']:.1f} ms of {ms}, peak "
+          f"{peak} bytes, {TRAIN_BATCH * TRAIN_SEQ * 1e3 / timing['median_ms']:.0f} tokens/s "
+          f"({smi})")
+    del model, state, batches, step
+    _free()
+    for arch in TRAIN_CPU_ARCHS:
+        train_card_vs_cpu(dev, arch)
+    train_reduced_card_vs_cpu(dev)
+    train_microbatches(dev)
+    timing["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 10: {timing['seconds']:.1f} s")
+    return launches, timing
+
+
+def train_card_vs_cpu(dev, arch):
+    """Full width at depth TRAIN_CPU_LAYERS, the same weights on both
+    devices: one ``forward_train`` and its gradients (remat on the card, off
+    on the CPU) over TRAIN_CPU_BATCH x TRAIN_CPU_SEQ tokens; the loss within
+    TRAIN_LOSS_TOL and every exported gradient leaf within TRAIN_GRAD_TOL of
+    its largest magnitude."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset, to_device
+    from repro_torch.launch.steps import accumulate_grads
+    from repro_torch.models import export_params, init, load_jax_params
+    cfg = get_config(arch).with_overrides(n_layers=TRAIN_CPU_LAYERS)
+    t0 = time.perf_counter()
+    card = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    cpu = load_jax_params(cfg, export_params(card), device="cpu")
+    b = SyntheticLMDataset(cfg, DataConfig(batch_size=TRAIN_CPU_BATCH, seq_len=TRAIN_CPU_SEQ,
+                                           seed=1)).batch(0)
+    before = _counts()
+    g_card, l_card, m_card = accumulate_grads(cfg, card, to_device(b, dev), remat=True)
+    torch.cuda.synchronize()
+    delta = {n: c - before[n] for n, c in _counts().items()}
+    g_cpu, l_cpu, _ = accumulate_grads(cfg, cpu, to_device(b, "cpu"), remat=False)
+    e_loss = abs(float(l_card) - float(l_cpu))
+    worst, worst_key = 0.0, None
+    for key, gc in g_cpu.items():
+        scale = gc.abs().max().item()
+        ratio = (g_card[key].cpu() - gc).abs().max().item() / max(scale, 1e-30)
+        if ratio > worst:
+            worst, worst_key = ratio, key
+    L = cfg.n_layers
+    check(e_loss <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL
+          and delta == _launches(flash_attention=2 * L, flash_attention_bwd=L),
+          f"{arch} train card vs CPU at depth {L} (D {cfg.resolved_head_dim}"
+          + (", q/k norm" if cfg.qk_norm else "") + f"), {TRAIN_CPU_BATCH} x {TRAIN_CPU_SEQ} "
+          f"tokens: loss {float(l_card):.6f} vs {float(l_cpu):.6f} (gap {e_loss:.3g}, tol "
+          f"{TRAIN_LOSS_TOL}); {len(g_cpu)} gradient leaves, largest gap {worst:.3g} of the "
+          f"leaf's largest magnitude ({worst_key}; tol {TRAIN_GRAD_TOL}); launches {delta}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del card, cpu
+    _free()
+
+
+def train_reduced_card_vs_cpu(dev):
+    """Every arch whose train path the card takes (all but those
+    ``kernels_without_backward`` names) at ``.reduced()``: one
+    ``forward_train`` and its gradients on the card (remat on) against the
+    CPU (remat off) over 2 x 32 tokens of the synthetic data (with its
+    random media or frames), the vlm's gates drawn nonzero: the loss within
+    TRAIN_LOSS_TOL, every gradient leaf within TRAIN_GRAD_TOL of its largest
+    magnitude, and one backward launch for each forward launch of a
+    no-grad forward (every self- and cross-attention), none of the scan
+    kernels. The refused archs' reduced models raise at their first train
+    step on the card, before any launch."""
+    import torch
+    from repro_torch.configs import ALL_ARCHS, get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset, to_device
+    from repro_torch.launch.steps import (accumulate_grads, kernels_without_backward,
+                                          make_train_step)
+    from repro_torch.models import (export_params, forward_train, init, load_jax_params,
+                                    param_tree)
+    from repro_torch.optim import AdamWConfig, adamw_init
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch).reduced()
+        card = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        _nonzero_gates(card, 1)
+        b = SyntheticLMDataset(cfg, DataConfig(batch_size=2, seq_len=32, seed=3)).batch(0)
+        missing = kernels_without_backward(get_config(arch))
+        if missing:
+            step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT))
+            before = _counts()
+            try:
+                step(card, adamw_init(param_tree(card)), to_device(b, dev))
+                refused = ""
+            except NotImplementedError as e:
+                refused = str(e)
+            check("ROADMAP.md section 2" in refused and _counts() == before,
+                  f"{arch} reduced: its train step on the card is refused before any launch "
+                  f"({', '.join(missing)}): {refused[:160]}")
+            del card
+            continue
+        cpu = load_jax_params(cfg, export_params(card), device="cpu")
+        before = _counts()
+        with torch.no_grad():
+            forward_train(cfg, card, to_device(b, dev), remat=False)
+        calls = _counts()["flash_attention"] - before["flash_attention"]
+        before = _counts()
+        g_card, l_card, _ = accumulate_grads(cfg, card, to_device(b, dev), remat=True)
+        torch.cuda.synchronize()
+        delta = {n: c - before[n] for n, c in _counts().items()}
+        g_cpu, l_cpu, _ = accumulate_grads(cfg, cpu, to_device(b, "cpu"), remat=False)
+        worst = max((g_card[k].cpu() - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                    for k, g in g_cpu.items())
+        e_loss = abs(float(l_card) - float(l_cpu))
+        launches_ok = (calls > 0 and delta["flash_attention_bwd"] == calls
+                       and calls < delta["flash_attention"] <= 2 * calls
+                       and all(delta[n] == 0 for n in delta
+                               if n not in ("flash_attention", "flash_attention_bwd")))
+        check(e_loss <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL and launches_ok,
+              f"{arch} reduced, train card vs CPU: loss {float(l_card):.6f} (gap {e_loss:.3g}), "
+              f"{len(g_cpu)} gradient leaves within {worst:.3g} of their largest magnitude; "
+              f"{calls} attention calls a forward, launches {delta}")
+        del card, cpu
+    _free()
+
+
+def train_microbatches(dev):
+    """Two microbatches against one over the whole batch, from the same
+    weights (qwen2-0.5b at full width, depth TRAIN_CPU_LAYERS, 4 x
+    TRAIN_CPU_SEQ tokens): the accumulated gradients (each leaf within
+    TRAIN_MB_TOL of its largest magnitude), then one train step each: loss
+    and grad_norm within TRAIN_MB_TOL (relative) and the parameters after
+    the step equal within TRAIN_MB_PARAM_TOL (of max(|p|, 1)) wherever the
+    gradient exceeds TRAIN_MB_WELL. Adam's first update is g' / (|g'| + eps)
+    per element (g' the clipped gradient, eps 1e-8), whose slope eps / (|g'|
+    + eps)^2 turns the summation-order gap of the two gradients (measured
+    ~3e-6 of a leaf's largest magnitude) into an update gap of up to lr
+    where |g'| is near eps; above TRAIN_MB_WELL the slope is below ~35 and
+    the update gap below ~2e-5 of lr. The share of elements above it is
+    printed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset, to_device
+    from repro_torch.launch.steps import accumulate_grads, make_train_step
+    from repro_torch.models import export_params, init, load_jax_params, param_tree
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get_config(TRAIN_ARCH).with_overrides(n_layers=TRAIN_CPU_LAYERS)
+    one = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    two = load_jax_params(cfg, export_params(one), device=dev)
+    b = to_device(SyntheticLMDataset(cfg, DataConfig(batch_size=4, seq_len=TRAIN_CPU_SEQ,
+                                                     seed=2)).batch(0), dev)
+    g1, _, _ = accumulate_grads(cfg, one, b, remat=True, microbatches=1)
+    g2, _, _ = accumulate_grads(cfg, two, b, remat=True, microbatches=2)
+    g_gap = max(((g2[k] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                for k, g in g1.items())
+    opt = AdamWConfig(**TRAIN_OPT)
+    out = []
+    for model, n in ((one, 1), (two, 2)):
+        _, _, m = make_train_step(cfg, opt, remat=True, microbatches=n)(
+            model, adamw_init(param_tree(model)), b)
+        out.append(({k: float(v) for k, v in m.items()}, param_tree(model)))
+    (m1, p1), (m2, p2) = out
+    rel = {k: abs(m2[k] - m1[k]) / max(abs(m1[k]), 1e-30) for k in ("loss", "grad_norm")}
+    p_gap, n_well, n_all = 0.0, 0, 0
+    for k, v in p1.items():
+        well = g1[k].abs() > TRAIN_MB_WELL
+        n_well, n_all = n_well + int(well.sum()), n_all + well.numel()
+        if well.any():
+            p_gap = max(p_gap, ((p2[k] - v).abs()[well] / v.abs()[well].clamp_min(1.0)).max().item())
+    check(g_gap <= TRAIN_MB_TOL and max(rel.values()) <= TRAIN_MB_TOL
+          and p_gap <= TRAIN_MB_PARAM_TOL,
+          f"train step over 2 microbatches vs 1: gradients within {g_gap:.3g} of each leaf's "
+          f"largest magnitude; loss {m2['loss']:.6f} vs {m1['loss']:.6f}, grad_norm "
+          f"{m2['grad_norm']:.6f} vs {m1['grad_norm']:.6f} (relative gaps {_fmt(rel.values())}; "
+          f"tol {TRAIN_MB_TOL}); parameters after the step within {p_gap:.3g} (tol "
+          f"{TRAIN_MB_PARAM_TOL}) where |g| > {TRAIN_MB_WELL} ({n_well / n_all:.1%} of "
+          f"{n_all} elements)")
+    del one, two
+    _free()
+
+
+def time_flash_attention_bwd(dev, g, err, launches):
+    """The backward kernel at qwen2-0.5b's training shape (FA_BWD_PATH, f32,
+    causal, views of (B, S, H, D) tensors): eager and as a CUDA graph
+    (device time), beside the plain backward, the backward of SDPA under
+    autograd timed alone (k and v repeated to H heads as leaves, so no
+    repeat's backward is in it), and its bound: five products over the
+    visible pairs at the 3xTF32 rate against q, k, v, o, dO, lse and the
+    three gradients moved once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, H, HK, S, D = FA_BWD_PATH
+    q, do = (torch.randn(B, S, H, D, generator=g, device=dev).transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(B, S, HK, D, generator=g, device=dev).transpose(1, 2) for _ in range(2))
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    run = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731
+    ms = cuda_ms(run, 20)
+    dev_ms = graph_ms(run, 20)
+    plain = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 5)
+    qs = q.detach().clone().requires_grad_()
+    kr, vr = (t.repeat(1, H // HK, 1, 1).detach().requires_grad_() for t in (k, v))
+    out = F.scaled_dot_product_attention(qs, kr, vr, is_causal=True)
+    lib = cuda_ms(lambda: torch.autograd.grad(out, (qs, kr, vr), do, retain_graph=True), 20)
+    pairs = B * H * S * (S + 1) // 2
+    nops = 5 * 2 * D * pairs
+    nbytes = 4 * (4 * B * H * S * D + 4 * B * HK * S * D + B * H * S)
+    bound, by = _bound(nbytes, nops, PEAK_3XTF32)
+    print(f"  flash_attention_bwd at qwen2-0.5b's training shape: {ms:.4f} ms eager, "
+          f"{dev_ms:.4f} ms device, {bound / dev_ms:.1%} of its 3xTF32 bound {bound:.4f} ms "
+          f"({by}; {nops / 1e9:.2f} GFLOP over {pairs} visible pairs, {nbytes / 1e6:.1f} MB)")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "none: no Pallas backward exists (the JAX package differentiates its "
+                        "jnp attention, src/repro/kernels/ops.py:65)",
+            "launches": launches["flash_attention_bwd"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib,
+            "device_ms": dev_ms,
+            "shape": f"f32 q ({B},{H},{S},{D}) k/v ({B},{HK},{S},{D}) causal, per call, "
+                     f"qwen2-0.5b's training shape"}
+
+
+def phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, launches):
     import torch
     print("== 7. kernel timing at the main path's shapes (CUDA events)")
     g = torch.Generator(device=dev).manual_seed(3)
@@ -3505,6 +3961,7 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, launches):
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:103",
          "launches": launches["flash_attention"], **fa_row},
+        time_flash_attention_bwd(dev, g, fa_bwd_err, launches),
         qmm_row,
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -3936,7 +4393,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     smi = phase_build()
-    qmm_err, ms_err, rs_err = phase_kernel_checks(dev)
+    qmm_err, ms_err, rs_err, fa_bwd_err = phase_kernel_checks(dev)
     cfg, model, eng, batch, launches, times = phase_main_path(dev)
     loop_launches, loop_timing = phase_closed_loop(dev, cfg, eng, batch)
     fleet_launches, fleet_timing, fleet_world = phase_fleet_loop(dev, cfg, eng, smi)
@@ -3962,10 +4419,12 @@ def main() -> int:
     _free()
 
     families.update({arch: phase_family(dev, arch) for arch in FAMILIES if arch != FM_ARCH})
+    train_launches, train_timing = phase_train(dev, smi)
 
-    kernels = phase_timing(dev, qmm_err, ms_err, rs_err, {
+    kernels = phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, {
         **{k: launches[k] + loop_launches[k] + fleet_launches[k] + drift_launches[k]
            for k in launches},
+        "flash_attention_bwd": train_launches["flash_attention_bwd"],
         "flash_decode": dec_launches["flash_decode"],
         "mamba_scan": families[FM_ARCH]["split"]["mamba_scan"],
         "rglru_scan": rg_launches["rglru_scan"]})
@@ -3976,11 +4435,12 @@ def main() -> int:
              f"{cfg.name} decode": dec_launches,
              f"{RG_ARCH} split": rg_launches, f"{RG_ARCH} decode": rg_dec_launches,
              "mixed fleet": mix_launches, "simulate CLI (mixtral-8x22b execute)": cli_launches,
-             "simulate CLI (deepseek-v2-lite-16b execute)": cli_mla_launches}
+             "simulate CLI (deepseek-v2-lite-16b execute)": cli_mla_launches,
+             f"{TRAIN_ARCH} train": train_launches}
     for arch, d in families.items():
         paths.update({f"{arch} split": d["split"], f"{arch} decode": d["decode"]})
     for kern in kernels:
-        kern["launches_by_path"] = {p: n[kern["name"]] for p, n in paths.items()}
+        kern["launches_by_path"] = {p: n.get(kern["name"], 0) for p, n in paths.items()}
 
     print(f"{cfg.name} per-infer ms (median of 3), {BATCH} x {SEQ} tokens: " + json.dumps(
         {k: statistics.median(v) for k, v in times.items()}))
@@ -3997,6 +4457,7 @@ def main() -> int:
     print("mixed fleet: " + json.dumps(mix_timing))
     print("simulate CLI: " + json.dumps(cli_timing))
     print("simulate CLI (deepseek-v2-lite-16b): " + json.dumps(cli_mla_timing))
+    print(f"{TRAIN_ARCH} training: " + json.dumps(train_timing))
     for arch, d in families.items():
         B, S = FAMILIES[arch]["split"]
         print(f"{arch} per-infer ms (median of 3), {B} x {S} tokens: " + json.dumps(

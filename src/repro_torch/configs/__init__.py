@@ -16,4 +16,13 @@ ALL_ARCHS = (qwen2_0_5b.CONFIG.name, falcon_mamba_7b.CONFIG.name,
              mixtral_8x22b.CONFIG.name, deepseek_v2_lite_16b.CONFIG.name,
              llama_3_2_vision_90b.CONFIG.name, whisper_large_v3.CONFIG.name)
 
-__all__ = ["ModelConfig", "get_config", "register", "ALL_ARCHS"]
+# the input-shape suite (name -> seq_len, global_batch, kind), as the JAX
+# package's
+SHAPES = {
+    "train_4k":    dict(seq_len=4_096,   global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32_768,  global_batch=32,  kind="prefill"),
+    "decode_32k":  dict(seq_len=32_768,  global_batch=128, kind="decode"),
+    "long_500k":   dict(seq_len=524_288, global_batch=1,   kind="decode"),
+}
+
+__all__ = ["ModelConfig", "get_config", "register", "ALL_ARCHS", "SHAPES"]

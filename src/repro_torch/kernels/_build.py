@@ -23,7 +23,8 @@ from typing import Callable, Dict, Iterable, List
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("flash_attention", "flash_decode", "mamba_scan", "quant_matmul", "rglru_scan")
+KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode", "mamba_scan",
+           "quant_matmul", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

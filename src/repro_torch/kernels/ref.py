@@ -10,11 +10,13 @@ import torch
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None,
-                        logit_scale=None):
+                        logit_scale=None, with_lse=False):
     """q: (B,H,Sq,D); k: (B,HK,Skv,D); v: (B,HK,Skv,Dv) -> (B,H,Sq,Dv)
     [kernel layout]. v's head dim may differ from q's and k's (MLA's 192
     and 128): the output has Dv columns and the default scale is D ** -0.5
-    of q's D, as ``plain_attention`` computes them.
+    of q's D, as ``plain_attention`` computes them. With ``with_lse`` also
+    each query row's log-sum-exp of its scaled, masked scores, (B,H,Sq)
+    f32: the forward kernel's second output.
 
     GQA: query head h reads kv head h % HK (plain_attention's grouping)."""
     # imported here (and in flash_decode_ref): models -> kernels.ops -> the
@@ -25,8 +27,67 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None,
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         q_positions=torch.arange(q.shape[2], device=q.device),
         kv_positions=torch.arange(k.shape[2], device=k.device),
-        causal=causal, window=window, logit_scale=logit_scale)
-    return out.transpose(1, 2)
+        causal=causal, window=window, logit_scale=logit_scale).transpose(1, 2)
+    if not with_lse:
+        return out
+    s, vis, _ = _scores(q, k, causal, window, logit_scale)
+    return out, torch.logsumexp(torch.where(vis, s, NEG_INF), dim=-1)
+
+
+NEG_INF = -1e30
+
+
+def _acc(t):
+    """The type the plain backward computes in: f32, or f64 for f64 inputs
+    (the oracle that measures both f32 versions' rounding)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _scores(q, k, causal, window, logit_scale):
+    """The scaled scores (B,H,Sq,Skv) in f32 (f64 for f64 inputs), query head
+    h against kv head h % HK, their visibility (Sq,Skv) (query i at position
+    i, key j at j) and the scale."""
+    H, Sq, D = q.shape[1:]
+    HK, Skv = k.shape[1], k.shape[2]
+    scale = logit_scale if logit_scale is not None else D ** -0.5
+    f = _acc(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(f), k.to(f).repeat(1, H // HK, 1, 1)) * scale
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Skv, device=q.device)[None, :]
+    vis = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        vis = vis & (j <= i)
+    if window is not None:
+        vis = vis & (i - j < window)
+    return s, vis, scale
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
+                            logit_scale=None):
+    """The gradient of ``flash_attention_ref`` at (q, k, v), by the backward
+    kernel's math, in f32: P recomputed from the forward's ``lse`` (0 on
+    masked pairs), delta = rowsum(dO * O), dS = P (dO V^T - delta), dQ =
+    scale dS K, dK = scale dS^T Q and dV = P^T dO summed over the G query
+    heads h = hk, hk + HK, ... that read kv head hk. o: (B,H,Sq,Dv) the
+    forward's output, lse: (B,H,Sq) f32, do: the output's gradient. Returns
+    (dq, dk, dv) in the inputs' dtypes. f64 inputs are computed in f64."""
+    B, H, Sq, D = q.shape
+    HK, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // HK
+    s, vis, scale = _scores(q, k, causal, window, logit_scale)
+    f = _acc(q)
+    p = torch.where(vis, torch.exp(s - lse.to(f)[..., None]), 0.0)
+    dof = do.to(f)
+    delta = (dof * o.to(f)).sum(-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.to(f).repeat(1, G, 1, 1))
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(f).repeat(1, G, 1, 1)) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(f)) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    # head h = g * HK + hk reads kv head hk
+    dk = dk.reshape(B, G, HK, Skv, D).sum(1)
+    dv = dv.reshape(B, G, HK, Skv, Dv).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_decode_ref(q, k, v, pos, *, window=None, logit_scale=None):

@@ -1,0 +1,147 @@
+"""Step functions for training, prefill and decode (port of
+``repro.launch.steps``).
+
+``make_train_step`` returns ``train_step(model, opt_state, batch) -> (model,
+opt_state, metrics)``: the loss and its gradients through autograd
+(``models.forward_train``), gradient accumulation over microbatches as the
+reference accumulates them, then ``optim.adamw_update`` on the parameters
+in the JAX package's flat, stacked layout (``models.param_tree``), written
+back into the model in place. The optimizer state keeps that layout, the
+one a checkpoint has: ``adamw_init(param_tree(model))``.
+
+On the card a train step runs every self-attention through the flash
+attention kernels, forward and backward. A config whose train path reaches
+a kernel without a backward (falcon-mamba's ``mamba_scan``,
+recurrentgemma's ``rglru_scan`` and its attention at head_dim 256,
+deepseek's MLA attention at (192, 128)) is refused before the first step;
+nothing falls back to the plain versions on the card.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS, BWD_MISSING
+from repro_torch.models import model as M
+from repro_torch.models.params import assign_params, export_grads, param_tree, set_trainable
+from repro_torch.optim import AdamWConfig, adamw_update
+
+LONG_WINDOW = 8192   # sliding window applied for long-context shapes
+
+
+def config_for_shape(cfg: ModelConfig, shape_name: str) -> ModelConfig:
+    """Shape-compatibility overrides for an input shape: long_500k needs
+    sub-quadratic attention, so a config that declares no window (and is
+    neither ssm nor hybrid) gets an 8k sliding window."""
+    if shape_name == "long_500k" and not cfg.ssm:
+        if cfg.sliding_window is None and not cfg.block_pattern:
+            cfg = cfg.with_overrides(sliding_window=LONG_WINDOW)
+    return cfg
+
+
+def _attention_head_dims(cfg: ModelConfig):
+    """(D, Dv) of the config's flash attention calls, or None without
+    attention."""
+    if cfg.ssm:
+        return None
+    if cfg.use_mla:
+        return cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    return cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
+def kernels_without_backward(cfg: ModelConfig) -> List[str]:
+    """The kernels that ``cfg``'s train path reaches on the card and that
+    have no backward kernel yet."""
+    missing = []
+    if cfg.ssm:
+        missing.append("mamba_scan")
+    if "rec" in cfg.block_pattern:
+        missing.append("rglru_scan")
+    dims = _attention_head_dims(cfg)
+    if dims is not None and dims not in BWD_HEAD_DIMS:
+        missing.append(f"flash_attention at (q/k, v) head dims {dims}")
+    return missing
+
+
+def check_trainable_on_card(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError, naming the kernels and the ROADMAP item,
+    when ``cfg``'s train path on the card reaches a kernel without a
+    backward."""
+    missing = kernels_without_backward(cfg)
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: a train step on the card reaches {', '.join(missing)}, which "
+            f"has no backward kernel yet ({BWD_MISSING}); train it with --device cpu")
+
+
+def _slices(batch: Dict[str, torch.Tensor], n: int):
+    """The batch cut into n microbatches along the batch dim."""
+    return [{k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)] for k, v in batch.items()}
+            for i in range(n)]
+
+
+def accumulate_grads(cfg: ModelConfig, model: M.CausalLM, batch: Dict[str, torch.Tensor],
+                     remat: bool = True, microbatches: int = 1):
+    """The loss's gradients as the reference's train step takes them:
+    (grads, loss, metrics). grads is {leaf path: stacked tensor}
+    (``export_grads``); with microbatches > 1 the batch is cut into that
+    many slices along its batch dim, their gradients summed and divided by
+    n, the loss and the forward's metrics ({"lm_loss", "aux_loss"})
+    averaged. The model's float parameters are made trainable, and their
+    ``.grad`` is None again on return."""
+    set_trainable(model)
+    for p in model.parameters():
+        p.grad = None
+    n = microbatches
+    losses, mets = [], []
+    for mb in ([batch] if n == 1 else _slices(batch, n)):
+        loss, met = M.forward_train(cfg, model, mb, remat=remat)
+        loss.backward()
+        losses.append(loss.detach())
+        mets.append({k: v.detach() for k, v in met.items()})
+    grads = export_grads(model)
+    for p in model.parameters():
+        p.grad = None
+    if n > 1:
+        grads = {k: g / n for k, g in grads.items()}
+    loss = losses[0] if n == 1 else sum(losses) / n
+    return grads, loss, {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]}
+
+
+def make_train_step(cfg: ModelConfig, opt: AdamWConfig, remat: bool = True,
+                    microbatches: int = 1):
+    """``train_step(model, opt_state, batch) -> (model, opt_state, metrics)``:
+    ``accumulate_grads``, then ``adamw_update`` on ``param_tree(model)``,
+    written back into the model. On the card the config's train path is
+    checked first (``check_trainable_on_card``). metrics: {"lm_loss",
+    "aux_loss", "loss", "lr", "grad_norm"}, 0-d tensors on the model's
+    device."""
+
+    def train_step(model: M.CausalLM, opt_state: Dict, batch: Dict[str, torch.Tensor]):
+        if model.tok_embed.is_cuda:
+            check_trainable_on_card(cfg)
+        grads, loss, metrics = accumulate_grads(cfg, model, batch, remat, microbatches)
+        new_params, opt_state, om = adamw_update(opt, param_tree(model), grads, opt_state)
+        assign_params(model, new_params)
+        return model, opt_state, dict(metrics, loss=loss, **om)
+
+    return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``prefill_step(model, batch) -> (last-position logits, caches)``."""
+    def prefill_step(model, batch):
+        with torch.no_grad():
+            return M.prefill(cfg, model, batch)
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """``serve_step(model, caches, token, pos) -> (logits, caches)``; the
+    caches are written in place."""
+    def serve_step(model, cache, token, pos):
+        with torch.no_grad():
+            return M.decode_step(cfg, model, cache, token, pos)
+    return serve_step

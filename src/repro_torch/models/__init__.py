@@ -3,10 +3,13 @@
 (with MLA), and the cross-attention families vlm and audio."""
 from repro_torch.models.model import (CausalLM, DenseLM, cache_axes,
                                       decode_step, enc_stack_defs, forward_logits,
-                                      init_cache, prefill, stack_defs)
-from repro_torch.models.params import (export_params, init, load_jax_params,
-                                       plan_model)
+                                      forward_train, init_cache, lm_loss, prefill,
+                                      stack_defs)
+from repro_torch.models.params import (assign_params, export_grads, export_params,
+                                       init, load_jax_params, param_tree, plan_model,
+                                       set_trainable)
 
 __all__ = ["CausalLM", "DenseLM", "cache_axes", "decode_step", "enc_stack_defs",
-           "forward_logits", "init_cache", "prefill", "stack_defs",
-           "export_params", "init", "load_jax_params", "plan_model"]
+           "forward_logits", "forward_train", "init_cache", "lm_loss", "prefill",
+           "stack_defs", "assign_params", "export_grads", "export_params", "init",
+           "load_jax_params", "param_tree", "plan_model", "set_trainable"]

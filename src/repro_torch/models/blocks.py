@@ -10,7 +10,10 @@ the ``rec`` kind, a pre-norm RG-LRU mixer plus pre-norm MLP, each with a
 residual. The norms are RMSNorm or LayerNorm, as the plan's leaves say.
 Every kind has the same ``forward(x, *, pos0, mode, cache, cache_len,
 kv_src) -> (x, new_cache)``; ``kv_src`` (the encoder or media states) is
-read by the cross-attention kinds only."""
+read by the cross-attention kinds only. ``forward_aux`` takes the same
+arguments and returns (x, new_cache, aux) as the reference's ``apply_block``
+does: aux is the MoE layer's weighted load-balance loss (a 0-d f32 tensor),
+0.0 for every other block."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -38,6 +41,16 @@ def _mlp(cfg: ModelConfig, p: Dict[str, torch.Tensor], prefix: str = "mlp/") -> 
                act=cfg.mlp_act, b_up=p.get(f"{prefix}b_up"), b_down=p.get(f"{prefix}b_down"))
 
 
+class _Block(nn.Module):
+    """What every block kind shares: ``forward_aux``, ``forward`` with the
+    aux loss of 0.0 alongside."""
+
+    def forward_aux(self, x: torch.Tensor, **kw):
+        """(x, new_cache, aux): ``forward``'s result and the block's aux loss."""
+        x, new_cache = self(x, **kw)
+        return x, new_cache, 0.0
+
+
 def _moe(cfg: ModelConfig, p: Dict[str, torch.Tensor]) -> MoE:
     """The MoE whose leaves are under ``moe/``, its shared experts' MLP
     under ``moe/shared/``."""
@@ -45,11 +58,12 @@ def _moe(cfg: ModelConfig, p: Dict[str, torch.Tensor]) -> MoE:
     return MoE(cfg, _sub(p, "moe/"), shared=shared)
 
 
-class Block(nn.Module):
+class Block(_Block):
     """``p`` holds one layer's tensors keyed as in the reference's block
     plan: norm1/..., attn/..., norm2/..., then mlp/... or, for an MoE layer
-    (``moe``), moe/... The serving paths drop the MoE's aux loss, as the
-    reference's do. ``causal=False`` makes it the ``enc`` kind."""
+    (``moe``), moe/... ``forward`` drops the MoE's aux loss, as the
+    reference's serving paths do; ``forward_aux`` returns it (the train
+    loss adds it). ``causal=False`` makes it the ``enc`` kind."""
 
     def __init__(self, cfg: ModelConfig, p: Dict[str, torch.Tensor],
                  window: Optional[int] = None, moe: bool = False, causal: bool = True):
@@ -67,14 +81,26 @@ class Block(nn.Module):
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 cache_len: Optional[int] = None, kv_src: Optional[torch.Tensor] = None):
         """Returns (x, new_cache); see ``SelfAttention.forward``."""
+        x, new_cache, _ = self.forward_aux(x, pos0=pos0, mode=mode, cache=cache,
+                                           cache_len=cache_len, kv_src=kv_src)
+        return x, new_cache
+
+    def forward_aux(self, x: torch.Tensor, *, pos0: int = 0, mode: str = "train",
+                    cache: Optional[Dict[str, torch.Tensor]] = None,
+                    cache_len: Optional[int] = None, kv_src: Optional[torch.Tensor] = None):
+        """Returns (x, new_cache, aux): aux the MoE's weighted load-balance
+        loss, 0.0 without experts."""
         h, new_cache = self.attn(self.norm1(x), pos0=pos0, mode=mode,
                                  cache=cache, cache_len=cache_len)
         x = x + h
         y = self.norm2(x)
-        return x + (self.mlp(y) if self.moe is None else self.moe(y)[0]), new_cache
+        if self.moe is None:
+            return x + self.mlp(y), new_cache, 0.0
+        y, aux = self.moe(y)
+        return x + y, new_cache, aux
 
 
-class SSMBlock(nn.Module):
+class SSMBlock(_Block):
     """``x + mixer(norm(x))``. ``p`` holds one layer's tensors keyed as in
     the reference's block plan: norm/..., ssm/..."""
 
@@ -92,7 +118,7 @@ class SSMBlock(nn.Module):
         return x + h, new_cache
 
 
-class RecBlock(nn.Module):
+class RecBlock(_Block):
     """``x + rec(norm1(x))``, then ``+ mlp(norm2(x))``. ``p`` holds one
     layer's tensors keyed as in the reference's block plan: norm1/...,
     rec/..., norm2/..., mlp/..."""
@@ -114,7 +140,7 @@ class RecBlock(nn.Module):
         return x + self.mlp(self.norm2(x)), new_cache
 
 
-class DecBlock(nn.Module):
+class DecBlock(_Block):
     """The whisper decoder's block: ``x + attn(norm1(x))`` (causal), then
     ``+ xattn(norm2(x), kv_src)``, then ``+ mlp(norm3(x))``. ``p`` holds
     one layer's tensors keyed as in the reference's block plan: norm1/...,
@@ -149,7 +175,7 @@ class DecBlock(nn.Module):
         return x, (None if mode == "train" else {**nc_self, **nc_cross})
 
 
-class XAttnBlock(nn.Module):
+class XAttnBlock(_Block):
     """llama-3.2-vision's image layer: ``x + tanh(gate_attn) *
     xattn(norm1(x), kv_src)``, then ``+ tanh(gate_mlp) * mlp(norm2(x))``.
     The gates are f32 (1,) leaves, cast to x's dtype after the tanh, as in

@@ -46,6 +46,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -202,22 +203,34 @@ class SuperBlock(nn.Module):
         """Returns (x, {sub: new_cache}); ``cache`` is {sub: {leaf: tensor}}
         or None; ``kv_src`` goes to every block (the cross-attention ones
         read it)."""
-        new_cache = {}
+        x, new_cache, _ = self.forward_aux(x, pos0=pos0, mode=mode, cache=cache,
+                                           total_len=total_len, kv_src=kv_src)
+        return x, new_cache
+
+    def forward_aux(self, x: torch.Tensor, *, pos0: int = 0, mode: str = "train",
+                    cache=None, total_len: Optional[int] = None,
+                    kv_src: Optional[torch.Tensor] = None):
+        """``forward`` with the step's aux loss: (x, {sub: new_cache}, aux),
+        aux the sum of its blocks' (0.0 without experts), as the reference's
+        scan body carries it."""
+        new_cache, aux = {}, 0.0
         for name in self.names:
             mod, c = getattr(self, name), None if cache is None else cache[name]
             kw = dict(pos0=pos0, mode=mode, kv_src=kv_src, cache_len=_cache_len(
                 self.windows[name], total_len) if mode == "prefill" else None)
             if not isinstance(mod, nn.ModuleList):
-                x, new_cache[name] = mod(x, cache=c, **kw)
+                x, new_cache[name], a = mod.forward_aux(x, cache=c, **kw)
+                aux = aux + a
                 continue
             reps = []
             for r, blk in enumerate(mod):
-                x, nc = blk(x, cache=None if c is None else {n: t[r] for n, t in c.items()},
-                            **kw)
+                x, nc, a = blk.forward_aux(
+                    x, cache=None if c is None else {n: t[r] for n, t in c.items()}, **kw)
+                aux = aux + a
                 reps.append(nc)
             # decode wrote the repeats' views of ``c`` in place
             new_cache[name] = _stacked(reps) if mode == "prefill" else c
-        return x, new_cache
+        return x, new_cache, aux
 
 
 def _build_stacks(cfg: ModelConfig, defs, flat: Dict[str, torch.Tensor],
@@ -272,7 +285,7 @@ class CausalLM(nn.Module):
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, device=x.device).to(cfg.cdtype)
         for s in enc_stack_defs(cfg):
             for step in self.enc_stacks[s.name]:
-                x, _ = step(x)
+                x, _ = step(x)    # the encoder's aux is dropped, as in the reference
         return self.enc_norm(x)
 
     def kv_src(self, batch) -> Optional[torch.Tensor]:
@@ -296,29 +309,40 @@ class CausalLM(nn.Module):
 
     def _trunk(self, x: torch.Tensor, *, mode: str, pos0: int = 0,
                caches=None, total_len: Optional[int] = None,
-               kv_src: Optional[torch.Tensor] = None):
+               kv_src: Optional[torch.Tensor] = None, remat: bool = False):
         """Every step of every stack in order, then the final norm. Returns
-        (h, caches): None in train mode, the caches built in prefill, the (in
-        place updated) ``caches`` in decode."""
+        (h, caches, aux): caches None in train mode, the caches built in
+        prefill, the (in place updated) ``caches`` in decode; aux the sum of
+        the steps' aux losses (0.0 without experts). ``remat`` (train mode)
+        runs each step under ``torch.utils.checkpoint``: its activations are
+        recomputed in the backward, as ``jax.checkpoint`` of the reference's
+        scan body does."""
         new_caches = {"train": None, "prefill": {}, "decode": caches}[mode]
+        aux = 0.0
         for s in stack_defs(self.cfg):
             steps = []
             for i, step in enumerate(self.stacks[s.name]):
                 c = None if caches is None else _layer(caches[s.name], i)
-                x, nc = step(x, pos0=pos0, mode=mode, cache=c, total_len=total_len,
-                             kv_src=kv_src)
+                kw = dict(pos0=pos0, mode=mode, cache=c, total_len=total_len, kv_src=kv_src)
+                if remat and mode == "train":
+                    x, nc, a = checkpoint(step.forward_aux, x, use_reentrant=False,
+                                          preserve_rng_state=False, **kw)
+                else:
+                    x, nc, a = step.forward_aux(x, **kw)
+                aux = aux + a
                 steps.append(nc)
             if mode == "prefill":
                 new_caches[s.name] = {sub: _stacked([c[sub] for c in steps])
                                       for sub in steps[0]}
-        return self.final_norm(x), new_caches
+        return self.final_norm(x), new_caches, aux
 
     def forward(self, batch) -> torch.Tensor:
         """batch: {"tokens": (B, S) int, and "media" (B, n_media, d) for a
         vlm model or "enc_frames" (B, S_enc, d) for an audio model}, or the
         tokens alone -> logits (B, S, V)."""
         batch = batch if isinstance(batch, dict) else {"tokens": batch}
-        h, _ = self._trunk(self.embed(batch["tokens"]), mode="train", kv_src=self.kv_src(batch))
+        h, _, _ = self._trunk(self.embed(batch["tokens"]), mode="train",
+                              kv_src=self.kv_src(batch))
         return self.head(h)
 
     def prefill(self, batch, total_len: Optional[int] = None):
@@ -331,8 +355,8 @@ class CausalLM(nn.Module):
         batch = batch if isinstance(batch, dict) else {"tokens": batch}
         tokens = batch["tokens"]
         total = total_len if total_len is not None else tokens.shape[1]
-        h, caches = self._trunk(self.embed(tokens), mode="prefill", total_len=total,
-                                kv_src=self.kv_src(batch))
+        h, caches, _ = self._trunk(self.embed(tokens), mode="prefill", total_len=total,
+                                   kv_src=self.kv_src(batch))
         return self.head(h[:, -1]), caches
 
     def decode_step(self, caches, token: torch.Tensor, pos: int):
@@ -343,8 +367,8 @@ class CausalLM(nn.Module):
         first. No ``kv_src``: the cross-attention layers read the prefill's
         {"xk", "xv"}, as in the reference."""
         pos = int(pos)
-        h, caches = self._trunk(self.embed(token[:, None], pos0=pos), mode="decode",
-                                pos0=pos, caches=caches)
+        h, caches, _ = self._trunk(self.embed(token[:, None], pos0=pos), mode="decode",
+                                   pos0=pos, caches=caches)
         return self.head(h[:, 0]), caches
 
 
@@ -355,6 +379,46 @@ def forward_logits(cfg: ModelConfig, model: CausalLM, batch) -> torch.Tensor:
     """Full-sequence logits. batch: {"tokens": (B, S) int} plus "media" or
     "enc_frames" for the cross-attention families."""
     return model(batch)
+
+
+LOSS_CHUNK = 512
+
+
+def lm_loss(cfg: ModelConfig, model: CausalLM, h: torch.Tensor,
+            targets: torch.Tensor) -> torch.Tensor:
+    """Chunked cross-entropy (port of ``repro.models.model.lm_loss``). h:
+    (B, S, d) the trunk's output; targets: (B, S) int, < 0 masked. The head
+    runs on ``LOSS_CHUNK`` positions at a time (all S when S is no multiple
+    of it), its logits in f32; the mean of the unmasked positions' negative
+    log-likelihoods (over at least one position)."""
+    B, S, _ = h.shape
+    chunk = min(LOSS_CHUNK, S)
+    if S % chunk != 0:
+        chunk = S
+    loss_sum = count = 0.0
+    for c0 in range(0, S, chunk):
+        tc = targets[:, c0:c0 + chunk].long()
+        logits = model.head(h[:, c0:c0 + chunk]).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, tc.clamp_min(0)[..., None])[..., 0]
+        mask = (tc >= 0).to(torch.float32)
+        loss_sum = loss_sum + ((lse - tgt) * mask).sum()
+        count = count + mask.sum()
+    return loss_sum / torch.clamp_min(count, 1.0)
+
+
+def forward_train(cfg: ModelConfig, model: CausalLM, batch, remat: bool = True):
+    """The training loss (port of ``repro.models.model.forward_train``).
+    batch: {"tokens", "targets": (B, S) int, and "media" or "enc_frames"
+    for the cross-attention families}. Returns (lm_loss + aux_loss,
+    {"lm_loss", "aux_loss"}), 0-d f32 tensors; aux_loss is the MoE layers'
+    weighted load-balance loss (0 without experts). ``remat`` recomputes
+    each stack step's activations in the backward (``CausalLM._trunk``)."""
+    h, _, aux = model._trunk(model.embed(batch["tokens"]), mode="train",
+                             kv_src=model.kv_src(batch), remat=remat)
+    loss = lm_loss(cfg, model, h, batch["targets"])
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    return loss + aux, {"lm_loss": loss, "aux_loss": aux}
 
 
 def prefill(cfg: ModelConfig, model: CausalLM, batch, total_len: Optional[int] = None):

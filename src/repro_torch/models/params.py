@@ -286,38 +286,109 @@ def load_jax_params(cfg: ModelConfig, flat: Mapping[str, np.ndarray],
     return CausalLM(cfg, tensors)
 
 
-def export_params(model: CausalLM) -> Dict[str, np.ndarray]:
-    """The reverse of ``load_jax_params``: the model's float parameters as
-    the JAX package's flat {leaf path: ndarray}, steps stacked on dim 0 (and
-    a repeated sub's blocks on dim 1)."""
+def _slots(model: CausalLM):
+    """Every float parameter of ``model`` as (leaf path, index, tensor): the
+    JAX package's flat path, and the tensor's place in that leaf's stacked
+    array: () at the top level, (step,) in a stack, (step, repeat) in a
+    repeated sub. Slots of one leaf come in index order."""
     cfg = model.cfg
-    flat = {"tok_embed": model.tok_embed,
-            **{f"final_norm/{n}": t for n, t in model.final_norm.named_parameters()}}
+    yield "tok_embed", (), model.tok_embed
+    for n, t in model.final_norm.named_parameters():
+        yield f"final_norm/{n}", (), t
     if model.lm_head is not None:
-        flat["lm_head"] = model.lm_head.w
-        if not isinstance(flat["lm_head"], torch.Tensor):
-            raise TypeError("lm_head is quantized; export the float model")
+        yield "lm_head", (), _leaf(model, "lm_head")
     stacks = [("stacks", model.stacks, stack_defs(cfg))]
     if model.enc_stacks is not None:
-        flat.update({f"enc_norm/{n}": t for n, t in model.enc_norm.named_parameters()})
+        for n, t in model.enc_norm.named_parameters():
+            yield f"enc_norm/{n}", (), t
         stacks.append(("enc_stacks", model.enc_stacks, enc_stack_defs(cfg)))
     for prefix, modules, defs in stacks:
         for s in defs:
             for sub in s.subs:
-                blocks = [[getattr(step, sub.name)] if sub.repeat == 1
-                          else list(getattr(step, sub.name)) for step in modules[s.name]]
                 for path in _block_plan(cfg, sub.kind, sub.moe):
-                    per_step = [torch.stack([_leaf(b, path) for b in bs]) if sub.repeat > 1
-                                else _leaf(bs[0], path) for bs in blocks]
-                    flat[f"{prefix}/{s.name}/{sub.name}/{path}"] = torch.stack(per_step)
-    return {k: v.detach().cpu().numpy() for k, v in sorted(flat.items())}
+                    key = f"{prefix}/{s.name}/{sub.name}/{path}"
+                    for i, step in enumerate(modules[s.name]):
+                        blocks = getattr(step, sub.name)
+                        if sub.repeat == 1:
+                            yield key, (i,), _leaf(blocks, path)
+                        else:
+                            for r, b in enumerate(blocks):
+                                yield key, (i, r), _leaf(b, path)
+
+
+def _gather(model: CausalLM, get) -> Dict[str, torch.Tensor]:
+    """{leaf path: the leaf's tensors ``get(t)``, stacked to its plan shape},
+    in sorted path order."""
+    per_key: Dict[str, list] = {}
+    lead: Dict[str, Tuple[int, ...]] = {}
+    for key, idx, t in _slots(model):
+        per_key.setdefault(key, []).append(get(t))
+        lead[key] = tuple(i + 1 for i in idx)
+    return {k: (ts[0] if not lead[k] else torch.stack(ts).reshape(*lead[k], *ts[0].shape))
+            for k, ts in sorted(per_key.items())}
+
+
+def param_tree(model: CausalLM) -> Dict[str, torch.Tensor]:
+    """The model's float parameters as the JAX package's flat {leaf path:
+    tensor} on the model's device (detached copies), steps stacked on dim 0
+    (and a repeated sub's blocks on dim 1): the layout of a checkpoint and
+    of the optimizer's state."""
+    return _gather(model, lambda t: t.detach())
+
+
+def export_params(model: CausalLM) -> Dict[str, np.ndarray]:
+    """The reverse of ``load_jax_params``: the model's float parameters as
+    the JAX package's flat {leaf path: ndarray}, steps stacked on dim 0 (and
+    a repeated sub's blocks on dim 1)."""
+    return {k: v.cpu().numpy() for k, v in param_tree(model).items()}
+
+
+def export_grads(model: CausalLM) -> Dict[str, torch.Tensor]:
+    """The gradients of the model's float parameters under the JAX
+    package's flat leaf paths, stacked as ``param_tree`` stacks the
+    parameters (zeros for a parameter without a gradient), on the model's
+    device: what ``jax.grad`` of the reference's loss gives, leaf by leaf."""
+    return _gather(model, lambda t: t.grad if t.grad is not None else torch.zeros_like(t))
+
+
+def assign_params(model: CausalLM, flat: Mapping[str, torch.Tensor]) -> CausalLM:
+    """Write ``flat`` ({leaf path: stacked tensor or array}, as
+    ``param_tree`` gives it) into the model's parameters in place; keys and
+    shapes are checked against them. Returns the model."""
+    want = {}
+    for key, idx, t in _slots(model):
+        want.setdefault(key, []).append((idx, t))
+    missing, extra = set(want) - set(flat), set(flat) - set(want)
+    if missing or extra:
+        raise ValueError(f"parameter mismatch: missing={sorted(missing)[:5]} "
+                         f"extra={sorted(extra)[:5]}")
+    with torch.no_grad():
+        for key, slots in want.items():
+            src = torch.as_tensor(flat[key])
+            shape = tuple(i + 1 for i in slots[-1][0]) + tuple(slots[0][1].shape)
+            if tuple(src.shape) != shape:
+                raise ValueError(f"{key}: shape {tuple(src.shape)} != {shape}")
+            src = src.to(device=slots[0][1].device)
+            for idx, t in slots:
+                t.copy_(src[idx])
+    return model
+
+
+def set_trainable(model: CausalLM, trainable: bool = True) -> CausalLM:
+    """Make the model's float parameters require gradients (or not). A
+    quantized version's codes are buffers and stay out of it. Returns the
+    model."""
+    for t in model.parameters():
+        if t.is_floating_point():
+            t.requires_grad_(trainable)
+    return model
 
 
 def _leaf(block: torch.nn.Module, path: str) -> torch.Tensor:
     """The float tensor of ``block`` at the plan's leaf path (``attn/wq``,
     ``gate_attn``, ...)."""
     mod_path, _, leaf = path.rpartition("/")
-    t = getattr(block.get_submodule(mod_path.replace("/", ".")), leaf)
+    t = getattr(block.get_submodule(mod_path.replace("/", ".")) if mod_path else block, leaf)
     if isinstance(t, Dense):
         t = t.w
     if not isinstance(t, torch.Tensor):
