@@ -41,14 +41,22 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    64, G 1), and quant_matmul bit for bit at both families' w8 shapes.
    The training path's kernels (FA_BWD_CASES, f32 and bf16): the forward's
    log-sum-exp against the plain one within FA_TOL, and the backward
-   kernel's dq, dk and dv against the plain backward (f32: within 5e-5 of
+   kernel's dq, dk and dv against the plain backward (f32: within 2e-5 of
    each gradient's largest magnitude, both f32 versions also measured
-   against the plain backward in f64; bf16: within 2e-2) at qwen2-0.5b's
-   training shape (8 x 14/2 x 512, D 64, causal), qwen3-0.6b's 16/8 heads
-   at D 128, a window of 64 over 512, whisper's cross shape (448 queries
-   over 1500 frames, no mask) and ragged tiles; its GQA map (kv head h %
-   HK, not h // G); ``FlashAttentionFn`` under autograd equal to the
-   direct calls with one launch each.
+   against the plain backward in f64; bf16: within 2e-2), two runs equal
+   bit for bit, at qwen2-0.5b's training shape (8 x 14/2 x 512, D 64,
+   causal), qwen3-0.6b's 16/8 heads at D 128, a window of 64 over 512,
+   whisper's cross shape (448 queries over 1500 frames, no mask), ragged
+   tiles, deepseek-v2-lite-16b's MLA training attention (4 x 16/16 x 512 at
+   (D, Dv) = (192, 128)), GQA 16/4 at (192, 128) and the reduced (48, 32)
+   ragged, causal and unmasked at Sq != Skv, each line naming the
+   kernel's split (chunk, longest block, workspace slots); the split at
+   least halving qwen2's longest dK/dV walk and leaving shapes that fill
+   the card whole; a NaN in q giving NaN in the forward's output and lse
+   and in the gradients exactly where the plain version gives it (f32 and
+   bf16); its GQA map (kv head h % HK, not h // G); ``FlashAttentionFn``
+   under autograd equal to the direct calls with one launch each. Phase 1 prints each backward instance's registers and
+   spills.
 3. Main path: full-width qwen2-0.5b (random weights from torch.Generator
    seed 0) served by ``SplitServingEngine``: 8 requests x 512 tokens for
    each version (bf16, w8, w4) at cuts 1, 12 and 24, with the kernels'
@@ -283,12 +291,18 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    and each step's launches exact (48 flash_attention: 24 layers and
    remat's recompute; 24 flash_attention_bwd; nothing else); ms a step
    (median), peak memory, one profiled step (device busy and idle share,
-   time by kind of kernel). Then card against CPU at full width and depth 2
-   for qwen2-0.5b and qwen3-0.6b (D 128, q/k norm): one ``forward_train``
-   over 2 x 64 tokens and every exported gradient leaf; and two
-   microbatches against one batch from the same weights (gradients,
-   metrics, and the parameters after a step where Adam's update is
-   well-conditioned).
+   time by kind of kernel). deepseek-v2-lite-16b at full width and depth 2
+   (its dense layer and one MoE layer) likewise: 4 AdamW steps of 4 x 512
+   tokens, MLA's attention through the (192, 128) instances, every loss
+   finite and falling, 4 flash_attention and 2 flash_attention_bwd a step,
+   peak memory. Then card against CPU at full width and depth 2 for
+   qwen2-0.5b, qwen3-0.6b (D 128, q/k norm) and deepseek-v2-lite-16b: one
+   ``forward_train`` over 2 x 64 tokens and every exported gradient leaf;
+   every trainable arch at ``.reduced()`` (deepseek at (48, 32));
+   falcon-mamba-7b and recurrentgemma-2b refused before their first step;
+   and two microbatches against one batch from the same weights
+   (gradients, metrics, and the parameters after a step where Adam's update
+   is well-conditioned).
 7. Timing: each kernel at the main path's shapes beside its plain version,
    one PyTorch library call for the same function where there is one, and
    its bound; flash_attention and flash_decode also at recurrentgemma's
@@ -322,9 +336,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (flash_decode at pos = C - 1, the route the models take, beside
    flash_attention at Sq = 1 and SDPA); quant_matmul at the vlm w8 layer
    and head (M = 1024) and whisper's decoder layer and head (M = 1792).
-   flash_attention's backward at qwen2-0.5b's training shape, eager and as
-   a CUDA graph, beside the plain backward and the backward of SDPA (timed
-   alone), with its 3xTF32 bound (five products over the visible pairs).
+   flash_attention's backward at qwen2-0.5b's, qwen3-0.6b's and
+   deepseek-v2-lite-16b's training shapes (FA_BWD_PATHS), eager and as a
+   CUDA graph, each of its kernels' device time by CUDA events recorded
+   between its launches, beside the
+   plain backward and the backward of SDPA (timed alone), with its 3xTF32
+   bound (five products over the visible pairs, 2 (3 D + 2 Dv) FLOP a
+   pair).
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -338,6 +356,9 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -501,32 +522,51 @@ FA128_CASES = tuple((2, 14, 2, S, causal) for S in (40, 512) for causal in (True
 # the new widths, over ragged (40, 100) and whole (512) tiles
 FA_MLA_DIMS = ((192, 128), (48, 32))
 FA_MLA_CASES = tuple((2, 16, HK, S) for HK in (16, 4) for S in (40, 100, 512))
-# flash_attention's backward kernel (phase 2), (B, H, HK, Sq, Skv, D, causal,
-# window), each in f32 and bf16: qwen2-0.5b's training shape, qwen3-0.6b's
-# 16/8 heads at D 128, a window of 64 over 512 tokens, whisper's
-# cross-attention shape (no mask, 448 queries over 1500 frames), and ragged
-# tiles (40 and 100 tokens; 40 queries over 100 keys) at both widths; 14/2
-# and 16/8 are GQA cases whose h % HK and h // G differ
-FA_BWD_CASES = ((8, 14, 2, 512, 512, 64, True, None), (8, 16, 8, 512, 512, 128, True, None),
-                (2, 14, 2, 512, 512, 64, True, 64), (2, 20, 20, 448, 1500, 64, False, None),
-                (2, 14, 2, 40, 40, 64, True, None), (2, 16, 8, 100, 100, 128, True, None),
-                (2, 14, 2, 100, 100, 64, False, None), (2, 16, 8, 40, 100, 128, False, None))
+# flash_attention's backward kernel (phase 2), (B, H, HK, Sq, Skv, D, Dv,
+# causal, window), each in f32 and bf16, each run twice (equal bit for bit):
+# qwen2-0.5b's training shape, qwen3-0.6b's 16/8 heads at D 128, a window
+# of 64 over 512 tokens, whisper's cross-attention shape (no mask, 448
+# queries over 1500 frames), ragged tiles (40 and 100 tokens; 40 queries
+# over 100 keys) at both widths; deepseek-v2-lite-16b's MLA training
+# attention (16/16 heads at (192, 128)), GQA 16/4 at (192, 128), and the
+# reduced MLA width (48, 32) ragged, causal and unmasked at Sq != Skv; 14/2,
+# 16/8 and 16/4 are GQA cases whose h % HK and h // G differ. qwen2's shape
+# and the window split key tiles into parts (the reduce pass), the rest do
+# not
+FA_BWD_CASES = ((8, 14, 2, 512, 512, 64, 64, True, None),
+                (8, 16, 8, 512, 512, 128, 128, True, None),
+                (2, 14, 2, 512, 512, 64, 64, True, 64), (2, 20, 20, 448, 1500, 64, 64, False, None),
+                (2, 14, 2, 40, 40, 64, 64, True, None), (2, 16, 8, 100, 100, 128, 128, True, None),
+                (2, 14, 2, 100, 100, 64, 64, False, None),
+                (2, 16, 8, 40, 100, 128, 128, False, None),
+                (4, 16, 16, 512, 512, 192, 128, True, None),
+                (2, 16, 4, 512, 512, 192, 128, True, None),
+                (2, 16, 4, 100, 100, 48, 32, True, None), (2, 16, 4, 40, 100, 48, 32, False, None))
 FA_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# the backward's phase-7 shape (B, H, HK, S, D): qwen2-0.5b's training
-# attention, f32, causal
-FA_BWD_PATH = (8, 14, 2, 512, 64)
+# the backward's phase-7 shapes (B, H, HK, S, D, Dv, label), f32, causal:
+# qwen2-0.5b's training attention (the first: the kernel row's own
+# numbers), qwen3-0.6b's at D 128 and deepseek-v2-lite-16b's MLA
+FA_BWD_PATHS = ((8, 14, 2, 512, 64, 64, "qwen2-0.5b"), (8, 16, 8, 512, 128, 128, "qwen3-0.6b"),
+                (4, 16, 16, 512, 192, 128, "deepseek-v2-lite-16b"))
 # the train path (phase 10): qwen2-0.5b at full width and depth, TRAIN_STEPS
 # AdamW steps of TRAIN_BATCH x TRAIN_SEQ synthetic tokens; card against CPU
 # at depth TRAIN_CPU_LAYERS for TRAIN_CPU_ARCHS; the microbatch check
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen2-0.5b", 8, 512, 8
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
-TRAIN_CPU_ARCHS = ("qwen2-0.5b", "qwen3-0.6b")
+TRAIN_CPU_ARCHS = ("qwen2-0.5b", "qwen3-0.6b", "deepseek-v2-lite-16b")
+# deepseek-v2-lite-16b's train path (phase 10): full width at depth
+# TRAIN_MLA_LAYERS (its dense layer and one MoE layer), TRAIN_MLA_STEPS
+# AdamW steps of TRAIN_MLA_BATCH x TRAIN_MLA_SEQ tokens, MLA's attention
+# through the (192, 128) instances
+TRAIN_MLA_ARCH, TRAIN_MLA_LAYERS = "deepseek-v2-lite-16b", 2
+TRAIN_MLA_BATCH, TRAIN_MLA_SEQ, TRAIN_MLA_STEPS = 4, 512, 4
 TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 2, 64
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_MB_TOL = 1e-4, 1e-4, 1e-5
 TRAIN_MB_WELL, TRAIN_MB_PARAM_TOL = 1e-4, 1e-6
 # H100 SXM dense TF32 tensor-core rate; 3xTF32 runs three TF32 products for
 # each f32 product
 PEAK_3XTF32 = 495e12 / 3
+PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor-core rate
 # the attention kernels' serving-path shapes, timed in phase 7 (and by
 # scripts/kernel_timing.py). flash_attention (B, H, HK, S, D, window),
 # causal: qwen2-0.5b's split path, recurrentgemma-2b's split path (S within
@@ -698,10 +738,36 @@ def phase_build():
     print(f"built {list(seconds)} in {time.perf_counter() - t0:.2f} s "
           f"(per kernel, parallel: {json.dumps({k: round(v, 2) for k, v in seconds.items()})})")
     for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for fn, regs, spill in _ptxas_report(_build.build_log(name)):
+            print(f"  ptxas {name}: {fn}: {regs} registers, {spill}")
     return smi
+
+
+def _ptxas_report(log):
+    """(function, registers, spill line) of each entry function in an
+    ``nvcc -Xptxas -v`` log, the names demangled by the toolkit's cu++filt
+    where it is found."""
+    rows, fn, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        else:
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None:
+                rows.append([fn, int(m.group(1)), spill])
+                fn = None
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if rows and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, name in zip(rows, out):
+                name = name.replace("(int)", "").replace("(anonymous namespace)::", "")
+                r[0] = re.sub(r"\([^()]*\)$", "", name)
+    return rows
 
 
 def phase_kernel_checks(dev):
@@ -3524,21 +3590,26 @@ def check_flash_attention_bwd(dev, g):
     direct calls, one forward and one backward launch. Returns the largest
     f32 gradient gap to the plain version."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     worst = 0.0
-    for B, H, HK, Sq, Skv, D, causal, window in FA_BWD_CASES:
+    for B, H, HK, Sq, Skv, D, Dv, causal, window in FA_BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            q, do = (torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype).transpose(1, 2)
-                     for _ in range(2))
-            k, v = (torch.randn(B, Skv, HK, D, generator=g, device=dev).to(dtype).transpose(1, 2)
-                    for _ in range(2))
+            q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+            do = torch.randn(B, Sq, H, Dv, generator=g, device=dev).to(dtype).transpose(1, 2)
+            k = torch.randn(B, Skv, HK, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+            v = torch.randn(B, Skv, HK, Dv, generator=g, device=dev).to(dtype).transpose(1, 2)
             kw = dict(causal=causal, window=window)
             o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True, **kw)
             _, lse_ref = fa.flash_attention_ref(q, k, v, with_lse=True, **kw)
             got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
             plain = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            plan = fa.bwd_plan(B, H, HK, Sq, Skv, D, Dv, dtype, causal, window,
+                               _build.sm_count(q.device))
             name = str(dtype).split(".")[1]
             tol = FA_BWD_TOL[name]
             e_lse = (lse - lse_ref).abs().max().item()
@@ -3546,7 +3617,7 @@ def check_flash_attention_bwd(dev, g):
             scale = [b.float().abs().max().item() for b in plain]
             # f32: relative to the gradient's largest magnitude (see FA_BWD_TOL);
             # bf16: the forward's absolute and relative 2e-2
-            ok = e_lse <= FA_TOL[name] and all(
+            ok = same and e_lse <= FA_TOL[name] and all(
                 torch.allclose(a.float(), b.float(), rtol=tol,
                                atol=tol * m if dtype == torch.float32 else tol)
                 for a, b, m in zip(got, plain, scale))
@@ -3561,9 +3632,47 @@ def check_flash_attention_bwd(dev, g):
                          f"{_fmt(e_p)}")
                 del f64
             check(ok, f"flash_attention_bwd {name} B={B} H={H} HK={HK} Sq={Sq} Skv={Skv} D={D} "
-                      f"causal={causal} window={window}: lse err {e_lse:.3g}, dq/dk/dv "
-                      f"max_abs_err {_fmt(errs)} (largest |grad| {_fmt(scale)}, tol {tol}"
-                      + (" x largest" if dtype == torch.float32 else "") + f"){extra}")
+                      f"Dv={Dv} causal={causal} window={window} (chunk {plan.chunk}, longest block "
+                      f"{plan.longest} tiles, {plan.slots} slots): lse err {e_lse:.3g}, "
+                      f"dq/dk/dv max_abs_err {_fmt(errs)} (largest |grad| {_fmt(scale)}, tol {tol}"
+                      + (" x largest" if dtype == torch.float32 else "") + f"), two runs "
+                      f"equal {same}{extra}")
+
+    # the kernel's split of the dK/dV pass: at qwen2's training shape (f32)
+    # the first key tile walks 7 heads x 8 query tiles, the last 7, and the
+    # split at least halves the longest walk; shapes with more key tiles
+    # than the card has places are not split
+    sms = _build.sm_count(dev)
+    q2 = fa.bwd_plan(8, 14, 2, 512, 512, 64, 64, torch.float32, True, None, sms)
+    full = [fa.bwd_plan(B, H, HK, 512, 512, D, Dv, torch.float32, True, None, sms)
+            for B, H, HK, D, Dv in ((8, 16, 8, 128, 128), (4, 16, 16, 192, 128))]
+    check(q2.longest <= 56 // 2 and q2.slots > 0 and all(p.slots == 0 and p.longest == p.chunk
+                                                         for p in full),
+          f"flash_attention_bwd split on {sms} SMs: qwen2-0.5b's training shape {q2} (no "
+          f"split: 56 tiles), qwen3-0.6b's and deepseek-v2-lite-16b's {full}")
+
+    # a NaN in q (0 / 0, made on the card) reaches the output, the lse and the
+    # gradients as in the plain version: the last query row of head 1 sees
+    # every key, so dk and dv of its kv head are NaN throughout
+    for dtype in (torch.float32, torch.bfloat16):
+        B, H, HK, S, D = 1, 4, 2, 100, 64
+        q, do = (torch.randn(B, S, H, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, HK, D, generator=g, device=dev).to(dtype).transpose(1, 2)
+                for _ in range(2))
+        zero = torch.zeros((), device=dev)
+        q[0, 1, S - 1, 3] = zero / zero
+        o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        o_ref, lse_ref = fa.flash_attention_ref(q, k, v, with_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        plain = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do)
+        torch.cuda.synchronize()
+        pairs = list(zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *got), (o_ref, lse_ref, *plain)))
+        same = {n: torch.equal(a.isnan(), b.isnan()) for n, a, b in pairs}
+        n_nan = {n: int(a.isnan().sum()) for n, a, _ in pairs}
+        check(all(same.values()) and all(n_nan.values()),
+              f"flash_attention forward and backward {str(dtype).split('.')[1]}, a NaN in q: "
+              f"NaN where the plain version's is {same}, NaN elements {n_nan}")
 
     # kv head h % HK: dk and dv summed over the heads h = hk, hk + HK, ...
     B, H, HK, S, D = 2, 14, 2, 40, 64
@@ -3607,7 +3716,7 @@ def _profile_train_step(fn):
     """One train step under torch.profiler: wall, device busy and idle
     share, kernel launches, and device time by kind: the GEMMs (cuBLAS),
     the flash attention forward (flash_fwd) and backward (bwd_dkdv, bwd_dq,
-    bwd_delta) kernels, and the rest (elementwise, reductions, the
+    bwd_delta, bwd_reduce) kernels, and the rest (elementwise, reductions, the
     optimizer, copies); the kernels by time."""
     import torch
     from torch.autograd import DeviceType
@@ -3627,7 +3736,7 @@ def _profile_train_step(fn):
     busy = sum(dev_us(e) for e in kernels) / 1e3
     kinds = {"GEMMs (cuBLAS)": ("gemm", "xmma", "cutlass"), "flash_fwd": ("::flash_fwd<",),
              "bwd_dkdv": ("::bwd_dkdv<",), "bwd_dq": ("::bwd_dq<",),
-             "bwd_delta": ("::bwd_delta<",)}
+             "bwd_delta": ("::bwd_delta<",), "bwd_reduce": ("::bwd_reduce<",)}
     ms = {k: 0.0 for k in kinds}
     for e in kernels:
         kind = next((k for k, keys in kinds.items() if any(x in e.key.lower() for x in keys)),
@@ -3645,40 +3754,35 @@ def _profile_train_step(fn):
             "kernel_launches": n_kernels, "by_kind_ms": ms}
 
 
-def phase_train(dev, smi):
-    """Phase 10: full-width, full-depth qwen2-0.5b trained through
-    ``launch.steps.make_train_step`` (remat on) for TRAIN_STEPS AdamW steps on
-    ``SyntheticLMDataset`` batches: every loss finite and the last below
-    the first, the launches of each step exact (the forward kernel once a
-    layer and again in remat's recompute, the backward kernel once a
-    layer, nothing else), ms a step, peak memory, one profiled step; then
-    card against CPU at depth TRAIN_CPU_LAYERS for TRAIN_CPU_ARCHS (loss and
-    every gradient leaf), and a step over two microbatches against one
-    over the whole batch."""
+def _train_steps(dev, cfg, batch, seq, steps):
+    """``steps`` AdamW steps (``launch.steps.make_train_step``, remat on) of
+    ``cfg`` from random weights (seed 0) over ``SyntheticLMDataset``
+    batches of batch x seq tokens: every loss finite and the last below the
+    first, the launches of each step exact (the forward kernel once a layer
+    and again in remat's recompute, the backward kernel once a layer,
+    nothing else). The counts are set to 0 just before the first step and
+    read after the last. Returns (launches, ms a step, losses, peak bytes,
+    model, optimizer state, the step, one more batch)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset, to_device
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init, param_tree
     from repro_torch.optim import AdamWConfig, adamw_init
-    t_phase = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
-    print(f"== 10. training: full-width {cfg.name} ({cfg.n_layers} layers), {TRAIN_STEPS} "
-          f"AdamW steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat on")
     model = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    print(f"  {sum(p.numel() for p in model.parameters())} parameters, f32")
-    opt = AdamWConfig(**TRAIN_OPT)
+    print(f"  {cfg.name} at {cfg.n_layers} layers: {sum(p.numel() for p in model.parameters())} "
+          f"parameters, f32")
+    opt = AdamWConfig(**{**TRAIN_OPT, "total_steps": steps})
     state = adamw_init(param_tree(model))
     step = make_train_step(cfg, opt, remat=True)
-    ds = SyntheticLMDataset(cfg, DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ))
-    batches = [to_device(ds.batch(i), dev) for i in range(TRAIN_STEPS + 1)]
+    ds = SyntheticLMDataset(cfg, DataConfig(batch_size=batch, seq_len=seq))
+    batches = [to_device(ds.batch(i), dev) for i in range(steps + 1)]
     L = cfg.n_layers
     per_step = _launches(flash_attention=2 * L, flash_attention_bwd=L)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    losses, ms, metrics = [], [], []
+    losses, ms = [], []
     _reset_counts()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         before = _counts()
         t0 = time.perf_counter()
         model, state, m = step(model, state, batches[i])
@@ -3687,22 +3791,53 @@ def phase_train(dev, smi):
         delta = {n: c - before[n] for n, c in _counts().items()}
         m = {k: float(v) for k, v in m.items()}
         losses.append(m["loss"])
-        metrics.append(m)
         check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) and delta == per_step,
-              f"train step {i}: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.3f} lr "
-              f"{m['lr']:.3g}, {ms[-1]:.1f} ms, launches {delta}")
+              f"{cfg.name} train step {i}: loss {m['loss']:.4f} grad_norm {m['grad_norm']:.3f} "
+              f"lr {m['lr']:.3g}, {ms[-1]:.1f} ms, launches {delta}")
     launches = _counts()
-    check(launches == {n: c * TRAIN_STEPS for n, c in per_step.items()},
-          f"train path launches over {TRAIN_STEPS} steps: {launches}")
-    check(losses[-1] < losses[0], f"train loss falls: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(launches == {n: c * steps for n, c in per_step.items()},
+          f"{cfg.name} train path launches over {steps} steps: {launches}")
+    check(losses[-1] < losses[0], f"{cfg.name} train loss falls: {losses[0]:.4f} -> "
+                                  f"{losses[-1]:.4f}")
     peak = torch.cuda.max_memory_allocated(dev)
-    profile = _profile_train_step(lambda: step(model, state, batches[TRAIN_STEPS]))
+    return launches, ms, losses, peak, model, state, step, batches[steps]
+
+
+def phase_train(dev, smi):
+    """Phase 10: full-width, full-depth qwen2-0.5b trained for TRAIN_STEPS
+    AdamW steps (``_train_steps``), ms a step, peak memory, one profiled
+    step; deepseek-v2-lite-16b at full width and depth TRAIN_MLA_LAYERS
+    likewise for TRAIN_MLA_STEPS steps; then card against CPU at depth
+    TRAIN_CPU_LAYERS for TRAIN_CPU_ARCHS (loss and every gradient leaf),
+    every trainable arch reduced, and a step over two microbatches against
+    one over the whole batch. Returns qwen2's and deepseek's launches."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    print(f"== 10. training: full-width {cfg.name} ({cfg.n_layers} layers), {TRAIN_STEPS} "
+          f"AdamW steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat on")
+    launches, ms, losses, peak, model, state, step, extra = _train_steps(
+        dev, cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS)
+    profile = _profile_train_step(lambda: step(model, state, extra))
     timing = {"ms_per_step": ms, "median_ms": statistics.median(ms), "peak_bytes": peak,
               "losses": losses, "profile": profile, "card": smi}
     print(f"  {cfg.name} train step: median {timing['median_ms']:.1f} ms of {ms}, peak "
           f"{peak} bytes, {TRAIN_BATCH * TRAIN_SEQ * 1e3 / timing['median_ms']:.0f} tokens/s "
           f"({smi})")
-    del model, state, batches, step
+    del model, state, step, extra
+    _free()
+
+    mla = get_config(TRAIN_MLA_ARCH).with_overrides(n_layers=TRAIN_MLA_LAYERS)
+    print(f"  {mla.name}: full width at depth {TRAIN_MLA_LAYERS}, {TRAIN_MLA_STEPS} AdamW steps "
+          f"of {TRAIN_MLA_BATCH} x {TRAIN_MLA_SEQ} tokens, remat on")
+    mla_launches, ms, losses, peak, model, state, step, extra = _train_steps(
+        dev, mla, TRAIN_MLA_BATCH, TRAIN_MLA_SEQ, TRAIN_MLA_STEPS)
+    timing["mla"] = {"arch": mla.name, "layers": TRAIN_MLA_LAYERS, "ms_per_step": ms,
+                     "median_ms": statistics.median(ms), "peak_bytes": peak, "losses": losses}
+    print(f"  {mla.name} train step: median {timing['mla']['median_ms']:.1f} ms of {ms}, peak "
+          f"{peak} bytes, {TRAIN_MLA_BATCH * TRAIN_MLA_SEQ * 1e3 / timing['mla']['median_ms']:.0f}"
+          f" tokens/s ({smi})")
+    del model, state, step, extra
     _free()
     for arch in TRAIN_CPU_ARCHS:
         train_card_vs_cpu(dev, arch)
@@ -3710,7 +3845,7 @@ def phase_train(dev, smi):
     train_microbatches(dev)
     timing["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 10: {timing['seconds']:.1f} s")
-    return launches, timing
+    return launches, mla_launches, timing
 
 
 def train_card_vs_cpu(dev, arch):
@@ -3722,7 +3857,7 @@ def train_card_vs_cpu(dev, arch):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset, to_device
-    from repro_torch.launch.steps import accumulate_grads
+    from repro_torch.launch.steps import _attention_head_dims, accumulate_grads
     from repro_torch.models import export_params, init, load_jax_params
     cfg = get_config(arch).with_overrides(n_layers=TRAIN_CPU_LAYERS)
     t0 = time.perf_counter()
@@ -3745,7 +3880,7 @@ def train_card_vs_cpu(dev, arch):
     L = cfg.n_layers
     check(e_loss <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL
           and delta == _launches(flash_attention=2 * L, flash_attention_bwd=L),
-          f"{arch} train card vs CPU at depth {L} (D {cfg.resolved_head_dim}"
+          f"{arch} train card vs CPU at depth {L} ((D, Dv) {_attention_head_dims(cfg)}"
           + (", q/k norm" if cfg.qk_norm else "") + f"), {TRAIN_CPU_BATCH} x {TRAIN_CPU_SEQ} "
           f"tokens: loss {float(l_card):.6f} vs {float(l_cpu):.6f} (gap {e_loss:.3g}, tol "
           f"{TRAIN_LOSS_TOL}); {len(g_cpu)} gradient leaves, largest gap {worst:.3g} of the "
@@ -3873,51 +4008,107 @@ def train_microbatches(dev):
     _free()
 
 
+def _bwd_kernel_ms(fa, args, iters=10):
+    """Device ms a call of the backward's kernels, by kernel (the delta
+    pre-pass, dK/dV, the reduce pass, dQ; the reduce 0 where no key tile is
+    split), by CUDA events that ``flash_attention_bwd`` records between its
+    launches, the mean over ``iters`` calls."""
+    import torch
+    names = ("bwd_delta", "bwd_dkdv", "bwd_reduce", "bwd_dq")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    fa.flash_attention_bwd(*args, events=ev)
+    ms = dict.fromkeys(names, 0.0)
+    for _ in range(iters):
+        fa.flash_attention_bwd(*args, events=ev)
+        ev[-1].synchronize()
+        for i, name in enumerate(names):
+            ms[name] += ev[i].elapsed_time(ev[i + 1]) / iters
+    return ms
+
+
 def time_flash_attention_bwd(dev, g, err, launches):
-    """The backward kernel at qwen2-0.5b's training shape (FA_BWD_PATH, f32,
-    causal, views of (B, S, H, D) tensors): eager and as a CUDA graph
-    (device time), beside the plain backward, the backward of SDPA under
-    autograd timed alone (k and v repeated to H heads as leaves, so no
-    repeat's backward is in it), and its bound: five products over the
-    visible pairs at the 3xTF32 rate against q, k, v, o, dO, lse and the
-    three gradients moved once."""
+    """The backward kernel at FA_BWD_PATHS (f32, causal, views of (B, S, H,
+    D) tensors; qwen2-0.5b's shape first, its numbers the row's own, then
+    qwen3-0.6b's and deepseek-v2-lite-16b's under ``qwen3_`` and ``mla_``):
+    eager and as a CUDA graph (device time), each kernel's device time by
+    CUDA events between its launches, beside the plain backward, the
+    backward of SDPA (``sdpa_bwd_ms``) and its bound (``fa_bwd_bound``: five
+    products over the visible pairs, Q.K^T, dO.V^T, dS.K, dS^T.Q and
+    P^T.dO, at the 3xTF32 rate)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "none: no Pallas backward exists (the JAX package differentiates its "
+                       "jnp attention, src/repro/kernels/ops.py:65)",
+           "launches": launches["flash_attention_bwd"], "max_abs_err": err}
+    for (B, H, HK, S, D, Dv, label), pre in zip(FA_BWD_PATHS, ("", "qwen3_", "mla_")):
+        q = torch.randn(B, S, H, D, generator=g, device=dev).transpose(1, 2)
+        do = torch.randn(B, S, H, Dv, generator=g, device=dev).transpose(1, 2)
+        k = torch.randn(B, S, HK, D, generator=g, device=dev).transpose(1, 2)
+        v = torch.randn(B, S, HK, Dv, generator=g, device=dev).transpose(1, 2)
+        o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        run = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731
+        by_kernel = _bwd_kernel_ms(fa, (q, k, v, o, lse, do))
+        ms = cuda_ms(run, 20)
+        dev_ms = graph_ms(run, 20)
+        plain = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 5)
+        lib = sdpa_bwd_ms(q, k, v, do)
+        bound, by, nops, nbytes, pairs = fa_bwd_bound(B, H, HK, S, D, Dv, torch.float32)
+        plan = fa.bwd_plan(B, H, HK, S, S, D, Dv, torch.float32, True, None,
+                           _build.sm_count(q.device))
+        print(f"  flash_attention_bwd at {label}'s training shape ({B} x {H}/{HK} x {S}, "
+              f"(D, Dv) = ({D}, {Dv})): {ms:.4f} ms eager, {dev_ms:.4f} ms device, "
+              f"{bound / dev_ms:.1%} of its 3xTF32 bound {bound:.4f} ms ({by}; "
+              f"{nops / 1e9:.2f} GFLOP over {pairs} visible pairs, {nbytes / 1e6:.1f} MB); by "
+              f"kernel (CUDA events, ms) " + ", ".join(f"{n} {t:.4f}" for n, t in by_kernel.items())
+              + f"; plain {plain:.4f} ms, SDPA backward {lib:.4f} ms; split: chunk "
+              f"{plan.chunk}, longest block {plan.longest} tiles, {plan.slots} slots")
+        row.update({f"{pre}ms": ms, f"{pre}plain_ms": plain, f"{pre}bound_ms": bound,
+                    f"{pre}bound_by": by, f"{pre}library_ms": lib, f"{pre}device_ms": dev_ms,
+                    f"{pre}kernel_ms": by_kernel,
+                    f"{pre}shape": f"f32 q ({B},{H},{S},{D}) k ({B},{HK},{S},{D}) v "
+                                   f"({B},{HK},{S},{Dv}) causal, per call, {label}'s training "
+                                   f"shape"})
+        del q, k, v, o, lse, do
+    return row
+
+
+def sdpa_bwd_ms(q, k, v, do, iters=20):
+    """Mean ms of the backward of causal SDPA under autograd at the
+    backward kernel's inputs, timed alone (k and v repeated to q's heads as
+    leaves, so no repeat's backward is in it)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa
-    B, H, HK, S, D = FA_BWD_PATH
-    q, do = (torch.randn(B, S, H, D, generator=g, device=dev).transpose(1, 2) for _ in range(2))
-    k, v = (torch.randn(B, S, HK, D, generator=g, device=dev).transpose(1, 2) for _ in range(2))
-    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
-    run = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731
-    ms = cuda_ms(run, 20)
-    dev_ms = graph_ms(run, 20)
-    plain = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 5)
+    G = q.shape[1] // k.shape[1]
     qs = q.detach().clone().requires_grad_()
-    kr, vr = (t.repeat(1, H // HK, 1, 1).detach().requires_grad_() for t in (k, v))
+    kr, vr = (t.repeat(1, G, 1, 1).detach().requires_grad_() for t in (k, v))
     out = F.scaled_dot_product_attention(qs, kr, vr, is_causal=True)
-    lib = cuda_ms(lambda: torch.autograd.grad(out, (qs, kr, vr), do, retain_graph=True), 20)
+    return cuda_ms(lambda: torch.autograd.grad(out, (qs, kr, vr), do, retain_graph=True), iters)
+
+
+def fa_bwd_bound(B, H, HK, S, D, Dv, dtype):
+    """The causal backward's bound at (B, H, HK, S, D, Dv): five products
+    over the visible pairs, 2 (3 D + 2 Dv) FLOP a pair, at the 3xTF32 rate
+    (f32) or the bf16 rate, against q, k, v, o, dO and the three gradients
+    in ``dtype`` and the f32 lse moved once. Returns (ms, what bounds it,
+    FLOP, bytes, visible pairs)."""
+    import torch
+    size = torch.empty((), dtype=dtype).element_size()
     pairs = B * H * S * (S + 1) // 2
-    nops = 5 * 2 * D * pairs
-    nbytes = 4 * (4 * B * H * S * D + 4 * B * HK * S * D + B * H * S)
-    bound, by = _bound(nbytes, nops, PEAK_3XTF32)
-    print(f"  flash_attention_bwd at qwen2-0.5b's training shape: {ms:.4f} ms eager, "
-          f"{dev_ms:.4f} ms device, {bound / dev_ms:.1%} of its 3xTF32 bound {bound:.4f} ms "
-          f"({by}; {nops / 1e9:.2f} GFLOP over {pairs} visible pairs, {nbytes / 1e6:.1f} MB)")
-    return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "none: no Pallas backward exists (the JAX package differentiates its "
-                        "jnp attention, src/repro/kernels/ops.py:65)",
-            "launches": launches["flash_attention_bwd"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib,
-            "device_ms": dev_ms,
-            "shape": f"f32 q ({B},{H},{S},{D}) k/v ({B},{HK},{S},{D}) causal, per call, "
-                     f"qwen2-0.5b's training shape"}
+    nops = 2 * (3 * D + 2 * Dv) * pairs
+    nbytes = (size * (B * H * S * (2 * D + 2 * Dv) + B * HK * S * (2 * D + 2 * Dv))
+              + 4 * B * H * S)
+    bound, by = _bound(nbytes, nops, PEAK_3XTF32 if dtype == torch.float32 else PEAK_BF16)
+    return bound, by, nops, nbytes, pairs
 
 
 def phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, launches):
     import torch
     print("== 7. kernel timing at the main path's shapes (CUDA events)")
     g = torch.Generator(device=dev).manual_seed(3)
+    bwd_row = time_flash_attention_bwd(dev, g, fa_bwd_err, launches)
     qmm_row = time_quant_matmul(dev, g, qmm_err, launches)
 
     fa_main, fa_split, fa_prefill, fa_qwen3, fa_sc2, fa_mix, fa_mix_prefill = FA_PATHS
@@ -3961,7 +4152,7 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, launches):
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:103",
          "launches": launches["flash_attention"], **fa_row},
-        time_flash_attention_bwd(dev, g, fa_bwd_err, launches),
+        bwd_row,
         qmm_row,
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -4419,7 +4610,7 @@ def main() -> int:
     _free()
 
     families.update({arch: phase_family(dev, arch) for arch in FAMILIES if arch != FM_ARCH})
-    train_launches, train_timing = phase_train(dev, smi)
+    train_launches, mla_train_launches, train_timing = phase_train(dev, smi)
 
     kernels = phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, {
         **{k: launches[k] + loop_launches[k] + fleet_launches[k] + drift_launches[k]
@@ -4436,7 +4627,8 @@ def main() -> int:
              f"{RG_ARCH} split": rg_launches, f"{RG_ARCH} decode": rg_dec_launches,
              "mixed fleet": mix_launches, "simulate CLI (mixtral-8x22b execute)": cli_launches,
              "simulate CLI (deepseek-v2-lite-16b execute)": cli_mla_launches,
-             f"{TRAIN_ARCH} train": train_launches}
+             f"{TRAIN_ARCH} train": train_launches,
+             f"{TRAIN_MLA_ARCH} train (depth {TRAIN_MLA_LAYERS})": mla_train_launches}
     for arch, d in families.items():
         paths.update({f"{arch} split": d["split"], f"{arch} decode": d["decode"]})
     for kern in kernels:

@@ -13,6 +13,7 @@ A failed build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -94,6 +95,13 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return seconds
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SMs of a CUDA device: the kernels' plans size their grids by it."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def build_log(name: str) -> str:

@@ -1,6 +1,7 @@
-// Device helpers shared by the attention kernels: 16-byte asynchronous
-// copies into shared memory (cp.async), the TF32 split of an f32 value, and
-// the warp-level tensor-core products (mma.sync) in TF32 and bf16.
+// Device helpers shared by the kernels: 16-byte asynchronous copies into
+// shared memory (cp.async), the TF32 split of an f32 value, the warp-level
+// tensor-core products (mma.sync) in TF32 and bf16, and the warpgroup
+// products' (wgmma) fences and shared-memory descriptors.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -27,18 +28,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// x rounded to TF32 (round to nearest, ties away from zero), as a b32.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-// x = big + small with both TF32: big carries the top 11 bits of the
-// significand, small the next 11, so big * big' + big * small' + small *
-// big' keeps f32 accuracy (the dropped small * small' is below 2^-22 x).
+// x = big + small with both TF32, so big * big' + big * small' + small *
+// big' keeps near f32 accuracy (small * small' is dropped). big is x
+// rounded to nearest (ties away from zero) by two integer operations on the
+// sign-and-magnitude bits, half an ulp added to the magnitude and the 13
+// dropped bits cleared: cvt.rna.tf32.f32's rounding, bit for bit, at every
+// finite x. small is x - big (exact) cut toward zero by one operation: what
+// it drops is below 2^-21 of x and takes the sign of x - big, which is as
+// often positive as negative. On the H100 the integer operations are the
+// faster: with the conversion instruction the backward kernel's f32 path
+// took 0.517 ms at qwen2-0.5b's training shape, with these 0.413; with a
+// compare and select on each half that kept a NaN a NaN, 0.92
+// (scripts/kernel_timing.py). A NaN x needs none: its big may come out as
+// a zero or an infinity (the add carries its payload), but x - big is a
+// quiet NaN, whose top payload bit small keeps, so each product with a NaN
+// operand is a NaN.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = tf32(x);
-  small = tf32(x - __uint_as_float(big));
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xFFFFE000u;
 }
 
 // c += a (16x8, row) * b (8x8, col), TF32 in, f32 accumulate.
@@ -69,6 +76,35 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// Shared-memory writes of this thread become visible to the async proxy
+// (TMA, wgmma).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// wgmma descriptor of a K-major operand (its reduced dimension along
+// 128-byte rows) in the 128-byte swizzle, the rows of PANELS side-by-side
+// panels in 8-row groups PANELS x 1024 bytes apart (the leading offset is
+// unused in this layout)
+template <int PANELS>
+__device__ __forceinline__ uint64_t desc_k(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(PANELS * 1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 // Two floats as a bf16 pair, lo in the low half.

@@ -266,12 +266,16 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     l0 += xp[g];
     l1 += xp[g + 8];
   }
-  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+  // max(l, 1e-30) that keeps a NaN a NaN, as jnp.maximum does (fmaxf
+  // would drop it): a NaN score gives a NaN row and a NaN log-sum-exp
+  l0 = l0 < 1e-30f ? 1e-30f : l0;
+  l1 = l1 < 1e-30f ? 1e-30f : l1;
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
   // the row's natural log-sum-exp for the backward: m is in log2 units
   if (lse != nullptr && wh == 0 && t == 0) {
     float* lb = lse + (long long)bh * Sq;
-    if (r0 < Sq) lb[r0] = m0 * LN2 + logf(fmaxf(l0, 1e-30f));
-    if (r1 < Sq) lb[r1] = m1 * LN2 + logf(fmaxf(l1, 1e-30f));
+    if (r0 < Sq) lb[r0] = m0 * LN2 + logf(l0);
+    if (r1 < Sq) lb[r1] = m1 * LN2 + logf(l1);
   }
 #pragma unroll
   for (int n = 0; n < NO; ++n) {

@@ -248,9 +248,13 @@ struct Wg {
   static_assert(STAGES >= 3 && SMEM <= 227 * 1024, "a ring of at least three stages");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
+using repro::desc_k;
+using repro::fence_async_shared;
+using repro::smem_u32;
+using repro::wgmma_commit;
+using repro::wgmma_fence;
+using repro::wgmma_wait;
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
 }
@@ -299,13 +303,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar)), "l"(policy)
       : "memory");
 }
-// wgmma shared-memory descriptor of a K-major tile of 128-byte rows in the
-// 128-byte swizzle: 8-row groups 1024 bytes apart (the leading offset is
-// unused in this layout)
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
 // TMA: shared memory to the (c0 = column, c1 = row) box of `map`; rows and
 // columns past the tensor's edge are not written
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0,
@@ -324,21 +321,8 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 __device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-// Shared-memory writes of this thread become visible to the TMA (async proxy).
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed wgmma groups of this warpgroup are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // d (64 x N int32, the m64nNk32 fragment) += A (64 x 32) * B (32 x N), both
@@ -439,7 +423,7 @@ qmm_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtens
       const int s = it % C::STAGES;
       mbar_wait(full + s, (it / C::STAGES) & 1);
       const uint8_t* a = ring + s * C::STAGE;
-      const uint64_t da = smem_desc(a + wg * 64 * WG_BK), db = smem_desc(a + C::A_BYTES);
+      const uint64_t da = desc_k<1>(a + wg * 64 * WG_BK), db = desc_k<1>(a + C::A_BYTES);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < WG_BK / 32; ++kk)  // 32 bytes of k = 2 units of 16 bytes

@@ -12,13 +12,15 @@ JAX package trains through its jnp attention. ``FlashAttentionFn`` binds
 the forward (with its log-sum-exp) and the backward kernel into autograd,
 so a train step on the card differentiates every self-attention through
 the two kernels; ``flash_attention_bwd_ref`` is the backward's plain
-version.
+version. ``bwd_plan`` asks the kernel how it cuts the dK/dV pass's key
+tiles into parts for the card's SMs; the wrapper allocates the parts'
+workspace.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -27,7 +29,7 @@ from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_ref", "flash_attention_bwd_ref", "FlashAttentionFn",
-           "launches", "bwd_launches"]
+           "launches", "bwd_launches", "bwd_plan"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (D of q and k, Dv of v and the output) of the kernel's instances: the
@@ -36,11 +38,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128), (48, 32))
 # the backward kernel's instances; the others wait (ROADMAP.md section 2,
 # "Backward kernels still to write")
-BWD_HEAD_DIMS = ((64, 64), (128, 128))
+BWD_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (48, 32))
 BWD_MISSING = "ROADMAP.md section 2, 'Backward kernels still to write'"
+BWD_BM = 64   # keys a dK/dV block owns: the workspace part's rows
 
 launches = 0       # forward kernel launches since the count was last set to 0
-bwd_launches = 0   # backward calls (delta pre-pass, dK/dV and dQ kernels) likewise
+bwd_launches = 0   # backward calls (the delta, dK/dV, reduce and dQ kernels) likewise
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -66,10 +69,40 @@ def _entry():
 @functools.lru_cache(maxsize=None)
 def _bwd_entry():
     fn = _build.library("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_entry():
+    fn = _build.library("flash_attention_bwd").flash_attention_bwd_plan
+    fn.argtypes = [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class BwdPlan(NamedTuple):
+    """The dK/dV pass's split, as the kernel plans it
+    (csrc/flash_attention_bwd.cu, plan_split): its key tiles' walks cut into
+    parts of at most ``chunk`` walked tiles, ``slots`` workspace parts a
+    (batch row, kv head), and ``longest`` the longest block's walk."""
+    chunk: int
+    slots: int
+    longest: int
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_plan(B: int, H: int, HK: int, Sq: int, Skv: int, D: int, Dv: int,
+             dtype: torch.dtype, causal: bool, window: Optional[int], sms: int) -> BwdPlan:
+    """The kernel's split of the dK/dV pass of a call on a card of ``sms`` SMs."""
+    out = (ctypes.c_int * 3)()
+    err = _plan_entry()(B, H, HK, Sq, Skv, D, Dv, _DTYPES[dtype], int(causal), window or 0,
+                        sms, out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_plan failed: CUDA error {err}")
+    return BwdPlan(*out)
 
 
 def _check(q, k, v, causal, window, what="flash_attention"):
@@ -165,12 +198,17 @@ def check_bwd_head_dims(D: int, Dv: int) -> None:
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: Optional[int] = None,
-                        logit_scale: Optional[float] = None):
+                        logit_scale: Optional[float] = None,
+                        events: Optional[Sequence[torch.cuda.Event]] = None):
     """The gradient of ``flash_attention`` at (q, k, v): o its output and lse
     its log-sum-exp (``flash_attention_fwd(..., with_lse=True)``), do the
     gradient of o. Returns (dq, dk, dv), each in q's dtype and shape, laid
     out as views of (B, S, H, D) buffers. (D, Dv) one of ``BWD_HEAD_DIMS``;
-    any other pair raises (there is no plain fallback on the card)."""
+    any other pair raises (there is no plain fallback on the card).
+
+    ``events``: five timing events, recorded on the stream before the delta
+    pre-pass and after each of the delta, dK/dV, reduce and dQ kernels, so
+    that each kernel can be timed apart."""
     global bwd_launches
     B, H, HK, Sq, Skv, D, Dv = _check(q, k, v, causal, window, "flash_attention_bwd")
     check_bwd_head_dims(D, Dv)
@@ -184,17 +222,29 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"wants ({B}, {H}, {Sq}) float32")
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
+    plan = bwd_plan(B, H, HK, Sq, Skv, D, Dv, q.dtype, bool(causal), window,
+                    _build.sm_count(q.device))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    ws = (torch.empty((B * HK * plan.slots, BWD_BM, D + Dv), dtype=torch.float32,
+                      device=q.device) if plan.slots else None)
     dq = _out_like(q, D)
     dk = torch.empty((B, Skv, HK, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     dv = torch.empty((B, Skv, HK, Dv), dtype=q.dtype, device=q.device).transpose(1, 2)
     scale = logit_scale if logit_scale is not None else D ** -0.5
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = torch.cuda.current_stream(q.device)
+    marks = None
+    if events is not None:
+        if len(events) != 5:
+            raise ValueError(f"flash_attention_bwd: {len(events)} events, wants 5")
+        for e in events:   # a torch event exists from its first record on
+            e.record(stream)
+        marks = (ctypes.c_void_p * 5)(*(e.cuda_event for e in events))
     err = _bwd_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                       dv.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv), B, H, HK, Sq,
-                       Skv, D, Dv, _DTYPES[q.dtype], int(causal),
-                       window if window is not None else 0, scale, stream)
+                       dv.data_ptr(), None if ws is None else ws.data_ptr(),
+                       _strides(q, k, v, o, do, dq, dk, dv), plan.chunk, plan.slots, B, H,
+                       HK, Sq, Skv, D, Dv, _DTYPES[q.dtype], int(causal),
+                       window if window is not None else 0, scale, marks, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
     bwd_launches += 1

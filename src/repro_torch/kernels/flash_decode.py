@@ -68,11 +68,6 @@ def _split(B: int, H: int, HK: int, D: int, nvis: int, sms: int) -> Plan:
     return Plan(nvis, chunk, per_split, -(-nchunks // per_split), units)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _workspace_size(sms: int) -> Tuple[int, int]:
     """Floats of split partials and int32 merge counters that every plan on
     a card with ``sms`` SMs fits in: a plan splits only when its units are
@@ -95,7 +90,7 @@ def _workspace(device: torch.device, stream: int) -> Tuple[torch.Tensor, torch.T
             # made now, its counters would be zeroed only when the graph runs
             raise RuntimeError("flash_decode: this stream has no workspace yet; call "
                                "flash_decode once on it before capturing a CUDA graph")
-        n_part, n_count = _workspace_size(_sms(device))
+        n_part, n_count = _workspace_size(_build.sm_count(device))
         ws = (torch.empty(n_part, dtype=torch.float32, device=device),
               torch.zeros(n_count, dtype=torch.int32, device=device))
         _WORKSPACE[(device.index, stream)] = ws
@@ -109,7 +104,7 @@ def _geometry(device: torch.device, dtype: int, B: int, H: int, HK: int, C: int,
     of a call: the same for every layer of a decode step, so built once and
     passed as one argument (each argument ctypes converts costs host time,
     and a decode step is bound by host time)."""
-    sms = _sms(device)
+    sms = _build.sm_count(device)
     p = _split(B, H, HK, D, nvis, sms)
     n_part, n_count = _workspace_size(sms)
     if p.splits > 1 and (p.units * p.splits * GROUP * (D + 2) > n_part or p.units > n_count):

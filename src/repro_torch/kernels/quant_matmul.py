@@ -100,11 +100,6 @@ def split_plan(M: int, N: int, K: int, sms: int) -> Plan:
     return Plan("split", bn, mt, per * KROWS, -(-units // per), tiles)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _workspace_size(sms: int) -> Tuple[int, int]:
     """int32 partials and tile counters that every split plan on a card with
     ``sms`` SMs fits in: such a plan has fewer tiles than SMs, each of at
@@ -127,7 +122,7 @@ def _workspace(device: torch.device, stream: int) -> Tuple[torch.Tensor, torch.T
             # made now, it would be zeroed only when the graph runs
             raise RuntimeError("quant_matmul: this stream has no workspace yet; call "
                                "quant_matmul once on it before capturing a CUDA graph")
-        n_part, n_count = _workspace_size(_sms(device))
+        n_part, n_count = _workspace_size(_build.sm_count(device))
         ws = (torch.zeros(n_part, dtype=torch.int32, device=device),
               torch.zeros(n_count, dtype=torch.int32, device=device))
         _WORKSPACE[(device.index, stream)] = ws
@@ -141,8 +136,8 @@ _REGIMES = {"split": 0, "wgmma": 1}
 def _geometry(device: torch.device, M: int, N: int, K: int, aligned: bool):
     """The plan and the kernel's int64 plan array of a call: the same for
     every call of a shape, so built once and passed as one argument."""
-    p = plan(M, N, K, _sms(device), aligned)
-    n_part, n_count = _workspace_size(_sms(device))
+    p = plan(M, N, K, _build.sm_count(device), aligned)
+    n_part, n_count = _workspace_size(_build.sm_count(device))
     if p.splits > 1 and (p.tiles * p.mt * p.bn > n_part or p.tiles > n_count):
         raise RuntimeError(f"quant_matmul: plan {p} exceeds the workspace")
     array = (ctypes.c_longlong * 8)(M, N, K, _REGIMES[p.regime], p.bn, p.mt, p.per_rows,

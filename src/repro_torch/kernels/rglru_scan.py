@@ -96,14 +96,9 @@ def rglru_scan_chunked(a: torch.Tensor, gx: torch.Tensor, p: Plan):
     return y.contiguous(), y[:, -1].contiguous()
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 @functools.lru_cache(maxsize=1024)
 def _plan(device: torch.device, B: int, S: int, W: int) -> Plan:
-    p = plan(B, S, W, _sms(device))
+    p = plan(B, S, W, _build.sm_count(device))
     if p.blocks > _INT32_MAX:
         raise ValueError(f"rglru_scan: B={B}, S={S}, W={W} out of range ({p.blocks} blocks)")
     return p

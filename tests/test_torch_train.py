@@ -80,10 +80,18 @@ def one_thread():
 
 # (B, H, HK, Sq, Skv, D, Dv, causal, window): causal; windowed; unmasked at
 # Sq != Skv; D != Dv; a GQA case where h % HK and h // G differ (every case
-# with HK > 1 and G > 1 is one)
+# with HK > 1 and G > 1 is one); then deepseek-v2-lite's MLA widths, (192,
+# 128) and the reduced (48, 32), GQA 16/4 and MHA 16/16, ragged and whole
+# 64-row tiles, causal and unmasked at Sq != Skv
 BWD_CASES = [(2, 4, 2, 24, 24, 16, 16, True, None), (1, 6, 2, 40, 40, 16, 16, True, 8),
              (2, 4, 4, 12, 30, 16, 16, False, None), (1, 4, 2, 20, 20, 24, 8, True, None),
-             (2, 6, 3, 17, 17, 8, 8, False, 5), (1, 6, 2, 9, 33, 16, 12, False, None)]
+             (2, 6, 3, 17, 17, 8, 8, False, 5), (1, 6, 2, 9, 33, 16, 12, False, None),
+             (1, 16, 4, 40, 40, 192, 128, True, None), (1, 16, 16, 100, 100, 192, 128, True, None),
+             (1, 16, 4, 128, 128, 192, 128, True, None), (1, 16, 16, 64, 64, 192, 128, True, None),
+             (1, 16, 16, 40, 100, 192, 128, False, None),
+             (1, 16, 4, 40, 100, 192, 128, False, None), (1, 16, 4, 100, 100, 48, 32, True, None),
+             (1, 16, 16, 128, 128, 48, 32, True, None), (1, 16, 4, 40, 100, 48, 32, False, None),
+             (1, 16, 16, 40, 40, 48, 32, True, None)]
 
 
 def _bwd_inputs(B, H, HK, Sq, Skv, D, Dv, seed):
@@ -172,8 +180,10 @@ def test_autograd_dispatch_keeps_the_plain_path_on_the_cpu():
 
 def test_backward_kernel_refuses_head_dims_it_has_no_instance_for():
     """(D, Dv) outside the backward's instances raises and names the
-    ROADMAP item; the covered pairs pass."""
-    for dims in ((256, 256), (192, 128), (48, 32)):
+    ROADMAP item; the covered pairs, MLA's (192, 128) and (48, 32) among
+    them, pass."""
+    assert {(192, 128), (48, 32)} <= set(fa.BWD_HEAD_DIMS)
+    for dims in ((256, 256), (64, 128)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md section 2"):
             fa.check_bwd_head_dims(*dims)
     for dims in fa.BWD_HEAD_DIMS:
@@ -181,22 +191,31 @@ def test_backward_kernel_refuses_head_dims_it_has_no_instance_for():
     assert set(fa.BWD_HEAD_DIMS) <= set(fa.HEAD_DIMS)
 
 
-def test_ctypes_signature_of_the_backward_entry_point(monkeypatch):
-    """The backward wrapper's argtypes follow the C entry point's
-    parameters, read from its CUDA source."""
+def c_argtypes(source, name):
+    """ctypes argtypes of C entry point ``name``, read from its source: long
+    long* a pointer to c_longlong, any other pointer c_void_p, float
+    c_float, int c_int."""
     import ctypes
     import re
-    import types
-
-    from repro_torch.kernels import _build
-    source = (_build.SRC_DIR / "flash_attention_bwd.cu").read_text()
-    params = re.search(r'extern "C" int flash_attention_bwd\(([^)]*)\)', source).group(1)
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', source).group(1)
     want = []
     for p in params.split(","):
         p = p.replace(" *", "*")
         want.append(ctypes.POINTER(ctypes.c_longlong) if "long long*" in p else
                     ctypes.c_void_p if "*" in p else
                     ctypes.c_float if p.split()[0] == "float" else ctypes.c_int)
+    return want
+
+
+def test_ctypes_signature_of_the_backward_entry_point(monkeypatch):
+    """The backward wrapper's argtypes follow the C entry point's
+    parameters, read from its CUDA source."""
+    import ctypes
+    import types
+
+    from repro_torch.kernels import _build
+    source = (_build.SRC_DIR / "flash_attention_bwd.cu").read_text()
+    want = c_argtypes(source, "flash_attention_bwd")
     lib = types.SimpleNamespace(flash_attention_bwd=types.SimpleNamespace())
     monkeypatch.setattr(_build, "library", lambda n: lib if n == "flash_attention_bwd" else None)
     fa._bwd_entry.cache_clear()
@@ -206,6 +225,27 @@ def test_ctypes_signature_of_the_backward_entry_point(monkeypatch):
         fa._bwd_entry.cache_clear()
     assert entry.argtypes == want and entry.restype is ctypes.c_int
     assert "flash_attention_bwd" in _build.KERNELS
+
+
+def test_ctypes_signature_of_the_backward_plan_entry_point(monkeypatch):
+    """The argtypes by which ``bwd_plan`` asks the kernel for its split
+    follow the C entry point's parameters, read from its CUDA source."""
+    import ctypes
+    import types
+
+    from repro_torch.kernels import _build
+    source = (_build.SRC_DIR / "flash_attention_bwd.cu").read_text()
+    want = c_argtypes(source, "flash_attention_bwd_plan")
+    assert want[-1] is ctypes.c_void_p   # int* out, written by the kernel's side
+    lib = types.SimpleNamespace(flash_attention_bwd_plan=types.SimpleNamespace())
+    monkeypatch.setattr(_build, "library", lambda n: lib if n == "flash_attention_bwd" else None)
+    fa._plan_entry.cache_clear()
+    try:
+        entry = fa._plan_entry()
+    finally:
+        fa._plan_entry.cache_clear()
+    assert entry.argtypes[:-1] == want[:-1] and entry.restype is ctypes.c_int
+    assert entry.argtypes[-1] == ctypes.POINTER(ctypes.c_int)
 
 
 # --------------------------------------------------------------------------
@@ -329,11 +369,13 @@ def _jax_grads(f, b):
             for path, leaf in jax.tree_util.tree_flatten_with_path(g)[0]}
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-0.6b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-0.6b", "deepseek-v2-lite-16b"])
 def test_gradients_match_jax_grad_leaf_by_leaf(arch, tmp_path):
     """Every gradient leaf (``export_grads``, stacked as the reference's)
     against ``jax.grad`` of the reference's loss within GRAD_TOL; qwen2 with
-    its QKV biases, qwen3 at head_dim 128 with its q/k norms."""
+    its QKV biases, qwen3 at head_dim 128 with its q/k norms, deepseek with
+    MLA at its reduced (48, 32) head dims, its dense layer and its routed
+    and shared experts."""
     f = _pair(arch, tmp_path, **({"head_dim": 128} if arch == "qwen3-0.6b" else {}))
     b = _batch(f.cfg, 2, 24, seed=5)
     want = _jax_grads(f, {k: jnp.asarray(v) for k, v in b.items()})
@@ -531,19 +573,26 @@ def test_train_lm_runs_checkpoints_and_resumes(tmp_path, capsys):
                                        ("recurrentgemma-2b", "rglru_scan"),
                                        ("deepseek-v2-lite-16b", "(192, 128)")])
 def test_card_refuses_train_paths_without_a_backward_kernel(arch, what):
-    """A train step on the card of falcon-mamba (mamba_scan), recurrentgemma
-    (rglru_scan, and flash attention at head_dim 256) and deepseek (MLA's
-    (192, 128)) raises before any step and names the ROADMAP item; the
-    other archs pass."""
+    """A train step on the card of falcon-mamba (mamba_scan) and
+    recurrentgemma (rglru_scan, and flash attention at head_dim 256) raises
+    before any step and names the ROADMAP item; deepseek, whose MLA
+    attention at (192, 128) (``what``) has a backward instance, passes, at
+    its published and its reduced (48, 32) widths, as do the other archs."""
     cfg = get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 2") as e:
-        check_trainable_on_card(cfg)
-    assert what in str(e.value)
-    if arch == "recurrentgemma-2b":
-        assert "(256, 256)" in str(e.value)
+    if arch == "deepseek-v2-lite-16b":
+        assert (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim) == (192, 128)
+        assert what == str((192, 128)) and (192, 128) in fa.BWD_HEAD_DIMS
+        for c in (cfg, cfg.reduced()):
+            check_trainable_on_card(c)
+            assert kernels_without_backward(c) == []
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md section 2") as e:
+            check_trainable_on_card(cfg)
+        assert what in str(e.value)
+        if arch == "recurrentgemma-2b":
+            assert "(256, 256)" in str(e.value)
     trainable = [a for a in ALL_ARCHS if not kernels_without_backward(get_config(a))]
-    assert sorted(trainable) == sorted(set(ALL_ARCHS) - {
-        "falcon-mamba-7b", "recurrentgemma-2b", "deepseek-v2-lite-16b"})
+    assert sorted(trainable) == sorted(set(ALL_ARCHS) - {"falcon-mamba-7b", "recurrentgemma-2b"})
 
 
 def test_scan_kernels_refuse_to_run_under_grad_on_the_card(monkeypatch):
