@@ -55,8 +55,19 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    the card whole; a NaN in q giving NaN in the forward's output and lse
    and in the gradients exactly where the plain version gives it (f32 and
    bf16); its GQA map (kv head h % HK, not h // G); ``FlashAttentionFn``
-   under autograd equal to the direct calls with one launch each. Phase 1 prints each backward instance's registers and
-   spills.
+   under autograd equal to the direct calls with one launch each; and
+   recurrentgemma-2b's (256, 256) instance (its f32 sums in a device-memory
+   workspace) at its train shape (4 x 10/1 x 512 under the 2048 window), a
+   window of 64, ragged 40 over 100 unmasked and GQA 4/2. The scans'
+   backward kernels: mamba_scan's (MS_BWD_CASES: the sweep's shapes and
+   falcon-mamba-7b's train shape 4 x 512 x 8192, N 16) and rglru_scan's
+   (RS_BWD_CASES: each regime of its plan and the paths', 4 x 512 x 2560
+   the train shape), each with and without a gradient on the last state,
+   within 2e-5 of each gradient's largest magnitude of the plain backward,
+   two runs equal bit for bit, the forward's chunk-start states leaving
+   its outputs as they were; ``MambaScanFn`` and ``RglruScanFn`` under
+   autograd equal to the direct calls with one launch each. Phase 1 prints
+   each backward instance's registers and spills.
 3. Main path: full-width qwen2-0.5b (random weights from torch.Generator
    seed 0) served by ``SplitServingEngine``: 8 requests x 512 tokens for
    each version (bf16, w8, w4) at cuts 1, 12 and 24, with the kernels'
@@ -295,12 +306,20 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (its dense layer and one MoE layer) likewise: 4 AdamW steps of 4 x 512
    tokens, MLA's attention through the (192, 128) instances, every loss
    finite and falling, 4 flash_attention and 2 flash_attention_bwd a step,
-   peak memory. Then card against CPU at full width and depth 2 for
-   qwen2-0.5b, qwen3-0.6b (D 128, q/k norm) and deepseek-v2-lite-16b: one
-   ``forward_train`` over 2 x 64 tokens and every exported gradient leaf;
-   every trainable arch at ``.reduced()`` (deepseek at (48, 32));
-   falcon-mamba-7b and recurrentgemma-2b refused before their first step;
-   and two microbatches against one batch from the same weights
+   peak memory. falcon-mamba-7b at full width and depth 2 (743,305,216
+   parameters) and recurrentgemma-2b at full width and depth 3 (one (rec,
+   rec, attn) period, 912,320,000 parameters) likewise: 4 AdamW steps of 4 x
+   512 tokens each, every loss finite and falling, a step's launches exact
+   (falcon-mamba: 4 mamba_scan, 2 mamba_scan_bwd; recurrentgemma: 4
+   rglru_scan, 2 rglru_scan_bwd, 2 flash_attention and 1
+   flash_attention_bwd at (256, 256)), ms a step, tokens/s, peak memory.
+   Then card against CPU at full width (depth 2; recurrentgemma 3) for
+   qwen2-0.5b, qwen3-0.6b (D 128, q/k norm), deepseek-v2-lite-16b,
+   falcon-mamba-7b and recurrentgemma-2b: one ``forward_train`` over 2 x 64
+   tokens and every exported gradient leaf; all ten archs at ``.reduced()``
+   (deepseek at (48, 32)), none refused, each kernel's backward launched
+   once for each of its forward launches; and two microbatches against one
+   batch from the same weights
    (gradients, metrics, and the parameters after a step where Adam's update
    is well-conditioned).
 7. Timing: each kernel at the main path's shapes beside its plain version,
@@ -336,13 +355,18 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (flash_decode at pos = C - 1, the route the models take, beside
    flash_attention at Sq = 1 and SDPA); quant_matmul at the vlm w8 layer
    and head (M = 1024) and whisper's decoder layer and head (M = 1792).
-   flash_attention's backward at qwen2-0.5b's, qwen3-0.6b's and
-   deepseek-v2-lite-16b's training shapes (FA_BWD_PATHS), eager and as a
-   CUDA graph, each of its kernels' device time by CUDA events recorded
-   between its launches, beside the
+   flash_attention's backward at qwen2-0.5b's, qwen3-0.6b's,
+   deepseek-v2-lite-16b's and recurrentgemma-2b's training shapes
+   (FA_BWD_PATHS), eager and as a CUDA graph, each of its kernels' device
+   time by CUDA events recorded between its launches, beside the
    plain backward and the backward of SDPA (timed alone), with its 3xTF32
    bound (five products over the visible pairs, 2 (3 D + 2 Dv) FLOP a
-   pair).
+   pair); in bf16 at qwen2's and recurrentgemma's shapes beside SDPA's bf16
+   backward, eager and as device time (a CUDA graph). The scans' backward
+   kernels at the train shapes (mamba_scan's at 4 x 512 x 8192, N 16;
+   rglru_scan's at 4 x 512 x 2560), eager and as a CUDA graph, beside the
+   plain backward and the bound (bytes: the inputs, the forward's states
+   and the gradients moved once).
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -486,6 +510,13 @@ MS_TOL = 1e-4
 # and with a bf16 u
 MS_EXTRA = ((2, 77, 96, 4), (2, 45, 64, 8), (1, 100, 160, 16), (2, 77, 96, 32),
             (1, 45, 100, 5))
+# mamba_scan's backward kernel (phase 2): the sweep's shapes, then the train
+# path's (falcon-mamba-7b, 4 x 512 tokens; the last, timed in phase 7), each
+# with and without a gradient on h_final, run twice (equal bit for bit);
+# each gradient within MS_BWD_TOL of its largest magnitude of the plain
+# backward (f32 sums in other orders over S steps, ex2.approx in the exps)
+MS_BWD_CASES = MS_CASES[:-1] + MS_EXTRA + ((4, 512, 8192, 16),)
+MS_BWD_TOL = 2e-5
 # recurrentgemma-2b: split serving and decode shapes, cuts, expected size
 RG_ARCH, RG_PARAMS = "recurrentgemma-2b", 2_894_574_080
 RG_SPLIT_BATCH, RG_SPLIT_SEQ = 4, 512
@@ -508,6 +539,12 @@ RS_PATHS = ((RG_SPLIT_BATCH, RG_SPLIT_SEQ, 2560), (RG_BATCH, RG_SEQ, 2560), (4, 
 RS_CASES = ((1, 128, 256), (2, 256, 512), (1, 384, 128), (2, 200, 320),
             (1, 1, 100), (1, 8192, 32), (3, 4099, 2600), (6, 1000, 2600)) + RS_PATHS
 RS_TOL = 1e-4
+# rglru_scan's backward kernel (phase 2): RS_CASES (the first of RS_PATHS,
+# 4 x 512 x 2560, is recurrentgemma-2b's train shape, timed in phase 7),
+# each with and without a gradient on h_last, run twice (equal bit for
+# bit), within RS_BWD_TOL of each gradient's largest magnitude
+RS_BWD_CASES = RS_CASES
+RS_BWD_TOL = 2e-5
 # flash_attention at head_dim 256 (B, H, HK, S, window), causal: MQA
 # plain, windowed, the decode prompt's 2304 positions under the 2048
 # window; a GQA case where h % HK and h // G differ
@@ -541,19 +578,39 @@ FA_BWD_CASES = ((8, 14, 2, 512, 512, 64, 64, True, None),
                 (2, 16, 8, 40, 100, 128, 128, False, None),
                 (4, 16, 16, 512, 512, 192, 128, True, None),
                 (2, 16, 4, 512, 512, 192, 128, True, None),
-                (2, 16, 4, 100, 100, 48, 32, True, None), (2, 16, 4, 40, 100, 48, 32, False, None))
+                (2, 16, 4, 100, 100, 48, 32, True, None), (2, 16, 4, 40, 100, 48, 32, False, None),
+                # recurrentgemma-2b's (256, 256): its train shape (4 x 10/1 x 512
+                # under the 2048 window), a window of 64, ragged 40 over 100
+                # unmasked, GQA 4/2 (h % HK and h // G differ)
+                (4, 10, 1, 512, 512, 256, 256, True, 2048),
+                (2, 10, 1, 512, 512, 256, 256, True, 64),
+                (2, 10, 1, 40, 100, 256, 256, False, None),
+                (2, 4, 2, 100, 100, 256, 256, True, None))
 FA_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the backward's phase-7 shapes (B, H, HK, S, D, Dv, label), f32, causal:
 # qwen2-0.5b's training attention (the first: the kernel row's own
 # numbers), qwen3-0.6b's at D 128 and deepseek-v2-lite-16b's MLA
 FA_BWD_PATHS = ((8, 14, 2, 512, 64, 64, "qwen2-0.5b"), (8, 16, 8, 512, 128, 128, "qwen3-0.6b"),
-                (4, 16, 16, 512, 192, 128, "deepseek-v2-lite-16b"))
+                (4, 16, 16, 512, 192, 128, "deepseek-v2-lite-16b"),
+                # its 2048 window masks nothing at 512 tokens
+                (4, 10, 1, 512, 256, 256, "recurrentgemma-2b"))
+# the backward's phase-7 shapes timed in bf16 as well (beside SDPA's bf16
+# backward, eager and as device time): qwen2-0.5b's and recurrentgemma-2b's
+FA_BWD_BF16 = ("qwen2-0.5b", "recurrentgemma-2b")
 # the train path (phase 10): qwen2-0.5b at full width and depth, TRAIN_STEPS
 # AdamW steps of TRAIN_BATCH x TRAIN_SEQ synthetic tokens; card against CPU
 # at depth TRAIN_CPU_LAYERS for TRAIN_CPU_ARCHS; the microbatch check
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen2-0.5b", 8, 512, 8
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
-TRAIN_CPU_ARCHS = ("qwen2-0.5b", "qwen3-0.6b", "deepseek-v2-lite-16b")
+TRAIN_CPU_ARCHS = ("qwen2-0.5b", "qwen3-0.6b", "deepseek-v2-lite-16b", "falcon-mamba-7b",
+                   "recurrentgemma-2b")
+# the scan families' train paths (phase 10): full width at depth 2 for
+# falcon-mamba-7b (two Mamba layers, ~743 M parameters with its untied
+# 65,024 head) and 3 for recurrentgemma-2b (one (rec, rec, attn) period, ~0.91
+# B with its tied 256,000 embedding), TRAIN_SCAN_STEPS AdamW steps of
+# TRAIN_SCAN_BATCH x TRAIN_SCAN_SEQ tokens; the same depths card against CPU
+TRAIN_SCAN_ARCHS = (("falcon-mamba-7b", 2), ("recurrentgemma-2b", 3))
+TRAIN_SCAN_BATCH, TRAIN_SCAN_SEQ, TRAIN_SCAN_STEPS = 4, 512, 4
 # deepseek-v2-lite-16b's train path (phase 10): full width at depth
 # TRAIN_MLA_LAYERS (its dense layer and one MoE layer), TRAIN_MLA_STEPS
 # AdamW steps of TRAIN_MLA_BATCH x TRAIN_MLA_SEQ tokens, MLA's attention
@@ -818,7 +875,9 @@ def phase_kernel_checks(dev):
     qmm_err = max(qmm_err, check_cross_kernels(dev, g))
     rs_err = check_rglru_scan(dev, g)
     fa_bwd_err = check_flash_attention_bwd(dev, g)
-    return qmm_err, ms_err, rs_err, fa_bwd_err
+    ms_bwd_err = check_mamba_scan_bwd(dev, g)
+    rs_bwd_err = check_rglru_scan_bwd(dev, g)
+    return qmm_err, ms_err, rs_err, fa_bwd_err, ms_bwd_err, rs_bwd_err
 
 
 def check_cross_kernels(dev, g):
@@ -1229,6 +1288,116 @@ def check_flash_decode(dev, g):
     check(refused, "flash_decode refuses to make a stream's workspace inside a graph capture")
 
 
+def _rel(a, b):
+    """max |a - b| over the largest magnitude of b."""
+    return (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+
+
+def check_mamba_scan_bwd(dev, g):
+    """mamba_scan's backward kernel against the plain backward at
+    MS_BWD_CASES, with and without a gradient on h_final, each run twice
+    (equal bit for bit), the forward's chunk-start states not moving its y
+    or h_final; then ``MambaScanFn`` under autograd: one forward and one
+    backward launch, its gradients the direct calls'. Returns the largest
+    relative gap at the train path's shape."""
+    import torch
+    from repro_torch.kernels import mamba_scan as ms
+    worst = 0.0
+    for B, S, DI, N in MS_BWD_CASES:
+        path = (B, S, DI, N) == MS_BWD_CASES[-1]
+        u, dt, Bm, Cm, A = _scan_inputs(B, S, DI, N, g, dev, falcon_a=path)
+        y0, h0 = ms.mamba_scan(u, dt, Bm, Cm, A)
+        y, h, hc = ms.mamba_scan(u, dt, Bm, Cm, A, chunk_states=True)
+        dy = torch.randn(B, S, DI, generator=g, device=dev)
+        dh = torch.randn(B, DI, N, generator=g, device=dev)
+        for grad_h in (None, dh):
+            got = ms.mamba_scan_bwd(u, dt, Bm, Cm, A, hc, dy, grad_h)
+            again = ms.mamba_scan_bwd(u, dt, Bm, Cm, A, hc, dy, grad_h)
+            plain = ms.mamba_scan_bwd_ref(u, dt, Bm, Cm, A, dy, grad_h)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            errs = [_rel(a, b) for a, b in zip(got, plain)]
+            if path:
+                worst = max(worst, *errs)
+            check(same and max(errs) <= MS_BWD_TOL and torch.equal(y, y0) and torch.equal(h, h0)
+                  and all(torch.isfinite(a).all() for a in got),
+                  f"mamba_scan_bwd f32 B={B} S={S} DI={DI} N={N}{' (train path)' if path else ''} "
+                  f"dh={'yes' if grad_h is not None else 'none'}: du/ddt/dBm/dCm/dA gaps "
+                  f"{_fmt(errs)} of each largest |grad| (tol {MS_BWD_TOL}); two runs equal "
+                  f"{same}; {hc.shape[1]} chunk states, y and h_final as without them")
+        del u, dt, Bm, Cm, A, y, h, hc, dy, dh, got, again, plain
+    # through autograd, as a train step calls it (ops.mamba_scan_full)
+    from repro_torch.kernels import ops
+    B, S, DI, N = 2, 77, 96, 16
+    u, dt, Bm, Cm, A = _scan_inputs(B, S, DI, N, g, dev)
+    a_log, d_skip = torch.log(-A), torch.randn(DI, generator=g, device=dev)
+    A = -torch.exp(a_log)   # as ops.mamba_scan_full forms it
+    dy = torch.randn(B, S, DI, generator=g, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (u, dt, Bm, Cm)]
+    before = _counts()
+    y, _ = ops.mamba_scan_full(*leaves, a_log, d_skip)
+    y.backward(dy)
+    delta = {n: c - before[n] for n, c in _counts().items()}
+    _, _, hc = ms.mamba_scan(u, dt, Bm, Cm, A, chunk_states=True)
+    want = ms.mamba_scan_bwd(u, dt, Bm, Cm, A, hc, dy)
+    torch.cuda.synchronize()
+    same = (torch.equal(leaves[0].grad, want[0] + dy * d_skip)
+            and all(torch.equal(a.grad, b) for a, b in zip(leaves[1:], want[1:4])))
+    check(same and delta == _launches(mamba_scan=1, mamba_scan_bwd=1),
+          f"MambaScanFn under autograd (ops.mamba_scan_full): gradients equal to the direct "
+          f"calls {same}, launches {delta}")
+    return worst
+
+
+def check_rglru_scan_bwd(dev, g):
+    """rglru_scan's backward kernel against the plain backward at
+    RS_BWD_CASES (each line names the backward's plan), with and without a
+    gradient on h_last, each run twice (equal bit for bit); then
+    ``RglruScanFn`` under autograd: one forward and one backward launch,
+    its gradients the direct calls'. Returns the largest relative gap at the
+    train shape."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst = 0.0
+    for B, S, W in RS_BWD_CASES:
+        path = (B, S, W) == RS_PATHS[0]
+        a, gx = _rglru_inputs(B, S, W, g, dev)
+        y, _ = rs.rglru_scan(a, gx)
+        dy = torch.randn(B, S, W, generator=g, device=dev)
+        dh = torch.randn(B, W, generator=g, device=dev)
+        p = rs.bwd_plan(B, S, W, sms)
+        for grad_h in (None, dh):
+            got = rs.rglru_scan_bwd(a, y, dy, grad_h)
+            again = rs.rglru_scan_bwd(a, y, dy, grad_h)
+            plain = rs.rglru_scan_bwd_ref(a, y, dy, grad_h)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, z) for x, z in zip(got, again))
+            errs = [_rel(x, z) for x, z in zip(got, plain)]
+            if path:
+                worst = max(worst, *errs)
+            check(same and max(errs) <= RS_BWD_TOL,
+                  f"rglru_scan_bwd f32 B={B} S={S} W={W}{' (train shape)' if path else ''} "
+                  f"dh={'yes' if grad_h is not None else 'none'} ({p.blocks} blocks of {p.warps} "
+                  f"warps, {p.chunks} chunk(s) of {p.chunk} steps): da/dgx gaps {_fmt(errs)} of "
+                  f"each largest |grad| (tol {RS_BWD_TOL}); two runs equal {same}")
+    a, gx = _rglru_inputs(2, 300, 320, g, dev)
+    dy = torch.randn(2, 300, 320, generator=g, device=dev)
+    la, lg = a.clone().requires_grad_(), gx.clone().requires_grad_()
+    before = _counts()
+    y, _ = ops.rglru_scan_full(la, lg)
+    y.backward(dy)
+    delta = {n: c - before[n] for n, c in _counts().items()}
+    want = rs.rglru_scan_bwd(a, rs.rglru_scan(a, gx)[0], dy)
+    torch.cuda.synchronize()
+    same = torch.equal(la.grad, want[0]) and torch.equal(lg.grad, want[1])
+    check(same and delta == _launches(rglru_scan=1, rglru_scan_bwd=1),
+          f"RglruScanFn under autograd (ops.rglru_scan_full): gradients equal to the direct "
+          f"calls {same}, launches {delta}")
+    return worst
+
+
 def _kernel_counters():
     """{kernel: (its wrapper module, the name of its launch count there)}."""
     from repro_torch.kernels import flash_attention as fa
@@ -1238,7 +1407,8 @@ def _kernel_counters():
     from repro_torch.kernels import rglru_scan as rs
     return {"flash_attention": (fa, "launches"), "flash_attention_bwd": (fa, "bwd_launches"),
             "flash_decode": (fd, "launches"), "mamba_scan": (ms, "launches"),
-            "quant_matmul": (qmm, "launches"), "rglru_scan": (rs, "launches")}
+            "mamba_scan_bwd": (ms, "bwd_launches"), "quant_matmul": (qmm, "launches"),
+            "rglru_scan": (rs, "launches"), "rglru_scan_bwd": (rs, "bwd_launches")}
 
 
 def _counts():
@@ -3754,13 +3924,33 @@ def _profile_train_step(fn):
             "kernel_launches": n_kernels, "by_kind_ms": ms}
 
 
+def _train_launches(cfg):
+    """The launches of one train step of ``cfg`` (remat on, one microbatch):
+    each layer's kernel forward once and again in remat's recompute, its
+    backward kernel once; nothing else. Mamba layers run mamba_scan,
+    recurrentgemma's rec layers rglru_scan, every other layer
+    flash_attention."""
+    L = cfg.n_layers
+    if cfg.ssm:
+        return _launches(mamba_scan=2 * L, mamba_scan_bwd=L)
+    if cfg.block_pattern:
+        rec = cfg.layer_kinds().count("rec")
+        return _launches(rglru_scan=2 * rec, rglru_scan_bwd=rec, flash_attention=2 * (L - rec),
+                         flash_attention_bwd=L - rec)
+    return _launches(flash_attention=2 * L, flash_attention_bwd=L)
+
+
+def _cpu_depth(arch):
+    return dict(TRAIN_SCAN_ARCHS).get(arch, TRAIN_CPU_LAYERS)
+
+
 def _train_steps(dev, cfg, batch, seq, steps):
     """``steps`` AdamW steps (``launch.steps.make_train_step``, remat on) of
     ``cfg`` from random weights (seed 0) over ``SyntheticLMDataset``
     batches of batch x seq tokens: every loss finite and the last below the
-    first, the launches of each step exact (the forward kernel once a layer
-    and again in remat's recompute, the backward kernel once a layer,
-    nothing else). The counts are set to 0 just before the first step and
+    first, the launches of each step exact (``_train_launches``: each
+    layer's forward kernel once and again in remat's recompute, its backward
+    kernel once, nothing else). The counts are set to 0 just before the first step and
     read after the last. Returns (launches, ms a step, losses, peak bytes,
     model, optimizer state, the step, one more batch)."""
     import torch
@@ -3776,8 +3966,7 @@ def _train_steps(dev, cfg, batch, seq, steps):
     step = make_train_step(cfg, opt, remat=True)
     ds = SyntheticLMDataset(cfg, DataConfig(batch_size=batch, seq_len=seq))
     batches = [to_device(ds.batch(i), dev) for i in range(steps + 1)]
-    L = cfg.n_layers
-    per_step = _launches(flash_attention=2 * L, flash_attention_bwd=L)
+    per_step = _train_launches(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     losses, ms = [], []
@@ -3807,10 +3996,14 @@ def phase_train(dev, smi):
     """Phase 10: full-width, full-depth qwen2-0.5b trained for TRAIN_STEPS
     AdamW steps (``_train_steps``), ms a step, peak memory, one profiled
     step; deepseek-v2-lite-16b at full width and depth TRAIN_MLA_LAYERS
-    likewise for TRAIN_MLA_STEPS steps; then card against CPU at depth
-    TRAIN_CPU_LAYERS for TRAIN_CPU_ARCHS (loss and every gradient leaf),
-    every trainable arch reduced, and a step over two microbatches against
-    one over the whole batch. Returns qwen2's and deepseek's launches."""
+    likewise for TRAIN_MLA_STEPS steps; falcon-mamba-7b and
+    recurrentgemma-2b at full width and the depths of TRAIN_SCAN_ARCHS for
+    TRAIN_SCAN_STEPS steps (their scans through mamba_scan's and
+    rglru_scan's backward kernels, recurrentgemma's attention through the
+    (256, 256) instances); then card against CPU for TRAIN_CPU_ARCHS (loss
+    and every gradient leaf), every arch reduced, and a step over two
+    microbatches against one over the whole batch. Returns the launches of
+    qwen2's, deepseek's and the scan families' train paths."""
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
     cfg = get_config(TRAIN_ARCH)
@@ -3839,18 +4032,33 @@ def phase_train(dev, smi):
           f" tokens/s ({smi})")
     del model, state, step, extra
     _free()
+    scan_launches = {}
+    for arch, layers in TRAIN_SCAN_ARCHS:
+        c = get_config(arch).with_overrides(n_layers=layers)
+        print(f"  {c.name}: full width at depth {layers}, {TRAIN_SCAN_STEPS} AdamW steps of "
+              f"{TRAIN_SCAN_BATCH} x {TRAIN_SCAN_SEQ} tokens, remat on")
+        scan_launches[arch], ms, losses, peak, model, state, step, extra = _train_steps(
+            dev, c, TRAIN_SCAN_BATCH, TRAIN_SCAN_SEQ, TRAIN_SCAN_STEPS)
+        med = statistics.median(ms)
+        timing[arch] = {"layers": layers, "ms_per_step": ms, "median_ms": med,
+                        "peak_bytes": peak, "losses": losses,
+                        "tokens_per_s": TRAIN_SCAN_BATCH * TRAIN_SCAN_SEQ * 1e3 / med}
+        print(f"  {c.name} train step: median {med:.1f} ms of {ms}, peak {peak} bytes, "
+              f"{timing[arch]['tokens_per_s']:.0f} tokens/s ({smi})")
+        del model, state, step, extra
+        _free()
     for arch in TRAIN_CPU_ARCHS:
         train_card_vs_cpu(dev, arch)
     train_reduced_card_vs_cpu(dev)
     train_microbatches(dev)
     timing["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 10: {timing['seconds']:.1f} s")
-    return launches, mla_launches, timing
+    return launches, mla_launches, scan_launches, timing
 
 
 def train_card_vs_cpu(dev, arch):
-    """Full width at depth TRAIN_CPU_LAYERS, the same weights on both
-    devices: one ``forward_train`` and its gradients (remat on the card, off
+    """Full width at depth TRAIN_CPU_LAYERS (the scan families at their
+    TRAIN_SCAN_ARCHS depth), the same weights on both devices: one ``forward_train`` and its gradients (remat on the card, off
     on the CPU) over TRAIN_CPU_BATCH x TRAIN_CPU_SEQ tokens; the loss within
     TRAIN_LOSS_TOL and every exported gradient leaf within TRAIN_GRAD_TOL of
     its largest magnitude."""
@@ -3859,7 +4067,7 @@ def train_card_vs_cpu(dev, arch):
     from repro_torch.data import DataConfig, SyntheticLMDataset, to_device
     from repro_torch.launch.steps import _attention_head_dims, accumulate_grads
     from repro_torch.models import export_params, init, load_jax_params
-    cfg = get_config(arch).with_overrides(n_layers=TRAIN_CPU_LAYERS)
+    cfg = get_config(arch).with_overrides(n_layers=_cpu_depth(arch))
     t0 = time.perf_counter()
     card = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     cpu = load_jax_params(cfg, export_params(card), device="cpu")
@@ -3878,8 +4086,7 @@ def train_card_vs_cpu(dev, arch):
         if ratio > worst:
             worst, worst_key = ratio, key
     L = cfg.n_layers
-    check(e_loss <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL
-          and delta == _launches(flash_attention=2 * L, flash_attention_bwd=L),
+    check(e_loss <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL and delta == _train_launches(cfg),
           f"{arch} train card vs CPU at depth {L} ((D, Dv) {_attention_head_dims(cfg)}"
           + (", q/k norm" if cfg.qk_norm else "") + f"), {TRAIN_CPU_BATCH} x {TRAIN_CPU_SEQ} "
           f"tokens: loss {float(l_card):.6f} vs {float(l_cpu):.6f} (gap {e_loss:.3g}, tol "
@@ -3891,48 +4098,33 @@ def train_card_vs_cpu(dev, arch):
 
 
 def train_reduced_card_vs_cpu(dev):
-    """Every arch whose train path the card takes (all but those
-    ``kernels_without_backward`` names) at ``.reduced()``: one
-    ``forward_train`` and its gradients on the card (remat on) against the
-    CPU (remat off) over 2 x 32 tokens of the synthetic data (with its
-    random media or frames), the vlm's gates drawn nonzero: the loss within
-    TRAIN_LOSS_TOL, every gradient leaf within TRAIN_GRAD_TOL of its largest
-    magnitude, and one backward launch for each forward launch of a
-    no-grad forward (every self- and cross-attention), none of the scan
-    kernels. The refused archs' reduced models raise at their first train
-    step on the card, before any launch."""
+    """Every arch at ``.reduced()`` (none is refused: ``kernels_without_backward``
+    is empty for all ten): one ``forward_train`` and its gradients on the card
+    (remat on) against the CPU (remat off) over 2 x 32 tokens of the
+    synthetic data (with its random media or frames), the vlm's gates drawn
+    nonzero: the loss within TRAIN_LOSS_TOL, every gradient leaf within
+    TRAIN_GRAD_TOL of its largest magnitude, and for each kernel a no-grad
+    forward launches (flash_attention for every self- and cross-attention,
+    mamba_scan, rglru_scan) one backward launch for each of its forward
+    launches, nothing else."""
     import torch
     from repro_torch.configs import ALL_ARCHS, get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset, to_device
-    from repro_torch.launch.steps import (accumulate_grads, kernels_without_backward,
-                                          make_train_step)
-    from repro_torch.models import (export_params, forward_train, init, load_jax_params,
-                                    param_tree)
-    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.launch.steps import accumulate_grads, kernels_without_backward
+    from repro_torch.models import export_params, forward_train, init, load_jax_params
+    pairs = {"flash_attention": "flash_attention_bwd", "mamba_scan": "mamba_scan_bwd",
+             "rglru_scan": "rglru_scan_bwd"}
     for arch in ALL_ARCHS:
         cfg = get_config(arch).reduced()
+        missing = kernels_without_backward(get_config(arch)) + kernels_without_backward(cfg)
         card = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
         _nonzero_gates(card, 1)
         b = SyntheticLMDataset(cfg, DataConfig(batch_size=2, seq_len=32, seed=3)).batch(0)
-        missing = kernels_without_backward(get_config(arch))
-        if missing:
-            step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT))
-            before = _counts()
-            try:
-                step(card, adamw_init(param_tree(card)), to_device(b, dev))
-                refused = ""
-            except NotImplementedError as e:
-                refused = str(e)
-            check("ROADMAP.md section 2" in refused and _counts() == before,
-                  f"{arch} reduced: its train step on the card is refused before any launch "
-                  f"({', '.join(missing)}): {refused[:160]}")
-            del card
-            continue
         cpu = load_jax_params(cfg, export_params(card), device="cpu")
         before = _counts()
         with torch.no_grad():
             forward_train(cfg, card, to_device(b, dev), remat=False)
-        calls = _counts()["flash_attention"] - before["flash_attention"]
+        calls = {k: _counts()[k] - before[k] for k in pairs}
         before = _counts()
         g_card, l_card, _ = accumulate_grads(cfg, card, to_device(b, dev), remat=True)
         torch.cuda.synchronize()
@@ -3941,14 +4133,19 @@ def train_reduced_card_vs_cpu(dev):
         worst = max((g_card[k].cpu() - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
                     for k, g in g_cpu.items())
         e_loss = abs(float(l_card) - float(l_cpu))
-        launches_ok = (calls > 0 and delta["flash_attention_bwd"] == calls
-                       and calls < delta["flash_attention"] <= 2 * calls
+        launches_ok = (sum(calls.values()) > 0
+                       and all(delta[bwd] == calls[fwd]
+                               and calls[fwd] <= delta[fwd] <= 2 * calls[fwd]
+                               and (calls[fwd] == 0 or delta[fwd] > calls[fwd])
+                               for fwd, bwd in pairs.items())
                        and all(delta[n] == 0 for n in delta
-                               if n not in ("flash_attention", "flash_attention_bwd")))
-        check(e_loss <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL and launches_ok,
+                               if n not in pairs and n not in pairs.values()))
+        check(not missing and e_loss <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL
+              and launches_ok,
               f"{arch} reduced, train card vs CPU: loss {float(l_card):.6f} (gap {e_loss:.3g}), "
               f"{len(g_cpu)} gradient leaves within {worst:.3g} of their largest magnitude; "
-              f"{calls} attention calls a forward, launches {delta}")
+              f"kernel calls a forward {calls}, launches {delta}; kernels without a backward "
+              f"{missing}")
         del card, cpu
     _free()
 
@@ -4043,7 +4240,7 @@ def time_flash_attention_bwd(dev, g, err, launches):
            "replaces": "none: no Pallas backward exists (the JAX package differentiates its "
                        "jnp attention, src/repro/kernels/ops.py:65)",
            "launches": launches["flash_attention_bwd"], "max_abs_err": err}
-    for (B, H, HK, S, D, Dv, label), pre in zip(FA_BWD_PATHS, ("", "qwen3_", "mla_")):
+    for (B, H, HK, S, D, Dv, label), pre in zip(FA_BWD_PATHS, ("", "qwen3_", "mla_", "rg_")):
         q = torch.randn(B, S, H, D, generator=g, device=dev).transpose(1, 2)
         do = torch.randn(B, S, H, Dv, generator=g, device=dev).transpose(1, 2)
         k = torch.randn(B, S, HK, D, generator=g, device=dev).transpose(1, 2)
@@ -4072,7 +4269,36 @@ def time_flash_attention_bwd(dev, g, err, launches):
                                    f"({B},{HK},{S},{Dv}) causal, per call, {label}'s training "
                                    f"shape"})
         del q, k, v, o, lse, do
+        if label in FA_BWD_BF16:
+            row.update(_prefixed(f"{pre}bf16_", time_flash_attention_bwd_bf16(
+                dev, g, B, H, HK, S, D, Dv, label)))
     return row
+
+
+def time_flash_attention_bwd_bf16(dev, g, B, H, HK, S, D, Dv, label):
+    """The backward kernel in bf16 at one of FA_BWD_PATHS: eager and as a
+    CUDA graph, beside the plain backward, SDPA's bf16 backward eager and as
+    device time (``sdpa_bwd_device_ms``) and the bf16 tensor-core bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    dt = torch.bfloat16
+    q = torch.randn(B, S, H, D, generator=g, device=dev).to(dt).transpose(1, 2)
+    do = torch.randn(B, S, H, Dv, generator=g, device=dev).to(dt).transpose(1, 2)
+    k = torch.randn(B, S, HK, D, generator=g, device=dev).to(dt).transpose(1, 2)
+    v = torch.randn(B, S, HK, Dv, generator=g, device=dev).to(dt).transpose(1, 2)
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    run = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731
+    ms, dev_ms = cuda_ms(run, 20), graph_ms(run, 20)
+    plain = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 5)
+    lib, lib_dev = sdpa_bwd_ms(q, k, v, do), sdpa_bwd_device_ms(q, k, v, do)
+    bound, by, _, _, _ = fa_bwd_bound(B, H, HK, S, D, Dv, dt)
+    print(f"  flash_attention_bwd bf16 at {label}'s training shape: {ms:.4f} ms eager, "
+          f"{dev_ms:.4f} ms device, bound {bound:.4f} ms ({by}); plain {plain:.4f} ms; SDPA "
+          f"backward {lib:.4f} ms eager, {lib_dev:.4f} ms device")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib, "library_device_ms": lib_dev,
+            "shape": f"bf16 q ({B},{H},{S},{D}) k ({B},{HK},{S},{D}) v ({B},{HK},{S},{Dv}) "
+                     f"causal, per call, {label}'s training shape"}
 
 
 def sdpa_bwd_ms(q, k, v, do, iters=20):
@@ -4086,6 +4312,45 @@ def sdpa_bwd_ms(q, k, v, do, iters=20):
     kr, vr = (t.repeat(1, G, 1, 1).detach().requires_grad_() for t in (k, v))
     out = F.scaled_dot_product_attention(qs, kr, vr, is_causal=True)
     return cuda_ms(lambda: torch.autograd.grad(out, (qs, kr, vr), do, retain_graph=True), iters)
+
+
+def sdpa_bwd_device_ms(q, k, v, do, iters=20):
+    """Device ms of the backward that ``sdpa_bwd_ms`` times, replayed as one
+    CUDA graph: the forward runs on the capturing stream, so that autograd
+    runs its backward there. Where the capture is refused, the device time
+    of its kernels summed by ``torch.profiler`` (said in the output)."""
+    import torch
+    import torch.nn.functional as F
+    G = q.shape[1] // k.shape[1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qs = q.detach().clone().requires_grad_()
+        kr, vr = (t.repeat(1, G, 1, 1).detach().requires_grad_() for t in (k, v))
+        out = F.scaled_dot_product_attention(qs, kr, vr, is_causal=True)
+        grad = lambda: torch.autograd.grad(out, (qs, kr, vr), do, retain_graph=True)  # noqa: E731
+        for _ in range(2):
+            grad()
+    torch.cuda.current_stream().wait_stream(side)
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            grad()
+        ms = cuda_ms(graph.replay, iters)
+        del graph
+        return ms
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"  SDPA backward not captured ({str(e)[:80]}); its device time from "
+              f"torch.profiler")
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                grad()
+            torch.cuda.synchronize()
+        return sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def fa_bwd_bound(B, H, HK, S, D, Dv, dtype):
@@ -4104,7 +4369,7 @@ def fa_bwd_bound(B, H, HK, S, D, Dv, dtype):
     return bound, by, nops, nbytes, pairs
 
 
-def phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, launches):
+def phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, ms_bwd_err, rs_bwd_err, launches):
     import torch
     print("== 7. kernel timing at the main path's shapes (CUDA events)")
     g = torch.Generator(device=dev).manual_seed(3)
@@ -4160,6 +4425,8 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, launches):
          "launches": launches["flash_decode"], **fd_row},
         time_mamba_scan(dev, g, ms_err, launches),
         time_rglru_scan(dev, g, rs_err, launches),
+        time_mamba_scan_bwd(dev, g, ms_bwd_err, launches),
+        time_rglru_scan_bwd(dev, g, rs_bwd_err, launches),
     ]
     for kern in kernels:
         print(f"  {kern['name']}: ms={kern['ms']:.4f} plain_ms={kern['plain_ms']:.4f} "
@@ -4168,7 +4435,7 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, launches):
         for pre in ("d256_", "prefill_", "cohort_", "decode_", "rg_", "head_", "qwen3_", "sc2_",
                     "phi3_", "phi3_head_", "mix_", "mix_prefill_", "mix_head_", "mla_", "ds_",
                     "ds_head_", "vlm_x_", "wh_enc_", "wh_x_", "vlm_", "vlm_head_", "wh_",
-                    "wh_head_"):
+                    "wh_head_", "bf16_", "rg_bf16_"):
             if f"{pre}ms" in kern:
                 print(f"  {kern['name']} {pre[:-1]}: ms={kern[pre + 'ms']:.4f} "
                       f"plain_ms={kern[pre + 'plain_ms']:.4f} "
@@ -4177,7 +4444,8 @@ def phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, launches):
                       f"[{kern[pre + 'shape']}]")
         for pre in ("", "d256_", "prefill_", "cohort_", "decode_", "sc2_", "phi3_",
                     "phi3_head_", "mix_", "mix_head_", "ds_", "ds_head_", "vlm_x_", "wh_x_",
-                    "vlm_", "vlm_head_", "wh_", "wh_head_"):
+                    "vlm_", "vlm_head_", "wh_", "wh_head_", "qwen3_", "mla_", "rg_", "bf16_",
+                    "rg_bf16_"):
             if f"{pre}device_ms" in kern:
                 print(f"  {kern['name']} {pre[:-1] or 'main'} device time (CUDA graph) "
                       f"{kern[pre + 'device_ms']:.4f} ms")
@@ -4563,6 +4831,74 @@ def time_mamba_scan(dev, g, err, launches):
                      f"({B},{S},{16 + 2 * N}) tensor, A ({DI},{N}), per call (one layer)"}
 
 
+def time_mamba_scan_bwd(dev, g, err, launches):
+    """mamba_scan's backward kernel at falcon-mamba-7b's train shape
+    (TRAIN_SCAN_BATCH x TRAIN_SCAN_SEQ, DI 8192, N 16), per call (one
+    layer): eager and as a CUDA graph, beside the plain backward and its
+    bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan as ms
+    cfg = get_config(FM_ARCH)
+    B, S, DI, N = TRAIN_SCAN_BATCH, TRAIN_SCAN_SEQ, cfg.d_inner, cfg.ssm_state
+    u, dt, Bm, Cm, A = _scan_inputs(B, S, DI, N, g, dev, falcon_a=True)
+    _, _, hc = ms.mamba_scan(u, dt, Bm, Cm, A, chunk_states=True)
+    dy = torch.randn(B, S, DI, generator=g, device=dev)
+    run = lambda: ms.mamba_scan_bwd(u, dt, Bm, Cm, A, hc, dy)  # noqa: E731
+    kernel, dev_ms = cuda_ms(run, 20), graph_ms(run, 20)
+    plain = cuda_ms(lambda: ms.mamba_scan_bwd_ref(u, dt, Bm, Cm, A, dy), 1, warmup=1)
+    # read once: u, dt, dy, Bm, Cm, A and the chunk-start states; written
+    # once: du, ddt, dBm, dCm, dA. One exp a (b, t, d, n) on the SFU; the
+    # gradient's f32 arithmetic, ~13 operations an element, below both
+    elems = B * S * DI * N
+    nbytes = 4 * (5 * B * S * DI + 4 * B * S * N + 2 * DI * N + hc.numel())
+    t_bytes, t_sfu, t_f32 = (nbytes / PEAK_BYTES * 1e3, elems / PEAK_SFU * 1e3,
+                             13 * elems / PEAK_F32 * 1e3)
+    bound = max(t_bytes, t_sfu, t_f32)
+    by = "bytes" if t_bytes >= max(t_sfu, t_f32) else "operations"
+    print(f"  mamba_scan_bwd bound: bytes {t_bytes:.4f} ms ({nbytes / 1e6:.1f} MB), SFU exps "
+          f"{t_sfu:.4f} ms, f32 arithmetic {t_f32:.4f} ms")
+    return {"name": "mamba_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+            "replaces": "none: no Pallas backward exists (the JAX package differentiates its "
+                        "jnp scan, src/repro/models/ssm.py:60)",
+            "launches": launches["mamba_scan_bwd"], "max_abs_err": err,
+            "ms": kernel, "device_ms": dev_ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, "library_ms": None,
+            "shape": f"f32 u, dt, dy ({B},{S},{DI}), Bm, Cm ({B},{S},{N}) slices of a "
+                     f"({B},{S},{16 + 2 * N}) tensor, A ({DI},{N}), {hc.shape[1]} chunk states, "
+                     f"per call (one layer of {FM_ARCH}'s train step); max_abs_err relative to "
+                     f"each gradient's largest magnitude"}
+
+
+def time_rglru_scan_bwd(dev, g, err, launches):
+    """rglru_scan's backward kernel at recurrentgemma-2b's train shape
+    (RS_PATHS[0], 4 x 512 x 2560), per call (one rec layer): eager and as a
+    CUDA graph, beside the plain backward and its bound."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rs
+    B, S, W = RS_PATHS[0]
+    a, gx = _rglru_inputs(B, S, W, g, dev)
+    y, _ = rs.rglru_scan(a, gx)
+    dy = torch.randn(B, S, W, generator=g, device=dev)
+    p = rs.bwd_plan(B, S, W, torch.cuda.get_device_properties(dev).multi_processor_count)
+    run = lambda: rs.rglru_scan_bwd(a, y, dy)  # noqa: E731
+    # a, h_seq and dy read once, da and dgx written once; two FMAs a (b, t, w)
+    bound, by = _bound(4 * 5 * B * S * W, 4 * B * S * W)
+    return {"name": "rglru_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "none: no Pallas backward exists (the JAX package differentiates its "
+                        "jnp scan, src/repro/kernels/ref.py:30)",
+            "launches": launches["rglru_scan_bwd"], "max_abs_err": err,
+            "ms": cuda_ms(run, 50), "device_ms": graph_ms(run, 50),
+            "plain_ms": cuda_ms(lambda: rs.rglru_scan_bwd_ref(a, y, dy), 3),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": f"f32 a, h_seq, dy ({B},{S},{W}), per call (one rec layer of {RG_ARCH}'s "
+                     f"train step); {p.blocks} blocks of {p.warps} warps, {p.chunks} chunk(s) of "
+                     f"{p.chunk} steps a tile; max_abs_err relative to each gradient's largest "
+                     f"magnitude"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4584,7 +4920,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     smi = phase_build()
-    qmm_err, ms_err, rs_err, fa_bwd_err = phase_kernel_checks(dev)
+    qmm_err, ms_err, rs_err, fa_bwd_err, ms_bwd_err, rs_bwd_err = phase_kernel_checks(dev)
     cfg, model, eng, batch, launches, times = phase_main_path(dev)
     loop_launches, loop_timing = phase_closed_loop(dev, cfg, eng, batch)
     fleet_launches, fleet_timing, fleet_world = phase_fleet_loop(dev, cfg, eng, smi)
@@ -4610,15 +4946,18 @@ def main() -> int:
     _free()
 
     families.update({arch: phase_family(dev, arch) for arch in FAMILIES if arch != FM_ARCH})
-    train_launches, mla_train_launches, train_timing = phase_train(dev, smi)
+    train_launches, mla_train_launches, scan_train_launches, train_timing = phase_train(dev, smi)
+    fm_train, rg_train = (scan_train_launches[arch] for arch, _ in TRAIN_SCAN_ARCHS)
 
-    kernels = phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, {
+    kernels = phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, ms_bwd_err, rs_bwd_err, {
         **{k: launches[k] + loop_launches[k] + fleet_launches[k] + drift_launches[k]
            for k in launches},
         "flash_attention_bwd": train_launches["flash_attention_bwd"],
         "flash_decode": dec_launches["flash_decode"],
         "mamba_scan": families[FM_ARCH]["split"]["mamba_scan"],
-        "rglru_scan": rg_launches["rglru_scan"]})
+        "rglru_scan": rg_launches["rglru_scan"],
+        "mamba_scan_bwd": fm_train["mamba_scan_bwd"],
+        "rglru_scan_bwd": rg_train["rglru_scan_bwd"]})
     paths = {f"{cfg.name} split": launches, f"{cfg.name} closed loop": loop_launches,
              f"{cfg.name} fleet loop": fleet_launches,
              f"{cfg.name} drift loop": drift_launches,
@@ -4628,7 +4967,9 @@ def main() -> int:
              "mixed fleet": mix_launches, "simulate CLI (mixtral-8x22b execute)": cli_launches,
              "simulate CLI (deepseek-v2-lite-16b execute)": cli_mla_launches,
              f"{TRAIN_ARCH} train": train_launches,
-             f"{TRAIN_MLA_ARCH} train (depth {TRAIN_MLA_LAYERS})": mla_train_launches}
+             f"{TRAIN_MLA_ARCH} train (depth {TRAIN_MLA_LAYERS})": mla_train_launches,
+             **{f"{arch} train (depth {layers})": scan_train_launches[arch]
+                for arch, layers in TRAIN_SCAN_ARCHS}}
     for arch, d in families.items():
         paths.update({f"{arch} split": d["split"], f"{arch} decode": d["decode"]})
     for kern in kernels:

@@ -13,9 +13,9 @@ wrapper reads that layout, as its path holds them, else contiguous; ``mamba_scan
 split path (2, 512, 8192, N 16); ``rglru_scan`` at recurrentgemma-2b's
 split path, its 2304-token prefill, a scheduler cohort (``RS_PATHS``) and
 a cohort of one request (1, 218, 2560); ``flash_attention``'s backward at
-the training paths' shapes (``FA_BWD_PATHS``: qwen2-0.5b, qwen3-0.6b and
-deepseek-v2-lite-16b's MLA; a shape the tree has no backward instance for
-is left out) in f32 and in bf16, with each of its kernels' device time by
+the training paths' shapes (``FA_BWD_PATHS``: qwen2-0.5b, qwen3-0.6b,
+deepseek-v2-lite-16b's MLA and recurrentgemma-2b's (256, 256); a shape the
+tree has no backward instance for is left out) in f32 and in bf16, with each of its kernels' device time by
 CUDA events between its launches (``kernel_ms``, where the tree's wrapper
 records them, else null), the backward of SDPA in the same dtype
 (``library_ms``) and the bound (``bound_ms``, at the 3xTF32 or the bf16

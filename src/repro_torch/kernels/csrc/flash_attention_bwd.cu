@@ -114,9 +114,19 @@
 // Shared memory (dK/dV pass; the dQ pass needs less): f32 (64, 64) 105,472
 // bytes, (128, 128) 101,632, (48, 32) 68,608 (two blocks an SM each),
 // (192, 128) 212,224; bf16 88,064 (two), 169,984, 210,944 and 88,064 (two).
-// Instances (D, Dv) = (64, 64), (128, 128), (192, 128) and (48, 32), each in
-// f32 and bf16; any other pair is refused (the wrapper raises before it
-// calls).
+// recurrentgemma-2b's (256, 256): the own tiles and the ring alone take
+// ~195 KB (f32 199,936 bytes, bf16 198,656), and the f32 sums of dK and dV
+// another 135 KB, over the 227 KB a block may use; so at this instance
+// (BwdTile::GMEM_SUMS) each block keeps its sums in its own part of a
+// device-memory workspace (the wrapper allocates it; the plan says how many
+// parts), added by the same owner thread in the same order as in shared
+// memory, so the bits are those of a shared-memory run and two runs agree.
+// Each walked tile then reads and writes the block's 135 KB of sums (L2
+// traffic beside the tile's products); one block an SM. Measured
+// (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3 at 700 W) in PERF.md.
+// Instances (D, Dv) = (64, 64), (128, 128), (192, 128), (48, 32) and (256,
+// 256), each in f32 and bf16; any other pair is refused (the wrapper raises
+// before it calls).
 #include <algorithm>
 #include <functional>
 #include <queue>
@@ -176,12 +186,20 @@ struct BwdTile {
   static constexpr int WALK_A = TileMem<T, D, BN>::BYTES, WALK_B = TileMem<T, DV, BN>::BYTES;
   static constexpr int STAGE = WALK_A + WALK_B;
   static constexpr int ALIGN = WG ? 1024 : 0;         // the swizzle's 1024-byte atoms
-  // own tiles, the ring, the walked rows' lse and delta, the f32 sums of dK and dV
-  static constexpr int SMEM_KV = ALIGN + OWN_A + OWN_B + STAGES * STAGE + 4 * 2 * STAGES * BN +
-                                 (REG_SUMS ? 0 : 4 * BM * (DA + 8 + DVA + 8));
-  // own tiles, the ring, the own rows' lse and delta, the f32 sums of dQ
-  static constexpr int SMEM_Q = ALIGN + OWN_A + OWN_B + STAGES * STAGE + 4 * 2 * BM +
-                                (REG_SUMS ? 0 : 4 * BM * (DA + 8));
+  // own tiles, the ring, the walked rows' lse and delta
+  static constexpr int BASE_KV = ALIGN + OWN_A + OWN_B + STAGES * STAGE + 4 * 2 * STAGES * BN;
+  // own tiles, the ring, the own rows' lse and delta
+  static constexpr int BASE_Q = ALIGN + OWN_A + OWN_B + STAGES * STAGE + 4 * 2 * BM;
+  // the f32 sums of dK and dV, of dQ, where they are not in registers
+  static constexpr int SUMS_KV = REG_SUMS ? 0 : 4 * BM * (DA + 8 + DVA + 8);
+  static constexpr int SUMS_Q = REG_SUMS ? 0 : 4 * BM * (DA + 8);
+  // (256, 256): the sums do not fit in shared memory beside the tiles, so
+  // each block keeps them in a part of a device-memory workspace, of
+  // SUM_PART f32 (dK then dV, or dQ, rows of DA + 8 and DVA + 8)
+  static constexpr bool GMEM_SUMS = BASE_KV + SUMS_KV > 232448 || BASE_Q + SUMS_Q > 232448;
+  static constexpr int SUM_PART = BM * (DA + 8 + DVA + 8);
+  static constexpr int SMEM_KV = BASE_KV + (GMEM_SUMS ? 0 : SUMS_KV);
+  static constexpr int SMEM_Q = BASE_Q + (GMEM_SUMS ? 0 : SUMS_Q);
   static constexpr int OCC = SM_SMEM / (SMEM_KV + 1024) >= 2 ? 2 : 1;  // dK/dV blocks an SM
   static_assert(SMEM_KV <= 232448 && SMEM_Q <= 232448, "shared memory over 227 KB");
   static_assert(!WG || BN == 64, "the wgmma products are m64n64k16");
@@ -316,6 +334,17 @@ KvPlan plan_split(int B, int H, int HK, int Sq, int Skv, int causal, int window,
   while (100 * spans[i] > 103 * best) ++i;
   pl.chunk = chunks[i];
   return pl;
+}
+
+// Parts of the sums workspace a call needs (GMEM_SUMS instances; 0 for the
+// others): one a dK/dV block, and the dQ pass, which runs after the dK/dV
+// pass, takes the same parts again, one a block.
+template <typename T, int D, int DV>
+long long sum_parts(const KvPlan& pl, int n_kt, int B, int H, int HK) {
+  if (!BwdTile<T, D, DV>::GMEM_SUMS) return 0;
+  long long items = 0;
+  for (int kt = 0; kt < n_kt; ++kt) items += pl.parts(kt);
+  return std::max(items * B * HK, (long long)B * H * ((pl.Sq + BM - 1) / BM));
 }
 
 // 4 bytes from global to shared memory; src_bytes = 0 writes a zero.
@@ -595,7 +624,8 @@ __global__ void __launch_bounds__(THREADS)
 bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
          const T* __restrict__ dout, const float* __restrict__ lse,
          const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-         float* __restrict__ ws, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+         float* __restrict__ ws, float* __restrict__ sums, Strides sq, Strides sk, Strides sv,
+         Strides sdo, Strides sdk,
          Strides sdv, int BHK, int H, int HK, KvPlan pl, int n_kt, int slots, float scale,
          float scale_log2) {
   using C = BwdTile<T, D, DV>;
@@ -608,6 +638,7 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
   float* lse_s = reinterpret_cast<float*>(ring + STAGES * C::STAGE);
   float* delta_s = lse_s + STAGES * BN;
   float* dk_s = delta_s + STAGES * BN;     // BM x (DA + 8) f32 sums of dK
+  if constexpr (C::GMEM_SUMS) dk_s = sums + (long long)blockIdx.x * C::SUM_PART;
   float* dv_s = dk_s + BM * (C::DA + 8);   // BM x (DVA + 8) f32 sums of dV
 
   const int bhk = blockIdx.x % BHK;
@@ -785,8 +816,9 @@ template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
        const T* __restrict__ dout, const float* __restrict__ lse,
-       const float* __restrict__ delta, T* __restrict__ dq, Strides sq, Strides sk, Strides sv,
-       Strides sdo, Strides sdq, int BH, int H, int HK, int Sq, int Skv, int causal, int window,
+       const float* __restrict__ delta, T* __restrict__ dq, float* __restrict__ sums, Strides sq,
+       Strides sk, Strides sv, Strides sdo, Strides sdq, int BH, int H, int HK, int Sq, int Skv,
+       int causal, int window,
        float scale, float scale_log2, int n_qtiles) {
   using C = BwdTile<T, D, DV>;
   constexpr int BN = C::BN, NT = C::NT, STAGES = C::STAGES;
@@ -798,6 +830,7 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
   float* lse_s = reinterpret_cast<float*>(ring + STAGES * C::STAGE);
   float* delta_s = lse_s + BM;
   float* dq_s = delta_s + BM;  // BM x (DA + 8) f32 sums of dQ
+  if constexpr (C::GMEM_SUMS) dq_s = sums + (long long)blockIdx.x * C::SUM_PART;
 
   // heaviest causal query tiles first: the tile index is the slowest grid index
   const int bh = blockIdx.x % BH, tq = blockIdx.x / BH;
@@ -904,9 +937,9 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
 template <typename T, int D, int DV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const float* lse, float* delta, void* dq, void* dk, void* dv, float* ws,
-               const long long* st, int chunk, int slots, int B, int H, int HK, int Sq, int Skv,
-               int causal, int window, float scale, void* const* events,
-               cudaStream_t stream) {
+               float* sums, const long long* st, int chunk, int slots, int parts, int B, int H,
+               int HK, int Sq, int Skv, int causal, int window, float scale,
+               void* const* events, cudaStream_t stream) {
   using C = BwdTile<T, D, DV>;
   static size_t allowed_kv[MAX_DEVICES] = {}, allowed_q[MAX_DEVICES] = {};
   if (chunk < 1) return (int)cudaErrorInvalidValue;
@@ -924,6 +957,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   // the workspace the wrapper allocated for the plan: slots f32 parts of 64
   // x (D + Dv) for each (batch row, kv head)
   if (need != slots || (slots > 0 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  // the sums workspace the wrapper allocated: parts of SUM_PART f32
+  const long long want = sum_parts<T, D, DV>(pl, n_kt, B, H, HK);
+  if (want != parts || (parts > 0 && sums == nullptr)) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem((const void*)bwd_dkdv<T, D, DV>, C::SMEM_KV, allowed_kv);
   if (err != cudaSuccess) return (int)err;
   err = allow_smem((const void*)bwd_dq<T, D, DV>, C::SMEM_Q, allowed_q);
@@ -950,8 +986,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   if (err != cudaSuccess) return (int)err;
   mark(1);
   bwd_dkdv<T, D, DV><<<(unsigned)kv_blocks, THREADS, C::SMEM_KV, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, ws, sq,
-      sk, sv, sdo, sdk, sdv, B * HK, H, HK, pl, n_kt, slots, scale, scale_log2);
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, ws,
+      sums, sq, sk, sv, sdo, sdk, sdv, B * HK, H, HK, pl, n_kt, slots, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mark(2);
@@ -963,8 +999,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   }
   mark(3);
   bwd_dq<T, D, DV><<<(unsigned)q_blocks, THREADS, C::SMEM_Q, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, sq, sk, sv,
-      sdo, sdq, B * H, H, HK, Sq, Skv, causal, window, scale, scale_log2, n_qtiles);
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, sums, sq, sk,
+      sv, sdo, sdq, B * H, H, HK, Sq, Skv, causal, window, scale, scale_log2, n_qtiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mark(4);
@@ -979,16 +1015,20 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   X(0, float, 128, 128)                 \
   X(0, float, 192, 128)                 \
   X(0, float, 48, 32)                   \
+  X(0, float, 256, 256)                 \
   X(1, __nv_bfloat16, 64, 64)           \
   X(1, __nv_bfloat16, 128, 128)         \
   X(1, __nv_bfloat16, 192, 128)         \
-  X(1, __nv_bfloat16, 48, 32)
+  X(1, __nv_bfloat16, 48, 32)           \
+  X(1, __nv_bfloat16, 256, 256)
 
 // The dK/dV pass's split of a call on a card of `sms` SMs (plan_split):
 // out[0] the chunk, the most walked tiles a dK/dV block takes; out[1] the
 // workspace parts of one (batch row, kv head), f32 64 x (D + Dv) each;
-// out[2] the longest block's walk in tiles. Returns 0, or the CUDA error
-// code of an invalid shape or a (D, Dv, dtype) without an instance.
+// out[2] the longest block's walk in tiles; out[3] the parts of the sums
+// workspace, f32 64 x (D + Dv + 16) each (0 but at (256, 256)). Returns 0,
+// or the CUDA error code of an invalid shape or a (D, Dv, dtype) without an
+// instance.
 extern "C" int flash_attention_bwd_plan(int B, int H, int HK, int Sq, int Skv, int D, int Dv,
                                         int dtype, int causal, int window, int sms, int* out) {
   if (B <= 0 || H <= 0 || HK <= 0 || H % HK != 0 || Sq <= 0 || Skv <= 0 || sms <= 0)
@@ -998,6 +1038,9 @@ extern "C" int flash_attention_bwd_plan(int B, int H, int HK, int Sq, int Skv, i
     const KvPlan pl = plan_split<T, DQK, DVO>(B, H, HK, Sq, Skv, causal, window, sms); \
     out[0] = pl.chunk;                                                                 \
     out[1] = split_slots(pl, (Skv + BM - 1) / BM, &out[2]);                            \
+    const long long parts = sum_parts<T, DQK, DVO>(pl, (Skv + BM - 1) / BM, B, H, HK);  \
+    if (parts > 0x7fffffffLL) return (int)cudaErrorInvalidValue;                       \
+    out[3] = (int)parts;                                                               \
     return (int)cudaSuccess;                                                           \
   }
   FA_BWD_INSTANCES(FA_BWD_PLAN)
@@ -1006,14 +1049,17 @@ extern "C" int flash_attention_bwd_plan(int B, int H, int HK, int Sq, int Skv, i
 }
 
 // dtype: 0 = float32, 1 = bfloat16. D: the head dim of q and k, Dv: that of
-// v, o and dO; (D, Dv) one of (64, 64), (128, 128), (192, 128) and (48, 32).
+// v, o and dO; (D, Dv) one of (64, 64), (128, 128), (192, 128), (48, 32) and
+// (256, 256).
 // strides: (b, h, s) element strides of q, k, v, o, dO, dq, dk and dv, in
 // that order; q, k, v and dO, and their s strides, must be 16-byte aligned
 // (the wrapper sees to it). lse: the forward's contiguous (B, H, Sq) f32
 // log-sum-exp; delta: a contiguous (B, H, Sq) f32 scratch buffer. chunk and
 // slots: flash_attention_bwd_plan's out[0] and out[1] for this call (slots
 // is checked against the chunk); ws: the workspace of B x HK x slots parts
-// of 64 x (D + Dv) f32 (null when slots is 0). window <= 0 means no
+// of 64 x (D + Dv) f32 (null when slots is 0). sums and parts: the sums
+// workspace of flash_attention_bwd_plan's out[3] parts of 64 x (D + Dv + 16)
+// f32 (null when parts is 0; checked against the plan). window <= 0 means no
 // window. events: null, or five CUDA events recorded on `stream` before
 // the delta pre-pass and after each of the delta, dK/dV, reduce (when a key
 // tile is split) and dQ kernels' launches, to time each apart. Launches the
@@ -1021,18 +1067,19 @@ extern "C" int flash_attention_bwd_plan(int B, int H, int HK, int Sq, int Skv, i
 // = launched).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
-                                   void* dk, void* dv, float* ws, const long long* strides,
-                                   int chunk, int slots, int B, int H, int HK, int Sq, int Skv,
-                                   int D, int Dv, int dtype, int causal, int window, float scale,
+                                   void* dk, void* dv, float* ws, float* sums,
+                                   const long long* strides, int chunk, int slots, int parts,
+                                   int B, int H, int HK, int Sq, int Skv, int D, int Dv,
+                                   int dtype, int causal, int window, float scale,
                                    void* const* events, void* stream) {
   if (B <= 0 || H <= 0 || HK <= 0 || H % HK != 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define FA_BWD_INSTANCE(DT, T, DQK, DVO)                                                       \
   if (dtype == DT && D == DQK && Dv == DVO)                                                    \
-    return launch_bwd<T, DQK, DVO>(q, k, v, o, dout, lse, delta, dq, dk, dv, ws, strides,      \
-                                   chunk, slots, B, H, HK, Sq, Skv, causal, window, scale,     \
-                                   events, s);
+    return launch_bwd<T, DQK, DVO>(q, k, v, o, dout, lse, delta, dq, dk, dv, ws, sums,         \
+                                   strides, chunk, slots, parts, B, H, HK, Sq, Skv, causal,    \
+                                   window, scale, events, s);
   FA_BWD_INSTANCES(FA_BWD_INSTANCE)
 #undef FA_BWD_INSTANCE
   return (int)cudaErrorInvalidValue;

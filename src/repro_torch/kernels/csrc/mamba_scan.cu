@@ -70,7 +70,8 @@ template <typename T, int P, bool VEC>
 __global__ void __launch_bounds__(P * CH, 16 / P)
 mamba_scan(const T* __restrict__ u, const float* __restrict__ dt, const float* __restrict__ bm,
            const float* __restrict__ cm, const float* __restrict__ a, T* __restrict__ y,
-           float* __restrict__ h_out, RowStrides sb, RowStrides sc, int S, int DI, int N) {
+           float* __restrict__ h_out, float* __restrict__ h_chunks, RowStrides sb, RowStrides sc,
+           int S, int DI, int N) {
   constexpr int STEPS = P == 8 ? 16 : 32;  // steps a chunk (fewer at N > 16: 48 KB)
   constexpr int THREADS = P * CH, NP = 4 * P;
   constexpr int PP = P < 4 ? P : 4;              // partial sums of y_t a channel
@@ -219,6 +220,12 @@ mamba_scan(const T* __restrict__ u, const float* __restrict__ dt, const float* _
     if (ch + 1 < nchunks) stage(ch + 1);
     repro::cp_async_commit();
     const int buf = ch & 1, steps = min(STEPS, S - ch * STEPS);
+    if (h_chunks != nullptr && d < DI) {  // the state the chunk starts from, for the backward
+      float* hc = h_chunks + (((long long)b * nchunks + ch) * DI + d) * N;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * q + i < N) hc[4 * q + i] = h[i];
+    }
     if (steps == STEPS) {
 #pragma unroll
       for (int t4 = 0; t4 < STEPS; t4 += 4) step4(buf, t4);
@@ -237,7 +244,8 @@ mamba_scan(const T* __restrict__ u, const float* __restrict__ dt, const float* _
 
 template <typename T, int P>
 int launch(const void* u, const void* dt, const void* bm, const void* cm, const void* a, void* y,
-           void* h, const long long* st, int B, int S, int DI, int N, cudaStream_t stream) {
+           void* h, void* hc, const long long* st, int B, int S, int DI, int N,
+           cudaStream_t stream) {
   const RowStrides sb{st[0], st[1]}, sc{st[2], st[3]};
   const bool vec = DI % (16 / (int)sizeof(T)) == 0 && DI % 4 == 0 && N % 4 == 0 &&
                    (st[0] | st[1] | st[2] | st[3]) % 4 == 0 &&
@@ -246,38 +254,311 @@ int launch(const void* u, const void* dt, const void* bm, const void* cm, const 
   if (vec)
     mamba_scan<T, P, true><<<grid, P * CH, 0, stream>>>(
         (const T*)u, (const float*)dt, (const float*)bm, (const float*)cm, (const float*)a,
-        (T*)y, (float*)h, sb, sc, S, DI, N);
+        (T*)y, (float*)h, (float*)hc, sb, sc, S, DI, N);
   else
     mamba_scan<T, P, false><<<grid, P * CH, 0, stream>>>(
         (const T*)u, (const float*)dt, (const float*)bm, (const float*)cm, (const float*)a,
-        (T*)y, (float*)h, sb, sc, S, DI, N);
+        (T*)y, (float*)h, (float*)hc, sb, sc, S, DI, N);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_n(const void* u, const void* dt, const void* bm, const void* cm, const void* a,
-             void* y, void* h, const long long* st, int B, int S, int DI, int N,
+             void* y, void* h, void* hc, const long long* st, int B, int S, int DI, int N,
              cudaStream_t s) {
-  if (N <= 4) return launch<T, 1>(u, dt, bm, cm, a, y, h, st, B, S, DI, N, s);
-  if (N <= 8) return launch<T, 2>(u, dt, bm, cm, a, y, h, st, B, S, DI, N, s);
-  if (N <= 16) return launch<T, 4>(u, dt, bm, cm, a, y, h, st, B, S, DI, N, s);
-  return launch<T, 8>(u, dt, bm, cm, a, y, h, st, B, S, DI, N, s);
+  if (N <= 4) return launch<T, 1>(u, dt, bm, cm, a, y, h, hc, st, B, S, DI, N, s);
+  if (N <= 8) return launch<T, 2>(u, dt, bm, cm, a, y, h, hc, st, B, S, DI, N, s);
+  if (N <= 16) return launch<T, 4>(u, dt, bm, cm, a, y, h, hc, st, B, S, DI, N, s);
+  return launch<T, 8>(u, dt, bm, cm, a, y, h, hc, st, B, S, DI, N, s);
+}
+
+// ---------------------------------------------------------------- backward
+//
+// The gradient of the scan (from h = 0) for a train step on the card; the
+// TPU kernel has no backward (the JAX package differentiates its jnp scan,
+// ssm_scan_chunked). For each (b, d, n) chain, walking t from S - 1 down,
+// with g the gradient of h_t (g_{S-1} from dh_final, or 0) and
+// a_t = exp(dt_t A):
+//   g_t = dy_t C_t + a_{t+1} g_{t+1};
+//   du_t = sum_n g_t dt_t B_t;  ddt_t = sum_n g_t (u_t B_t + A a_t h_{t-1});
+//   dB_t = sum_d g_t dt_t u_t;  dC_t = sum_d dy_t h_t;
+//   dA = sum_{b,t} g_t a_t dt_t h_{t-1}.
+// What bounds it on the H100: bytes. At falcon-mamba-7b's train shape (B =
+// 4, S = 512, DI = 8192, N = 16) it reads u, dt, dy and the forward's
+// chunk-start states and writes du and ddt, ~370 MB, ~0.11 ms at 3.35 TB/s;
+// its 268 M exps take ~0.063 ms on the SFU.
+// The design, simple first: the forward's blocks (32 channels of one batch
+// row, P lanes a channel, four states a lane) walk the chunks from the last
+// to the first. A chunk is staged into shared memory, its states re-run from
+// the saved chunk-start state with the forward's arithmetic (the same
+// ex2.approx of dt A log2 e and FMAs, so the states equal the forward's bit
+// for bit) into shared memory (STEPS x 32 channels x 4P states, 64 KB at N
+// 16), then walked in reverse with g in registers. du and ddt sum a
+// channel's lanes by shuffles; dA stays in registers for the whole walk. dB
+// and dC, sums over the channels, are taken in the block over its 32
+// channels (dC from the re-run states before the walk, dB from the terms
+// g dt u the walk leaves where it has read the states) and written as one
+// partial a tile; a second pass (mamba_scan_bwd_reduce) adds the tiles'
+// partials, and dA's batch rows, in a fixed order. Nothing is summed by
+// atomics: two runs give the same bits.
+constexpr int REDUCE_THREADS = 256;
+
+template <int P>
+struct BwdMem {
+  static constexpr int STEPS = P == 8 ? 16 : 32, NP = 4 * P;
+  // the states (then the dB terms), u, dt, dy, du, ddt, B and C of a chunk
+  static constexpr int BYTES = 4 * (STEPS * CH * NP + 5 * STEPS * CH + 2 * STEPS * NP);
+};
+
+template <int P>
+__global__ void __launch_bounds__(P * CH)
+mamba_scan_bwd(const float* __restrict__ u, const float* __restrict__ dt,
+               const float* __restrict__ bm, const float* __restrict__ cm,
+               const float* __restrict__ a, const float* __restrict__ h_chunks,
+               const float* __restrict__ dy, const float* __restrict__ dh, float* __restrict__ du,
+               float* __restrict__ ddt, float* __restrict__ part_b, float* __restrict__ part_c,
+               float* __restrict__ part_a, RowStrides sb, RowStrides sc, int B, int S, int DI,
+               int N) {
+  constexpr int STEPS = BwdMem<P>::STEPS, NP = BwdMem<P>::NP, THREADS = P * CH;
+  extern __shared__ __align__(16) float smem[];
+  float* s_h = smem;                       // [STEPS][CH][NP]
+  float* s_u = s_h + STEPS * CH * NP;      // [STEPS][CH] each
+  float* s_dt = s_u + STEPS * CH;
+  float* s_dy = s_dt + STEPS * CH;
+  float* s_du = s_dy + STEPS * CH;
+  float* s_ddt = s_du + STEPS * CH;
+  float* s_b = s_ddt + STEPS * CH;         // [STEPS][NP] each
+  float* s_c = s_b + STEPS * NP;
+
+  const int tid = threadIdx.x;
+  const int q = tid % P, c = tid / P;
+  const int b = blockIdx.y, tile = blockIdx.x, d0 = tile * CH, d = d0 + c;
+  const long long row0 = (long long)b * S;
+  const long long BSN = (long long)B * S * N;
+  const int nchunks = (S + STEPS - 1) / STEPS;
+  // states n >= N and channels d >= DI see A = B = C = dy = 0: g stays 0
+  float af[4], a2[4], g[4], da[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = 4 * q + i;
+    const bool live = d < DI && n < N;
+    af[i] = live ? a[(long long)d * N + n] : 0.f;
+    a2[i] = af[i] * LOG2E;
+    g[i] = live && dh != nullptr ? dh[((long long)b * DI + d) * N + n] : 0.f;
+    da[i] = 0.f;
+  }
+
+  for (int ch = nchunks - 1; ch >= 0; --ch) {
+    const int t0 = ch * STEPS, steps = min(STEPS, S - t0);
+    __syncthreads();  // the chunk before (later in t) is written out
+    for (int i = tid; i < STEPS * CH; i += THREADS) {
+      const int tt = i / CH, e = i % CH;
+      const bool ok = tt < steps && d0 + e < DI;
+      const long long off = (row0 + t0 + tt) * DI + d0 + e;
+      s_u[i] = ok ? u[off] : 0.f;
+      s_dt[i] = ok ? dt[off] : 0.f;
+      s_dy[i] = ok ? dy[off] : 0.f;
+    }
+    for (int i = tid; i < STEPS * NP; i += THREADS) {
+      const int tt = i / NP, n = i % NP;
+      const bool ok = tt < steps && n < N;
+      s_b[i] = ok ? bm[b * sb.b + (long long)(t0 + tt) * sb.s + n] : 0.f;
+      s_c[i] = ok ? cm[b * sc.b + (long long)(t0 + tt) * sc.s + n] : 0.f;
+    }
+    float h0[4], h[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 4 * q + i;
+      h0[i] = (d < DI && n < N) ? h_chunks[(((long long)b * nchunks + ch) * DI + d) * N + n] : 0.f;
+      h[i] = h0[i];
+    }
+    __syncthreads();
+
+    // the chunk's states, re-run as the forward runs them
+    for (int tt = 0; tt < steps; ++tt) {
+      const float dtv = s_dt[tt * CH + c];
+      const float dtu = dtv * s_u[tt * CH + c];
+      const float4 bv = *reinterpret_cast<const float4*>(&s_b[tt * NP + 4 * q]);
+      h[0] = fmaf(ex2(dtv * a2[0]), h[0], dtu * bv.x);
+      h[1] = fmaf(ex2(dtv * a2[1]), h[1], dtu * bv.y);
+      h[2] = fmaf(ex2(dtv * a2[2]), h[2], dtu * bv.z);
+      h[3] = fmaf(ex2(dtv * a2[3]), h[3], dtu * bv.w);
+      *reinterpret_cast<float4*>(&s_h[(tt * CH + c) * NP + 4 * q]) =
+          make_float4(h[0], h[1], h[2], h[3]);
+    }
+    __syncthreads();
+
+    // dC_t = sum over the tile's channels of dy_t h_t: this tile's partial
+    for (int i = tid; i < steps * NP; i += THREADS) {
+      const int tt = i / NP, n = i % NP;
+      if (n >= N) continue;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int e = 0; e < CH; ++e) acc = fmaf(s_dy[tt * CH + e], s_h[(tt * CH + e) * NP + n], acc);
+      part_c[(long long)tile * BSN + (row0 + t0 + tt) * N + n] = acc;
+    }
+    __syncthreads();  // the states are read; the walk overwrites them
+
+    // the reverse walk: step tt reads h_{t-1} (its own lanes' states) and
+    // leaves its dB terms g dt u in the slot of h_t, read already
+    for (int tt = steps - 1; tt >= 0; --tt) {
+      const float dtv = s_dt[tt * CH + c], uv = s_u[tt * CH + c], dyv = s_dy[tt * CH + c];
+      const float4 bv4 = *reinterpret_cast<const float4*>(&s_b[tt * NP + 4 * q]);
+      const float4 cv4 = *reinterpret_cast<const float4*>(&s_c[tt * NP + 4 * q]);
+      float hp[4];
+      if (tt > 0) {
+        const float4 p4 = *reinterpret_cast<const float4*>(&s_h[((tt - 1) * CH + c) * NP + 4 * q]);
+        hp[0] = p4.x, hp[1] = p4.y, hp[2] = p4.z, hp[3] = p4.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) hp[i] = h0[i];
+      }
+      const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w}, cv[4] = {cv4.x, cv4.y, cv4.z, cv4.w};
+      const float dtu = dtv * uv;
+      float gb = 0.f, gah = 0.f, w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ai = ex2(dtv * a2[i]);
+        g[i] = fmaf(dyv, cv[i], g[i]);         // g_t
+        gb = fmaf(g[i], bv[i], gb);
+        const float t = g[i] * ai * hp[i];     // the gradient through a_t, over A dt
+        gah = fmaf(t, af[i], gah);
+        da[i] = fmaf(t, dtv, da[i]);
+        w[i] = g[i] * dtu;
+        g[i] *= ai;                            // a_t g_t, for step t - 1
+      }
+      *reinterpret_cast<float4*>(&s_h[(tt * CH + c) * NP + 4 * q]) = make_float4(w[0], w[1], w[2], w[3]);
+#pragma unroll
+      for (int o = P / 2; o >= 1; o >>= 1) {
+        gb += __shfl_xor_sync(0xffffffffu, gb, o, P);
+        gah += __shfl_xor_sync(0xffffffffu, gah, o, P);
+      }
+      if (q == 0) {
+        s_du[tt * CH + c] = dtv * gb;
+        s_ddt[tt * CH + c] = fmaf(uv, gb, gah);
+      }
+    }
+    __syncthreads();
+
+    // dB_t = sum over the tile's channels of g dt u: this tile's partial
+    for (int i = tid; i < steps * NP; i += THREADS) {
+      const int tt = i / NP, n = i % NP;
+      if (n >= N) continue;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int e = 0; e < CH; ++e) acc += s_h[(tt * CH + e) * NP + n];
+      part_b[(long long)tile * BSN + (row0 + t0 + tt) * N + n] = acc;
+    }
+    for (int i = tid; i < steps * CH; i += THREADS) {
+      const int tt = i / CH, e = i % CH;
+      if (d0 + e >= DI) continue;
+      const long long off = (row0 + t0 + tt) * DI + d0 + e;
+      du[off] = s_du[i];
+      ddt[off] = s_ddt[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (d < DI && 4 * q + i < N) part_a[((long long)b * DI + d) * N + 4 * q + i] = da[i];
+}
+
+// dB and dC: the tiles' partials added in tile order; dA: the batch rows'
+// partials added in row order. One thread an output element.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+mamba_scan_bwd_reduce(const float* __restrict__ part_b, const float* __restrict__ part_c,
+                      const float* __restrict__ part_a, float* __restrict__ db,
+                      float* __restrict__ dc, float* __restrict__ da, int tiles, long long BSN,
+                      int B, long long DIN) {
+  const long long i = (long long)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  if (i < BSN) {
+    float sb = 0.f, sc = 0.f;
+#pragma unroll 8
+    for (int t = 0; t < tiles; ++t) {
+      sb += part_b[t * BSN + i];
+      sc += part_c[t * BSN + i];
+    }
+    db[i] = sb;
+    dc[i] = sc;
+  } else if (i < BSN + DIN) {
+    const long long j = i - BSN;
+    float s = 0.f;
+    for (int r = 0; r < B; ++r) s += part_a[r * DIN + j];
+    da[j] = s;
+  }
+}
+
+template <int P>
+int launch_bwd(const float* u, const float* dt, const float* bm, const float* cm, const float* a,
+               const float* hc, const float* dy, const float* dh, float* du, float* ddt,
+               float* db, float* dc, float* da, float* part, const long long* st, int B, int S,
+               int DI, int N, cudaStream_t stream) {
+  static size_t allowed[repro::MAX_DEVICES] = {};
+  cudaError_t err = repro::allow_smem((const void*)mamba_scan_bwd<P>, BwdMem<P>::BYTES, allowed);
+  if (err != cudaSuccess) return (int)err;
+  const RowStrides sb{st[0], st[1]}, sc{st[2], st[3]};
+  const int tiles = (DI + CH - 1) / CH;
+  const long long BSN = (long long)B * S * N, DIN = (long long)DI * N;
+  float* part_b = part;
+  float* part_c = part + tiles * BSN;
+  float* part_a = part + 2 * tiles * BSN;
+  mamba_scan_bwd<P><<<dim3(tiles, B), P * CH, BwdMem<P>::BYTES, stream>>>(
+      u, dt, bm, cm, a, hc, dy, dh, du, ddt, part_b, part_c, part_a, sb, sc, B, S, DI, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (BSN + DIN + REDUCE_THREADS - 1) / REDUCE_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  mamba_scan_bwd_reduce<<<(unsigned)blocks, REDUCE_THREADS, 0, stream>>>(
+      part_b, part_c, part_a, db, dc, da, tiles, BSN, B, DIN);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype (of u and y): 0 = float32, 1 = bfloat16; dt, Bm, Cm, A and h are
 // float32. strides: (b, s) element strides of Bm, then of Cm. y is a
-// contiguous (B, S, DI) buffer, h a contiguous (B, DI, N) one. Returns the
-// CUDA error code of the launch (0 = launched).
+// contiguous (B, S, DI) buffer, h a contiguous (B, DI, N) one. h_chunks:
+// null, or a contiguous (B, chunks, DI, N) f32 buffer that takes the state
+// each chunk starts from (chunks of 32 steps, 16 at N > 16), the backward's
+// input. Returns the CUDA error code of the launch (0 = launched).
 extern "C" int mamba_scan_fwd(const void* u, const void* dt, const void* bm, const void* cm,
-                              const void* a, void* y, void* h, const long long* strides, int B,
-                              int S, int DI, int N, int dtype, void* stream) {
+                              const void* a, void* y, void* h, void* h_chunks,
+                              const long long* strides, int B, int S, int DI, int N, int dtype,
+                              void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || DI <= 0 || N <= 0 || N > 32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_n<float>(u, dt, bm, cm, a, y, h, strides, B, S, DI, N, s);
+  if (dtype == 0)
+    return launch_n<float>(u, dt, bm, cm, a, y, h, h_chunks, strides, B, S, DI, N, s);
   if (dtype == 1)
-    return launch_n<__nv_bfloat16>(u, dt, bm, cm, a, y, h, strides, B, S, DI, N, s);
+    return launch_n<__nv_bfloat16>(u, dt, bm, cm, a, y, h, h_chunks, strides, B, S, DI, N, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The backward of a float32 scan. u, dt, dy, du and ddt are contiguous (B,
+// S, DI) f32 buffers; Bm and Cm as the forward takes them (strides: (b, s)
+// element strides of Bm, then of Cm); A (DI, N); h_chunks the forward's
+// chunk-start states (B, chunks, DI, N); dh null or the (B, DI, N) gradient
+// of h_final. dB and dC are contiguous (B, S, N), dA (DI, N). part: a
+// scratch buffer of 2 x ceil(DI / 32) x B x S x N + B x DI x N f32 (the
+// tiles' partials of dB and dC, the batch rows' of dA). Launches the walk
+// and the reduce pass on `stream`; returns the CUDA error code of the
+// launches (0 = launched).
+extern "C" int mamba_scan_bwd(const void* u, const void* dt, const void* bm, const void* cm,
+                              const void* a, const void* h_chunks, const void* dy,
+                              const void* dh, void* du, void* ddt, void* db, void* dc, void* da,
+                              void* part, const long long* strides, int B, int S, int DI, int N,
+                              void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || DI <= 0 || N <= 0 || N > 32)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define MAMBA_BWD(P)                                                                            \
+  return launch_bwd<P>((const float*)u, (const float*)dt, (const float*)bm, (const float*)cm,  \
+                       (const float*)a, (const float*)h_chunks, (const float*)dy,              \
+                       (const float*)dh, (float*)du, (float*)ddt, (float*)db, (float*)dc,      \
+                       (float*)da, (float*)part, strides, B, S, DI, N, s)
+  if (N <= 4) MAMBA_BWD(1);
+  if (N <= 8) MAMBA_BWD(2);
+  if (N <= 16) MAMBA_BWD(4);
+  MAMBA_BWD(8);
+#undef MAMBA_BWD
 }

@@ -14,7 +14,7 @@ so a train step on the card differentiates every self-attention through
 the two kernels; ``flash_attention_bwd_ref`` is the backward's plain
 version. ``bwd_plan`` asks the kernel how it cuts the dK/dV pass's key
 tiles into parts for the card's SMs; the wrapper allocates the parts'
-workspace.
+workspace, and at (256, 256) the workspace of the blocks' f32 sums.
 """
 from __future__ import annotations
 
@@ -36,9 +36,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # square widths of the dense families, and deepseek-v2-lite-16b's MLA at its
 # published (192, 128) and reduced (48, 32) widths
 HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128), (48, 32))
-# the backward kernel's instances; the others wait (ROADMAP.md section 2,
-# "Backward kernels still to write")
-BWD_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (48, 32))
+# the backward kernel's instances: every pair of HEAD_DIMS (recurrentgemma-2b's
+# (256, 256) keeps its f32 sums in a device-memory workspace); a pair without
+# one would wait in ROADMAP.md section 2, "Backward kernels still to write"
+BWD_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (48, 32), (256, 256))
 BWD_MISSING = "ROADMAP.md section 2, 'Backward kernels still to write'"
 BWD_BM = 64   # keys a dK/dV block owns: the workspace part's rows
 
@@ -69,8 +70,8 @@ def _entry():
 @functools.lru_cache(maxsize=None)
 def _bwd_entry():
     fn = _build.library("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -87,17 +88,20 @@ class BwdPlan(NamedTuple):
     """The dK/dV pass's split, as the kernel plans it
     (csrc/flash_attention_bwd.cu, plan_split): its key tiles' walks cut into
     parts of at most ``chunk`` walked tiles, ``slots`` workspace parts a
-    (batch row, kv head), and ``longest`` the longest block's walk."""
+    (batch row, kv head), and ``longest`` the longest block's walk;
+    ``sums`` the parts of the workspace of f32 sums that the (256, 256)
+    instance keeps in device memory (0 for the others)."""
     chunk: int
     slots: int
     longest: int
+    sums: int = 0
 
 
 @functools.lru_cache(maxsize=1024)
 def bwd_plan(B: int, H: int, HK: int, Sq: int, Skv: int, D: int, Dv: int,
              dtype: torch.dtype, causal: bool, window: Optional[int], sms: int) -> BwdPlan:
     """The kernel's split of the dK/dV pass of a call on a card of ``sms`` SMs."""
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     err = _plan_entry()(B, H, HK, Sq, Skv, D, Dv, _DTYPES[dtype], int(causal), window or 0,
                         sms, out)
     if err != 0:
@@ -227,6 +231,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     ws = (torch.empty((B * HK * plan.slots, BWD_BM, D + Dv), dtype=torch.float32,
                       device=q.device) if plan.slots else None)
+    sums = (torch.empty((plan.sums, BWD_BM, D + Dv + 16), dtype=torch.float32,
+                        device=q.device) if plan.sums else None)
     dq = _out_like(q, D)
     dk = torch.empty((B, Skv, HK, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     dv = torch.empty((B, Skv, HK, Dv), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -242,8 +248,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     err = _bwd_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                        dv.data_ptr(), None if ws is None else ws.data_ptr(),
-                       _strides(q, k, v, o, do, dq, dk, dv), plan.chunk, plan.slots, B, H,
-                       HK, Sq, Skv, D, Dv, _DTYPES[q.dtype], int(causal),
+                       None if sums is None else sums.data_ptr(),
+                       _strides(q, k, v, o, do, dq, dk, dv), plan.chunk, plan.slots, plan.sums,
+                       B, H, HK, Sq, Skv, D, Dv, _DTYPES[q.dtype], int(causal),
                        window if window is not None else 0, scale, marks, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")

@@ -9,11 +9,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import BWD_MISSING, FlashAttentionFn, flash_attention
+from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.mamba_scan import MambaScanFn, mamba_scan
 from repro_torch.kernels.quant_matmul import quant_matmul
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rglru_scan import RglruScanFn, rglru_scan
 from repro_torch.quant.quantize import QTensor, quantize_act
 
 
@@ -34,6 +34,12 @@ def quantized_dense(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return x @ w.dequantize().to(x.dtype)
 
 
+def _under_grad(*ts) -> bool:
+    """Autograd will need these tensors' gradient: grad mode is on and one
+    of them requires it."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def attention_bhsd(q, k, v, *, causal=True, window=None, logit_scale=None):
     """(B,H,S,D) attention: the flash kernel on CUDA, its plain version on
     the CPU. On CUDA under autograd (grad enabled and an operand that
@@ -42,8 +48,7 @@ def attention_bhsd(q, k, v, *, causal=True, window=None, logit_scale=None):
     forward kernel alone. On the CPU autograd differentiates the plain
     version."""
     if q.is_cuda:
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
+        if _under_grad(q, k, v):
             return FlashAttentionFn.apply(q, k, v, causal, window, logit_scale)
         return flash_attention(q, k, v, causal=causal, window=window,
                                logit_scale=logit_scale)
@@ -63,26 +68,21 @@ def decode_attention(q_bhd, k_cache, v_cache, pos, *, window=None,
                                 logit_scale=logit_scale)
 
 
-def _refuse_grad(name: str, *ts) -> None:
-    """A scan kernel on the card has no backward yet: refuse to run it where
-    autograd would need its gradient, rather than return a tensor autograd
-    cannot see through."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            f"{name} has no backward kernel on the card yet ({BWD_MISSING}); "
-            f"a CUDA train step cannot differentiate it")
-
-
 def mamba_scan_full(u, dt, Bm, Cm, a_log, d_skip):
     """Selective scan with the D-skip. u, dt: (B, S, DI); Bm, Cm: (B, S, N);
     a_log: (DI, N); d_skip: (DI,). u is scanned in f32, as the reference
-    casts it: the scan kernel on CUDA, its plain version on the CPU. Returns
-    (y + u * d_skip in u's dtype, h_final (B, DI, N) f32)."""
+    casts it: the scan kernel on CUDA, its plain version on the CPU. On CUDA
+    under autograd ``MambaScanFn`` runs the forward kernel with its
+    chunk-start states and, in the backward, the backward kernel; otherwise
+    the forward kernel alone. On the CPU autograd differentiates the plain
+    version. Returns (y + u * d_skip in u's dtype, h_final (B, DI, N) f32)."""
     A = -torch.exp(a_log.to(torch.float32))
     uf = u.to(torch.float32)
     if uf.is_cuda:
-        _refuse_grad("mamba_scan", uf, dt, Bm, Cm, A)
-        y, h = mamba_scan(uf, dt, Bm, Cm, A)
+        if _under_grad(uf, dt, Bm, Cm, A):
+            y, h = MambaScanFn.apply(uf, dt, Bm, Cm, A)
+        else:
+            y, h = mamba_scan(uf, dt, Bm, Cm, A)
     else:
         y, h = ref.mamba_scan_ref(uf, dt, Bm, Cm, A)
     return (y + uf * d_skip).to(u.dtype), h
@@ -90,9 +90,12 @@ def mamba_scan_full(u, dt, Bm, Cm, a_log, d_skip):
 
 def rglru_scan_full(a, gx):
     """Diagonal recurrence h_t = a_t * h_{t-1} + gx_t from h = 0. a, gx:
-    (B, S, W) f32. The scan kernel on CUDA, its plain version on the CPU.
-    Returns (h_seq (B, S, W) f32, h_last (B, W) f32)."""
+    (B, S, W) f32. The scan kernel on CUDA, its plain version on the CPU. On
+    CUDA under autograd ``RglruScanFn`` runs the forward kernel and, in the
+    backward, the backward kernel. Returns (h_seq (B, S, W) f32, h_last (B,
+    W) f32)."""
     if a.is_cuda:
-        _refuse_grad("rglru_scan", a, gx)
+        if _under_grad(a, gx):
+            return RglruScanFn.apply(a, gx)
         return rglru_scan(a, gx)
     return ref.rglru_scan_ref(a, gx)

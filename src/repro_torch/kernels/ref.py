@@ -127,17 +127,57 @@ def mamba_scan_ref(u, dt, Bm, Cm, A, h0=None):
     an optional (B, DI, N) start state (default zero). Per step, in f32:
     h <- exp(dt * A) * h + (dt * u) (x) B, then y_t = sum_n h * C_t. No
     D-skip (``ops.mamba_scan_full`` adds it). Returns (y (B, S, DI) in u's
-    dtype, h_final (B, DI, N) f32)."""
+    dtype, h_final (B, DI, N) f32). f64 inputs run in f64 (the backward's
+    oracle)."""
     B, S, DI = u.shape
-    uf, dtf = u.to(torch.float32), dt.to(torch.float32)
-    h = (torch.zeros((B, DI, A.shape[1]), dtype=torch.float32, device=u.device)
-         if h0 is None else h0.to(torch.float32))
+    f = _acc(u)
+    uf, dtf = u.to(f), dt.to(f)
+    h = (torch.zeros((B, DI, A.shape[1]), dtype=f, device=u.device)
+         if h0 is None else h0.to(f))
     ys = []
     for t in range(S):
         dA = torch.exp(dtf[:, t, :, None] * A)                   # (B, DI, N)
         h = dA * h + (dtf[:, t] * uf[:, t])[..., None] * Bm[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
     return torch.stack(ys, dim=1).to(u.dtype), h
+
+
+def mamba_scan_bwd_ref(u, dt, Bm, Cm, A, dy, dh=None):
+    """The gradient of ``mamba_scan_ref`` (from h = 0) at (u, dt, Bm, Cm, A),
+    as an explicit reverse recurrence, in f32 (f64 for f64 inputs): the
+    states h_t are re-run forward, then per (b, d, n) chain, from t = S - 1
+    down, with g the gradient of h_t (g_{S-1} from ``dh``, the gradient of
+    h_final, or 0):
+        g_t = dy_t C_t + a_{t+1} g_{t+1},  a_t = exp(dt_t A);
+        du_t = sum_n g_t dt_t B_t;  ddt_t = sum_n g_t (u_t B_t + A a_t h_{t-1});
+        dB_t = sum_d g_t dt_t u_t;  dC_t = sum_d dy_t h_t;
+        dA = sum_{b,t} g_t a_t dt_t h_{t-1}.
+    dy: (B, S, DI), the gradient of y; dh: (B, DI, N) or None. Returns (du in
+    u's dtype, ddt, dBm, dCm (B, S, N), dA (DI, N)), f32 (f64 for f64)."""
+    f = _acc(u)
+    uf, dtf, Bf, Cf, Af, dyf = (t.to(f) for t in (u, dt, Bm, Cm, A, dy))
+    B, S, DI = u.shape
+    N = A.shape[1]
+    hs = [uf.new_zeros((B, DI, N))]                                # h_{t-1}, t = 0..S
+    for t in range(S):
+        a = torch.exp(dtf[:, t, :, None] * Af)
+        hs.append(a * hs[-1] + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :])
+    g = uf.new_zeros((B, DI, N)) if dh is None else dh.to(f).clone()
+    du, ddt = torch.empty_like(uf), torch.empty_like(uf)
+    dB, dC = Bf.new_empty((B, S, N)), Bf.new_empty((B, S, N))
+    dA = Af.new_zeros((DI, N))
+    for t in range(S - 1, -1, -1):
+        g = g + dyf[:, t, :, None] * Cf[:, t, None, :]
+        a = torch.exp(dtf[:, t, :, None] * Af)
+        gah = g * a * hs[t]
+        gB = (g * Bf[:, t, None, :]).sum(-1)
+        du[:, t] = dtf[:, t] * gB
+        ddt[:, t] = uf[:, t] * gB + (gah * Af).sum(-1)
+        dB[:, t] = torch.einsum("bdn,bd->bn", g, dtf[:, t] * uf[:, t])
+        dC[:, t] = torch.einsum("bdn,bd->bn", hs[t + 1], dyf[:, t])
+        dA += (gah * dtf[:, t, :, None]).sum(0)
+        g = a * g
+    return du.to(u.dtype), ddt, dB, dC, dA
 
 
 def rglru_scan_ref(a, gx, h0=None):
@@ -155,3 +195,25 @@ def rglru_scan_ref(a, gx, h0=None):
         a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
         off *= 2
     return gx, gx[:, -1]
+
+
+def rglru_scan_bwd_ref(a, h_seq, dy, dh_last=None):
+    """The gradient of ``rglru_scan_ref`` (from h = 0) at (a, gx), as an
+    explicit reverse recurrence over t = S - 1 down to 0, with g the gradient
+    of h_t:
+        g_t = dy_t + a_{t+1} g_{t+1}  (g_{S-1} = dy_{S-1} + dh_last);
+        dgx_t = g_t;  da_t = g_t h_{t-1}  (h_{-1} = 0).
+    h_seq: the forward's (B, S, W) states; dy: their gradient; dh_last: the
+    gradient of h_last, (B, W), or None. Returns (da, dgx), in f32 (f64 for
+    f64 inputs)."""
+    f = _acc(a)
+    af, hf, dyf = (t.to(f) for t in (a, h_seq, dy))
+    B, S, W = a.shape
+    g = af.new_zeros((B, W)) if dh_last is None else dh_last.to(f).clone()
+    da, dgx = torch.empty_like(af), torch.empty_like(af)
+    for t in range(S - 1, -1, -1):
+        g = g + dyf[:, t]
+        dgx[:, t] = g
+        da[:, t] = g * hf[:, t - 1] if t > 0 else 0.0
+        g = af[:, t] * g
+    return da, dgx

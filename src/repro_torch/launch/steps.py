@@ -9,12 +9,15 @@ in the JAX package's flat, stacked layout (``models.param_tree``), written
 back into the model in place. The optimizer state keeps that layout, the
 one a checkpoint has: ``adamw_init(param_tree(model))``.
 
-On the card a train step runs every self-attention through the flash
-attention kernels, forward and backward. A config whose train path reaches
-a kernel without a backward (falcon-mamba's ``mamba_scan``,
-recurrentgemma's ``rglru_scan`` and its attention at head_dim 256,
-deepseek's MLA attention at (192, 128)) is refused before the first step;
-nothing falls back to the plain versions on the card.
+On the card a train step runs every kernel it reaches forward and backward
+through hand-written kernels: every attention through the flash attention
+kernels, falcon-mamba's selective scan through ``mamba_scan`` and its
+backward, recurrentgemma's RG-LRU through ``rglru_scan`` and its backward
+(its local attention at head_dim 256 through the (256, 256) instances).
+All ten configs have every backward they need. A config whose attention
+had a (D, Dv) without a backward instance would be refused before the
+first step (``check_trainable_on_card``); nothing falls back to the plain
+versions on the card.
 """
 from __future__ import annotations
 
@@ -53,12 +56,10 @@ def _attention_head_dims(cfg: ModelConfig):
 
 def kernels_without_backward(cfg: ModelConfig) -> List[str]:
     """The kernels that ``cfg``'s train path reaches on the card and that
-    have no backward kernel yet."""
+    have no backward kernel: the flash attention at a (D, Dv) outside
+    ``BWD_HEAD_DIMS`` (the scans' backward kernels take every shape the
+    train path gives them). Empty for all ten configs."""
     missing = []
-    if cfg.ssm:
-        missing.append("mamba_scan")
-    if "rec" in cfg.block_pattern:
-        missing.append("rglru_scan")
     dims = _attention_head_dims(cfg)
     if dims is not None and dims not in BWD_HEAD_DIMS:
         missing.append(f"flash_attention at (q/k, v) head dims {dims}")

@@ -2,8 +2,9 @@
 of flash attention, the synthetic data pipeline, ``forward_train`` for all
 ten reduced archs, the gradients leaf by leaf, remat, the train step with
 and without microbatches, learning, checkpoints across the two packages,
-the two training CLIs, and the card's refusal of configs whose train path
-reaches a kernel without a backward.
+the two training CLIs, and the card's train route: every arch passes its
+check (no kernel lacks a backward) and the scans go to their autograd
+Functions under grad.
 
 Weights cross as a ``save_tree`` .npz file with gates, biases and norm
 parameters drawn away from the init's zeros and ones, so that their
@@ -82,7 +83,8 @@ def one_thread():
 # Sq != Skv; D != Dv; a GQA case where h % HK and h // G differ (every case
 # with HK > 1 and G > 1 is one); then deepseek-v2-lite's MLA widths, (192,
 # 128) and the reduced (48, 32), GQA 16/4 and MHA 16/16, ragged and whole
-# 64-row tiles, causal and unmasked at Sq != Skv
+# 64-row tiles, causal and unmasked at Sq != Skv; then recurrentgemma-2b's
+# (256, 256) at its MQA 10/1, causal and under a window
 BWD_CASES = [(2, 4, 2, 24, 24, 16, 16, True, None), (1, 6, 2, 40, 40, 16, 16, True, 8),
              (2, 4, 4, 12, 30, 16, 16, False, None), (1, 4, 2, 20, 20, 24, 8, True, None),
              (2, 6, 3, 17, 17, 8, 8, False, 5), (1, 6, 2, 9, 33, 16, 12, False, None),
@@ -91,7 +93,8 @@ BWD_CASES = [(2, 4, 2, 24, 24, 16, 16, True, None), (1, 6, 2, 40, 40, 16, 16, Tr
              (1, 16, 16, 40, 100, 192, 128, False, None),
              (1, 16, 4, 40, 100, 192, 128, False, None), (1, 16, 4, 100, 100, 48, 32, True, None),
              (1, 16, 16, 128, 128, 48, 32, True, None), (1, 16, 4, 40, 100, 48, 32, False, None),
-             (1, 16, 16, 40, 40, 48, 32, True, None)]
+             (1, 16, 16, 40, 40, 48, 32, True, None),
+             (1, 10, 1, 40, 40, 256, 256, True, None), (1, 10, 1, 70, 70, 256, 256, True, 16)]
 
 
 def _bwd_inputs(B, H, HK, Sq, Skv, D, Dv, seed):
@@ -180,10 +183,10 @@ def test_autograd_dispatch_keeps_the_plain_path_on_the_cpu():
 
 def test_backward_kernel_refuses_head_dims_it_has_no_instance_for():
     """(D, Dv) outside the backward's instances raises and names the
-    ROADMAP item; the covered pairs, MLA's (192, 128) and (48, 32) among
-    them, pass."""
-    assert {(192, 128), (48, 32)} <= set(fa.BWD_HEAD_DIMS)
-    for dims in ((256, 256), (64, 128)):
+    ROADMAP item; the covered pairs, MLA's (192, 128) and (48, 32) and
+    recurrentgemma's (256, 256) among them, pass."""
+    assert {(192, 128), (48, 32), (256, 256)} <= set(fa.BWD_HEAD_DIMS)
+    for dims in ((96, 96), (64, 128)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md section 2"):
             fa.check_bwd_head_dims(*dims)
     for dims in fa.BWD_HEAD_DIMS:
@@ -572,36 +575,57 @@ def test_train_lm_runs_checkpoints_and_resumes(tmp_path, capsys):
 @pytest.mark.parametrize("arch,what", [("falcon-mamba-7b", "mamba_scan"),
                                        ("recurrentgemma-2b", "rglru_scan"),
                                        ("deepseek-v2-lite-16b", "(192, 128)")])
-def test_card_refuses_train_paths_without_a_backward_kernel(arch, what):
-    """A train step on the card of falcon-mamba (mamba_scan) and
-    recurrentgemma (rglru_scan, and flash attention at head_dim 256) raises
-    before any step and names the ROADMAP item; deepseek, whose MLA
-    attention at (192, 128) (``what``) has a backward instance, passes, at
-    its published and its reduced (48, 32) widths, as do the other archs."""
+def test_card_refuses_train_paths_without_a_backward_kernel(arch, what, monkeypatch):
+    """No arch is refused on the card any more: falcon-mamba (``what``:
+    mamba_scan's backward), recurrentgemma (rglru_scan's, and flash
+    attention at (256, 256)) and deepseek (MLA at (192, 128), and (48, 32)
+    reduced) pass ``check_trainable_on_card``, as every arch does. The
+    refusal stays for a (D, Dv) without a backward instance, and names it
+    and the ROADMAP item."""
     cfg = get_config(arch)
-    if arch == "deepseek-v2-lite-16b":
-        assert (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim) == (192, 128)
-        assert what == str((192, 128)) and (192, 128) in fa.BWD_HEAD_DIMS
-        for c in (cfg, cfg.reduced()):
-            check_trainable_on_card(c)
-            assert kernels_without_backward(c) == []
-    else:
+    dims = {"falcon-mamba-7b": None, "recurrentgemma-2b": (256, 256),
+            "deepseek-v2-lite-16b": (192, 128)}[arch]
+    from repro_torch.launch.steps import _attention_head_dims
+    assert _attention_head_dims(cfg) == dims
+    assert dims is None or dims in fa.BWD_HEAD_DIMS
+    for c in (cfg, cfg.reduced()):
+        check_trainable_on_card(c)
+        assert kernels_without_backward(c) == []
+    assert what in ("mamba_scan", "rglru_scan", str((192, 128)))
+    assert all(kernels_without_backward(get_config(a)) == [] for a in ALL_ARCHS)
+    if dims is not None:
+        from repro_torch.launch import steps
+        monkeypatch.setattr(steps, "BWD_HEAD_DIMS", tuple(d for d in fa.BWD_HEAD_DIMS
+                                                          if d != dims))
         with pytest.raises(NotImplementedError, match="ROADMAP.md section 2") as e:
             check_trainable_on_card(cfg)
-        assert what in str(e.value)
-        if arch == "recurrentgemma-2b":
-            assert "(256, 256)" in str(e.value)
-    trainable = [a for a in ALL_ARCHS if not kernels_without_backward(get_config(a))]
-    assert sorted(trainable) == sorted(set(ALL_ARCHS) - {"falcon-mamba-7b", "recurrentgemma-2b"})
+        assert str(dims) in str(e.value)
 
 
 def test_scan_kernels_refuse_to_run_under_grad_on_the_card(monkeypatch):
-    """The scan wrappers raise where autograd would need a gradient through
-    the kernel (the card), and run as before without grad."""
+    """The scan wrappers no longer refuse under grad on the card: with
+    ``is_cuda`` patched, ``ops.mamba_scan_full`` and ``ops.rglru_scan_full``
+    hand their operands under autograd to ``MambaScanFn`` and
+    ``RglruScanFn`` (the forward kernel, then the backward kernel), and
+    without grad to the forward kernels, as before."""
+    from repro_torch.kernels.mamba_scan import MambaScanFn
+    from repro_torch.kernels.rglru_scan import RglruScanFn
+    seen = []
+
+    def stand_in(name):
+        return lambda *a: seen.append((name, len(a))) or (a[0], a[0][:, -1])
+    monkeypatch.setattr(MambaScanFn, "apply", stand_in("MambaScanFn"))
+    monkeypatch.setattr(RglruScanFn, "apply", stand_in("RglruScanFn"))
+    monkeypatch.setattr(ops, "mamba_scan", stand_in("mamba_scan"))
+    monkeypatch.setattr(ops, "rglru_scan", stand_in("rglru_scan"))
     u = torch.zeros(1, 4, 8, requires_grad=True)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    with pytest.raises(NotImplementedError, match="mamba_scan has no backward"):
+    ops.mamba_scan_full(u, u, torch.zeros(1, 4, 2), torch.zeros(1, 4, 2),
+                        torch.zeros(8, 2), torch.zeros(8))
+    ops.rglru_scan_full(u, u)
+    with torch.no_grad():
         ops.mamba_scan_full(u, u, torch.zeros(1, 4, 2), torch.zeros(1, 4, 2),
                             torch.zeros(8, 2), torch.zeros(8))
-    with pytest.raises(NotImplementedError, match="rglru_scan has no backward"):
         ops.rglru_scan_full(u, u)
+    assert seen == [("MambaScanFn", 5), ("RglruScanFn", 2), ("mamba_scan", 5),
+                    ("rglru_scan", 2)]
