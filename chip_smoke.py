@@ -4223,6 +4223,23 @@ def _bwd_kernel_ms(fa, args, iters=10):
     return ms
 
 
+def _scan_bwd_kernel_ms(ms, args, iters=10):
+    """Device ms a call of mamba_scan's backward, by kernel (the walk, the
+    reduce pass), by CUDA events that ``mamba_scan_bwd`` records between
+    its launches, the mean over ``iters`` calls."""
+    import torch
+    names = ("mamba_scan_bwd", "mamba_scan_bwd_reduce")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ms.mamba_scan_bwd(*args, events=ev)
+    out = dict.fromkeys(names, 0.0)
+    for _ in range(iters):
+        ms.mamba_scan_bwd(*args, events=ev)
+        ev[-1].synchronize()
+        for i, name in enumerate(names):
+            out[name] += ev[i].elapsed_time(ev[i + 1]) / iters
+    return out
+
+
 def time_flash_attention_bwd(dev, g, err, launches):
     """The backward kernel at FA_BWD_PATHS (f32, causal, views of (B, S, H,
     D) tensors; qwen2-0.5b's shape first, its numbers the row's own, then
@@ -4251,7 +4268,7 @@ def time_flash_attention_bwd(dev, g, err, launches):
         ms = cuda_ms(run, 20)
         dev_ms = graph_ms(run, 20)
         plain = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 5)
-        lib = sdpa_bwd_ms(q, k, v, do)
+        lib, lib_dev = sdpa_bwd_ms(q, k, v, do), sdpa_bwd_device_ms(q, k, v, do)
         bound, by, nops, nbytes, pairs = fa_bwd_bound(B, H, HK, S, D, Dv, torch.float32)
         plan = fa.bwd_plan(B, H, HK, S, S, D, Dv, torch.float32, True, None,
                            _build.sm_count(q.device))
@@ -4260,10 +4277,12 @@ def time_flash_attention_bwd(dev, g, err, launches):
               f"{bound / dev_ms:.1%} of its 3xTF32 bound {bound:.4f} ms ({by}; "
               f"{nops / 1e9:.2f} GFLOP over {pairs} visible pairs, {nbytes / 1e6:.1f} MB); by "
               f"kernel (CUDA events, ms) " + ", ".join(f"{n} {t:.4f}" for n, t in by_kernel.items())
-              + f"; plain {plain:.4f} ms, SDPA backward {lib:.4f} ms; split: chunk "
+              + f"; plain {plain:.4f} ms, SDPA backward {lib:.4f} ms eager, {lib_dev:.4f} ms device; "
+              f"split: chunk "
               f"{plan.chunk}, longest block {plan.longest} tiles, {plan.slots} slots")
         row.update({f"{pre}ms": ms, f"{pre}plain_ms": plain, f"{pre}bound_ms": bound,
-                    f"{pre}bound_by": by, f"{pre}library_ms": lib, f"{pre}device_ms": dev_ms,
+                    f"{pre}bound_by": by, f"{pre}library_ms": lib,
+                    f"{pre}library_device_ms": lib_dev, f"{pre}device_ms": dev_ms,
                     f"{pre}kernel_ms": by_kernel,
                     f"{pre}shape": f"f32 q ({B},{H},{S},{D}) k ({B},{HK},{S},{D}) v "
                                    f"({B},{HK},{S},{Dv}) causal, per call, {label}'s training "
@@ -4289,14 +4308,16 @@ def time_flash_attention_bwd_bf16(dev, g, B, H, HK, S, D, Dv, label):
     o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
     run = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731
     ms, dev_ms = cuda_ms(run, 20), graph_ms(run, 20)
+    by_kernel = _bwd_kernel_ms(fa, (q, k, v, o, lse, do))
     plain = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), 5)
     lib, lib_dev = sdpa_bwd_ms(q, k, v, do), sdpa_bwd_device_ms(q, k, v, do)
     bound, by, _, _, _ = fa_bwd_bound(B, H, HK, S, D, Dv, dt)
     print(f"  flash_attention_bwd bf16 at {label}'s training shape: {ms:.4f} ms eager, "
-          f"{dev_ms:.4f} ms device, bound {bound:.4f} ms ({by}); plain {plain:.4f} ms; SDPA "
-          f"backward {lib:.4f} ms eager, {lib_dev:.4f} ms device")
-    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib, "library_device_ms": lib_dev,
+          f"{dev_ms:.4f} ms device, bound {bound:.4f} ms ({by}); by kernel (CUDA events, ms) "
+          + ", ".join(f"{n} {t:.4f}" for n, t in by_kernel.items())
+          + f"; plain {plain:.4f} ms; SDPA backward {lib:.4f} ms eager, {lib_dev:.4f} ms device")
+    return {"ms": ms, "device_ms": dev_ms, "kernel_ms": by_kernel, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib, "library_device_ms": lib_dev,
             "shape": f"bf16 q ({B},{H},{S},{D}) k ({B},{HK},{S},{D}) v ({B},{HK},{S},{Dv}) "
                      f"causal, per call, {label}'s training shape"}
 
@@ -4835,7 +4856,9 @@ def time_mamba_scan_bwd(dev, g, err, launches):
     """mamba_scan's backward kernel at falcon-mamba-7b's train shape
     (TRAIN_SCAN_BATCH x TRAIN_SCAN_SEQ, DI 8192, N 16), per call (one
     layer): eager and as a CUDA graph, beside the plain backward and its
-    bound."""
+    bound, and the forward's device time at the same shape with and without
+    the chunk-start states it saves for the backward (a layer's scan costs
+    the forward with states plus the backward)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import mamba_scan as ms
@@ -4846,25 +4869,35 @@ def time_mamba_scan_bwd(dev, g, err, launches):
     dy = torch.randn(B, S, DI, generator=g, device=dev)
     run = lambda: ms.mamba_scan_bwd(u, dt, Bm, Cm, A, hc, dy)  # noqa: E731
     kernel, dev_ms = cuda_ms(run, 20), graph_ms(run, 20)
+    by_kernel = _scan_bwd_kernel_ms(ms, (u, dt, Bm, Cm, A, hc, dy))
+    fwd_ms = graph_ms(lambda: ms.mamba_scan(u, dt, Bm, Cm, A), 20)
+    fwd_states_ms = graph_ms(lambda: ms.mamba_scan(u, dt, Bm, Cm, A, chunk_states=True), 20)
     plain = cuda_ms(lambda: ms.mamba_scan_bwd_ref(u, dt, Bm, Cm, A, dy), 1, warmup=1)
-    # read once: u, dt, dy, Bm, Cm, A and the chunk-start states; written
-    # once: du, ddt, dBm, dCm, dA. One exp a (b, t, d, n) on the SFU; the
-    # gradient's f32 arithmetic, ~13 operations an element, below both
+    # read once: u, dt, dy, Bm, Cm, A; written once: du, ddt, dBm, dCm, dA.
+    # The chunk-start states are left out: how many the forward saves is the
+    # design's choice (its source note), and the function needs none. One
+    # exp a (b, t, d, n) on the SFU; the gradient's f32 arithmetic, ~13
+    # operations an element, below both
     elems = B * S * DI * N
-    nbytes = 4 * (5 * B * S * DI + 4 * B * S * N + 2 * DI * N + hc.numel())
+    nbytes = 4 * (5 * B * S * DI + 4 * B * S * N + 2 * DI * N)
     t_bytes, t_sfu, t_f32 = (nbytes / PEAK_BYTES * 1e3, elems / PEAK_SFU * 1e3,
                              13 * elems / PEAK_F32 * 1e3)
     bound = max(t_bytes, t_sfu, t_f32)
     by = "bytes" if t_bytes >= max(t_sfu, t_f32) else "operations"
-    print(f"  mamba_scan_bwd bound: bytes {t_bytes:.4f} ms ({nbytes / 1e6:.1f} MB), SFU exps "
-          f"{t_sfu:.4f} ms, f32 arithmetic {t_f32:.4f} ms")
+    print(f"  mamba_scan_bwd bound: bytes {t_bytes:.4f} ms ({nbytes / 1e6:.1f} MB; the "
+          f"{hc.shape[1]} chunk states, {4 * hc.numel() / 1e6:.1f} MB, not counted), SFU exps "
+          f"{t_sfu:.4f} ms, f32 arithmetic {t_f32:.4f} ms; device ms by kernel (CUDA events) "
+          + ", ".join(f"{n} {t:.4f}" for n, t in by_kernel.items())
+          + f"; the forward {fwd_ms:.4f} ms device, {fwd_states_ms:.4f} with the states: a "
+          f"layer's scan {fwd_states_ms + dev_ms:.4f} ms")
     return {"name": "mamba_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
             "replaces": "none: no Pallas backward exists (the JAX package differentiates its "
                         "jnp scan, src/repro/models/ssm.py:60)",
             "launches": launches["mamba_scan_bwd"], "max_abs_err": err,
-            "ms": kernel, "device_ms": dev_ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": by, "library_ms": None,
+            "ms": kernel, "device_ms": dev_ms, "kernel_ms": by_kernel, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "fwd_device_ms": fwd_ms, "fwd_states_device_ms": fwd_states_ms,
             "shape": f"f32 u, dt, dy ({B},{S},{DI}), Bm, Cm ({B},{S},{N}) slices of a "
                      f"({B},{S},{16 + 2 * N}) tensor, A ({DI},{N}), {hc.shape[1]} chunk states, "
                      f"per call (one layer of {FM_ARCH}'s train step); max_abs_err relative to "

@@ -19,7 +19,13 @@ tree has no backward instance for is left out) in f32 and in bf16, with each of 
 CUDA events between its launches (``kernel_ms``, where the tree's wrapper
 records them, else null), the backward of SDPA in the same dtype
 (``library_ms``) and the bound (``bound_ms``, at the 3xTF32 or the bf16
-rate). f32 (int8 codes for ``quant_matmul``; the backward also bf16),
+rate); ``mamba_scan``'s backward at falcon-mamba-7b's train shape (4, 512,
+8192, N 16), with the walk's and the reduce pass's device time by CUDA
+events where the tree's wrapper records them (``kernel_ms``), and the
+forward's device time at that shape with and without the chunk-start
+states it saves for the backward (``fwd_states_device_ms``,
+``fwd_device_ms``). f32 (int8
+codes for ``quant_matmul``; the backward also bf16),
 inputs from ``torch.Generator`` seed 0. Each time is the mean milliseconds
 of one call (of one layer's calls for ``quant_matmul``) by ``chip_smoke``'s
 CUDA-event timers, eager (``eager_ms``: as a caller launches it, the
@@ -35,7 +41,8 @@ built from its own sources:
 
     python3 scripts/kernel_timing.py [--src OTHER/src] [--only flash_attention_bwd,...]
 
-``--only`` builds and times the named kernels alone. Prints one JSON line.
+``--only`` builds and times the named kernels alone (``mamba_scan_bwd``
+builds ``mamba_scan``'s source). Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -55,9 +62,9 @@ sys.path.insert(0, str(ROOT))
 # nothing else)
 from chip_smoke import (BATCH, FA_BWD_PATHS, FA_PATHS, FD_PATHS, FM_ARCH,  # noqa: E402
                         FM_BATCH, FM_SEQ, INT_MM_MIN_M, QMM_LAYER, RG_QMM_LAYER, RG_SPLIT_BATCH,
-                        RG_SPLIT_SEQ, RS_PATHS, SEQ, _bwd_kernel_ms, _int_mm_ms, _qmm_inputs,
-                        _rglru_inputs, _scan_inputs, cuda_ms, fa_bwd_bound, graph_ms,
-                        sdpa_bwd_ms)
+                        RG_SPLIT_SEQ, RS_PATHS, SEQ, TRAIN_SCAN_BATCH, TRAIN_SCAN_SEQ,
+                        _bwd_kernel_ms, _int_mm_ms, _qmm_inputs, _rglru_inputs, _scan_bwd_kernel_ms,
+                        _scan_inputs, cuda_ms, fa_bwd_bound, graph_ms, sdpa_bwd_ms)
 
 
 def _host_us(fn, iters: int = 20) -> float:
@@ -96,8 +103,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import rglru_scan as rs
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    only = set(args.only.split(",")) if args.only else set(_build.KERNELS)
-    _build.build([k for k in _build.KERNELS if k in only])
+    only = set(args.only.split(",")) if args.only else {*_build.KERNELS, "mamba_scan_bwd"}
+    _build.build([k for k in _build.KERNELS
+                  if k in only or (k == "mamba_scan" and "mamba_scan_bwd" in only)])
     dev = torch.device("cuda", torch.cuda.current_device())
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -179,6 +187,24 @@ def main(argv=None) -> int:
                      "shape": [FM_BATCH, FM_SEQ, fm.d_inner, fm.ssm_state],
                      "eager_ms": cuda_ms(lambda: ms.mamba_scan(*scan), 30),
                      "device_ms": graph_ms(lambda: ms.mamba_scan(*scan), 30)})
+    if "mamba_scan_bwd" in only:
+        B, S = TRAIN_SCAN_BATCH, TRAIN_SCAN_SEQ
+        u, dt, Bm, Cm, A = _scan_inputs(B, S, fm.d_inner, fm.ssm_state, g, dev, falcon_a=True)
+        _, _, hc = ms.mamba_scan(u, dt, Bm, Cm, A, chunk_states=True)
+        dy = torch.randn(B, S, fm.d_inner, generator=g, device=dev)
+
+        def scan_bwd():
+            ms.mamba_scan_bwd(u, dt, Bm, Cm, A, hc, dy)
+        events = "events" in inspect.signature(ms.mamba_scan_bwd).parameters
+        rows.append({"kernel": "mamba_scan_bwd", "shape": [B, S, fm.d_inner, fm.ssm_state],
+                     "chunk_states": hc.shape[1],
+                     "fwd_device_ms": graph_ms(lambda: ms.mamba_scan(u, dt, Bm, Cm, A), 20),
+                     "fwd_states_device_ms": graph_ms(
+                         lambda: ms.mamba_scan(u, dt, Bm, Cm, A, chunk_states=True), 20),
+                     "eager_ms": cuda_ms(scan_bwd, 20), "device_ms": graph_ms(scan_bwd, 20),
+                     "kernel_ms": (_scan_bwd_kernel_ms(ms, (u, dt, Bm, Cm, A, hc, dy))
+                                   if events else None)})
+        del u, dt, Bm, Cm, A, hc, dy
     for B, S, W in RS_PATHS + ((1, 218, 2560),) if "rglru_scan" in only else ():
         a, gx = _rglru_inputs(B, S, W, g, dev)
         rows.append({"kernel": "rglru_scan", "shape": [B, S, W],

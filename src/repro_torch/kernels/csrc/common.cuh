@@ -21,6 +21,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(src_bytes));
 }
+// The same for 4 bytes (any 4-byte aligned address).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 // Wait until at most N committed groups of this thread are still in flight.
 template <int N>

@@ -44,10 +44,10 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride
   }
 }
 
-// s[n] += Q (this warp's 16 rows) . K^T for NT groups of 8 keys.
-template <int D, int NT>
+// s[n] += Q (this warp's 16 rows) . K^T for NT groups of 8 keys, over D
+// columns of rows LD elements apart (by default a tile of D columns).
+template <int D, int NT, int LD = Row<float, D>::LD>
 __device__ __forceinline__ void qk(float (*s)[4], const float* Qw, const float* Ks, int g, int t) {
-  constexpr int LD = Row<float, D>::LD;
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
     uint32_t ab[4], as[4];
@@ -109,11 +109,11 @@ __device__ __forceinline__ void p_frag(const float* Pw, int kk, int g, int t, ui
   p_frag(p, ab, as);
 }
 
-// o[n] += P (8 keys) . V for the NO 8-column groups of V at Vs (rows of DV).
-template <int DV, int NO>
+// o[n] += P (8 keys) . V for the NO 8-column groups of V at Vs (rows of DV,
+// or LD elements apart).
+template <int DV, int NO, int LD = Row<float, DV>::LD>
 __device__ __forceinline__ void pv_step(float (*o)[4], const uint32_t* ab, const uint32_t* as,
                                         const float* Vs, int kk, int g, int t) {
-  constexpr int LD = Row<float, DV>::LD;
   const float* vr = Vs + (kk * 8 + 2 * t) * LD + g;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -153,10 +153,10 @@ __device__ __forceinline__ void pv_step16(float (*o)[4], const uint32_t* a,
   }
 }
 
-// o += P . V over the tile's BKV keys (V rows of DV): P from the score
-// registers s (the warp scored every key, WN = 1) or, SHARED, from the
-// shared tile Pw.
-template <int DV, int BKV, int NO, bool SHARED>
+// o += P . V over the tile's BKV keys (V rows of DV, or LD elements
+// apart): P from the score registers s (the warp scored every key, WN = 1)
+// or, SHARED, from the shared tile Pw.
+template <int DV, int BKV, int NO, bool SHARED, int LD = Row<float, DV>::LD>
 __device__ __forceinline__ void pv(float (*o)[4], float (*s)[4], const float* Pw, const float* Vs,
                                    int g, int t) {
   constexpr int LDP = BKV + 4;
@@ -165,7 +165,7 @@ __device__ __forceinline__ void pv(float (*o)[4], float (*s)[4], const float* Pw
     uint32_t ab[4], as[4];
     if constexpr (SHARED) p_frag<LDP>(Pw, kk, g, t, ab, as);
     else p_frag(s[kk], ab, as);
-    pv_step<DV, NO>(o, ab, as, Vs, kk, g, t);
+    pv_step<DV, NO, LD>(o, ab, as, Vs, kk, g, t);
   }
 }
 

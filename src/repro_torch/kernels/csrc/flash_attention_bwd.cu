@@ -48,8 +48,9 @@
 //    tiles; the plan cuts the first six into 3, 3, 3, 2, 2 and 2 parts, so
 //    no block walks more than 19 tiles (272 blocks over 264 places). The parts of a split key
 //    tile write their f32 sums into a workspace (the wrapper allocates it),
-//    and a reduce pass adds them part by part, in order, and writes dK and
-//    dV; a tile that is not split writes them itself. The dQ pass needs no
+//    and a reduce pass (one block a 4-row block of a split tile) adds them
+//    part by part, in order, and writes dK and dV; a tile that is not split
+//    writes them itself. The dQ pass needs no
 //    split: one block a (64-query tile, head, batch row) is 896 blocks at
 //    qwen2's shape, launched heaviest first.
 //  - Overlap. The walked tiles (Q and dO with their lse and delta rows in
@@ -62,7 +63,8 @@
 //    64-column panels of 128-byte rows in the 128-byte swizzle (8-row groups
 //    of all panels side by side), which is the layout wgmma reads: S^T =
 //    K.Q^T and dP^T = V.dO^T (dQ pass: S = Q.K^T, dP = dO.V^T) as m64n64k16
-//    with both operands K-major from shared memory; dV += P^T.dO, dK +=
+//    (m64n32k16 at (256, 256), below) with both operands K-major from
+//    shared memory; dV += P^T.dO, dK +=
 //    dS^T.Q and dQ += dS.K as m64n64k16 a 64-column panel, P and dS rounded
 //    to bf16 as A fragments from registers (the f32 accumulator of a score
 //    product is, pair by pair, the A fragment of the next), and the walked
@@ -114,16 +116,34 @@
 // Shared memory (dK/dV pass; the dQ pass needs less): f32 (64, 64) 105,472
 // bytes, (128, 128) 101,632, (48, 32) 68,608 (two blocks an SM each),
 // (192, 128) 212,224; bf16 88,064 (two), 169,984, 210,944 and 88,064 (two).
-// recurrentgemma-2b's (256, 256): the own tiles and the ring alone take
-// ~195 KB (f32 199,936 bytes, bf16 198,656), and the f32 sums of dK and dV
-// another 135 KB, over the 227 KB a block may use; so at this instance
-// (BwdTile::GMEM_SUMS) each block keeps its sums in its own part of a
-// device-memory workspace (the wrapper allocates it; the plan says how many
-// parts), added by the same owner thread in the same order as in shared
-// memory, so the bits are those of a shared-memory run and two runs agree.
-// Each walked tile then reads and writes the block's 135 KB of sums (L2
-// traffic beside the tile's products); one block an SM. Measured
-// (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3 at 700 W) in PERF.md.
+// recurrentgemma-2b's (256, 256), by pairs of warps (bwd_dkdv_pair,
+// bwd_dq_pair, below). Its own tiles and ring leave no room for the f32
+// sums of 64 rows x 512 columns in shared memory, and a 4-warp block's
+// registers hold 128 columns of them; the first version kept them in
+// device memory, so every walked tile read and wrote the block's 135 KB of
+// sums (~1.6 GB a call at 4 x 10/1 x 512, one 4-warp block an SM). Now a
+// block of 8 warps owns the 64 rows: warps w and w + 4 share rows 16 (w %
+// 4), and each takes 128 of the 256 columns, its half of each score
+// product's reduction (the halves meet in shared memory, one f32 add, so
+// both warps hold the same scores) and its half of the gradients' columns,
+// whose f32 sums it keeps in registers (64 a gradient a thread); the tile
+// products are added into them by f32 adds, as at the other instances. f32
+// walks 16-row tiles on 3xTF32 mma.sync, 64 columns a product. bf16 walks
+// 32-row tiles on wgmma, each warpgroup (warps 0-3, 4-7) a column half: its
+// scores as m64n32k16 over its two 64-column panels (both operands in
+// shared memory in the 128-byte swizzle), then dV's and dK's (or dQ's) tile
+// products as m64n64k16, both panels in one wgmma group, with P and dS as
+// A fragments from registers. Shared memory: f32 216,320 bytes (dK/dV) and
+// 216,576 (dQ), bf16 165,376 in both; one block an SM. Registers (nvcc
+// -Xptxas -v): f32 255 (a 4-byte spill) and 226; bf16 254 and 184, no
+// spill (with a wgmma group a panel rather than both in one, the dK/dV
+// pass spilled 76 bytes and ran slower). Measured (scripts/kernel_timing.py
+// --src, one CUDA graph a call, in turns on one NVIDIA H100 80GB HBM3 at
+// 700 W) at recurrentgemma's train shape: bf16 0.1601-0.1610 ms against
+// 0.1754-0.1784 for the same pairs on mma.sync with ldmatrix fragments
+// (255 registers and spills in both passes) and 0.3768-0.3806 for the
+// first version; f32 0.6031-0.6053 against the first version's
+// 1.2120-1.2186. SDPA's backward and the other times in PERF.md.
 // Instances (D, Dv) = (64, 64), (128, 128), (192, 128), (48, 32) and (256,
 // 256), each in f32 and bf16; any other pair is refused (the wrapper raises
 // before it calls).
@@ -141,6 +161,8 @@ using namespace repro::flash;
 
 constexpr int BM = 64;        // rows a block owns: one warpgroup, 16 a warp
 constexpr int THREADS = 128;
+constexpr int PAIR_THREADS = 256;  // (256, 256): two warps a 16-row group
+constexpr int REDUCE_ROWS = 4;     // rows of a split key tile a reduce block adds
 constexpr int DELTA_THREADS = 256;
 constexpr int REDUCE_THREADS = 256;
 constexpr int MAX_PARTS = 8;  // parts a key tile is cut into at most
@@ -157,14 +179,13 @@ struct IsBf16<__nv_bfloat16> {
   static constexpr bool value = true;
 };
 
-// Bytes of a shared tile of ROWS rows of W values: f32 rows padded by 16
-// bytes (mma.sync fragments free of bank conflicts); bf16 as 64-column
-// panels of 128-byte rows in the 128-byte swizzle, for wgmma.
-template <typename T, int W, int ROWS>
+// Bytes of a shared tile of ROWS rows of W values: rows padded by 16 bytes
+// (mma.sync fragments free of bank conflicts), or, SWZ (bf16 for wgmma), as
+// 64-column panels of 128-byte rows in the 128-byte swizzle.
+template <typename T, int W, int ROWS, bool SWZ>
 struct TileMem {
   static constexpr int PANELS = (W + 63) / 64;
-  static constexpr int BYTES =
-      IsBf16<T>::value ? ROWS * 128 * PANELS : ROWS * Row<T, W>::LD * (int)sizeof(T);
+  static constexpr int BYTES = SWZ ? ROWS * 128 * PANELS : ROWS * Row<T, W>::LD * (int)sizeof(T);
 };
 
 // One instance's tiles. OWN: the block's 64 rows (K and V in the dK/dV pass,
@@ -172,37 +193,39 @@ struct TileMem {
 // and V). The split of the dK/dV pass (plan_split) reads BN and OCC.
 template <typename T, int D, int DV>
 struct BwdTile {
-  static constexpr bool WG = IsBf16<T>::value;        // wgmma, else mma.sync
-  static constexpr int BN = WG ? 64 : D >= 128 ? 16 : 64;
-  // f32 at D <= 128: the f32 sums stay in registers (a thread's 16 x D / 4
-  // of dK and of dV, or of dQ), which leaves the shared memory for two
-  // blocks an SM
-  static constexpr bool REG_SUMS = !WG && D <= 128;
+  // (256, 256): the pair kernels (below)
+  static constexpr bool PAIR = D == 256 && DV == 256;
+  static constexpr bool WG = IsBf16<T>::value;  // wgmma, else mma.sync
+  static constexpr int BN = PAIR ? (WG ? 32 : 16) : WG ? 64 : D >= 128 ? 16 : 64;
+  static constexpr int NTHREADS = PAIR ? PAIR_THREADS : THREADS;
+  // f32 at D <= 128 and the pairs: the f32 sums stay in registers (a
+  // thread's 16 x D / 4 of dK and of dV, or of dQ; a pair's warp holds half
+  // the columns), which leaves the shared memory for two blocks an SM, or
+  // for the pairs' tiles
+  static constexpr bool REG_SUMS = PAIR || (!WG && D <= 128);
   static constexpr int NT = BN / 8;                   // 8-column groups of a score fragment
   static constexpr int STAGES = 2;
   static constexpr int DA = WG ? round64(D) : D;      // accumulator columns
   static constexpr int DVA = WG ? round64(DV) : DV;
-  static constexpr int OWN_A = TileMem<T, D, BM>::BYTES, OWN_B = TileMem<T, DV, BM>::BYTES;
-  static constexpr int WALK_A = TileMem<T, D, BN>::BYTES, WALK_B = TileMem<T, DV, BN>::BYTES;
+  static constexpr int OWN_A = TileMem<T, D, BM, WG>::BYTES, OWN_B = TileMem<T, DV, BM, WG>::BYTES;
+  static constexpr int WALK_A = TileMem<T, D, BN, WG>::BYTES;
+  static constexpr int WALK_B = TileMem<T, DV, BN, WG>::BYTES;
   static constexpr int STAGE = WALK_A + WALK_B;
   static constexpr int ALIGN = WG ? 1024 : 0;         // the swizzle's 1024-byte atoms
   // own tiles, the ring, the walked rows' lse and delta
   static constexpr int BASE_KV = ALIGN + OWN_A + OWN_B + STAGES * STAGE + 4 * 2 * STAGES * BN;
   // own tiles, the ring, the own rows' lse and delta
   static constexpr int BASE_Q = ALIGN + OWN_A + OWN_B + STAGES * STAGE + 4 * 2 * BM;
-  // the f32 sums of dK and dV, of dQ, where they are not in registers
+  // the f32 sums of dK and dV, of dQ, where they are not in registers; the
+  // pairs' exchange of their score halves (s and dp, 2 NT float4 a lane)
   static constexpr int SUMS_KV = REG_SUMS ? 0 : 4 * BM * (DA + 8 + DVA + 8);
   static constexpr int SUMS_Q = REG_SUMS ? 0 : 4 * BM * (DA + 8);
-  // (256, 256): the sums do not fit in shared memory beside the tiles, so
-  // each block keeps them in a part of a device-memory workspace, of
-  // SUM_PART f32 (dK then dV, or dQ, rows of DA + 8 and DVA + 8)
-  static constexpr bool GMEM_SUMS = BASE_KV + SUMS_KV > 232448 || BASE_Q + SUMS_Q > 232448;
-  static constexpr int SUM_PART = BM * (DA + 8 + DVA + 8);
-  static constexpr int SMEM_KV = BASE_KV + (GMEM_SUMS ? 0 : SUMS_KV);
-  static constexpr int SMEM_Q = BASE_Q + (GMEM_SUMS ? 0 : SUMS_Q);
+  static constexpr int XCH = PAIR ? (PAIR_THREADS / 32) * 2 * NT * 32 * 16 : 0;
+  static constexpr int SMEM_KV = BASE_KV + SUMS_KV + XCH;
+  static constexpr int SMEM_Q = BASE_Q + SUMS_Q + XCH;
   static constexpr int OCC = SM_SMEM / (SMEM_KV + 1024) >= 2 ? 2 : 1;  // dK/dV blocks an SM
   static_assert(SMEM_KV <= 232448 && SMEM_Q <= 232448, "shared memory over 227 KB");
-  static_assert(!WG || BN == 64, "the wgmma products are m64n64k16");
+  static_assert(!WG || BN == (PAIR ? 32 : 64), "the wgmma scores are m64n64k16, m64n32k16 at the pairs");
 };
 
 // The dK/dV pass's work: the walk of key tile kt (its G heads' query tiles
@@ -336,27 +359,10 @@ KvPlan plan_split(int B, int H, int HK, int Sq, int Skv, int causal, int window,
   return pl;
 }
 
-// Parts of the sums workspace a call needs (GMEM_SUMS instances; 0 for the
-// others): one a dK/dV block, and the dQ pass, which runs after the dK/dV
-// pass, takes the same parts again, one a block.
-template <typename T, int D, int DV>
-long long sum_parts(const KvPlan& pl, int n_kt, int B, int H, int HK) {
-  if (!BwdTile<T, D, DV>::GMEM_SUMS) return 0;
-  long long items = 0;
-  for (int kt = 0; kt < n_kt; ++kt) items += pl.parts(kt);
-  return std::max(items * B * HK, (long long)B * H * ((pl.Sq + BM - 1) / BM));
-}
-
-// 4 bytes from global to shared memory; src_bytes = 0 writes a zero.
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)),
-               "l"(gmem), "r"(src_bytes));
-}
-
 // ROWS f32 values from row0 (0 at or past limit) into shared memory
-template <int ROWS>
+template <int ROWS, int NTH = THREADS>
 __device__ __forceinline__ void load_vec(float* dst, const float* src, int row0, int limit) {
-  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS; i += NTH) {
     const bool ok = row0 + i < limit;
     cp_async4(dst + i, src + (ok ? row0 + i : 0), ok ? 4 : 0);
   }
@@ -366,14 +372,14 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src, int row0,
 // at dst; rows at or past `limit`, and bf16 columns past W in the last
 // panel, are zero-filled. bf16: 16-byte chunk c of row r in panel p at
 // (r / 8) x PANELS x 1024 + p x 1024 + (r % 8) x 128 + (c ^ (r % 8)) x 16.
-template <typename T, int W, int ROWS>
+template <typename T, int W, int ROWS, int NTH = THREADS>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const T* src, long long stride,
                                           int row0, int limit) {
   if constexpr (!IsBf16<T>::value) {
-    load_rows<T, W, ROWS, THREADS>(reinterpret_cast<T*>(dst), src, stride, row0, limit);
+    load_rows<T, W, ROWS, NTH>(reinterpret_cast<T*>(dst), src, stride, row0, limit);
   } else {
     constexpr int PANELS = (W + 63) / 64;
-    for (int i = threadIdx.x; i < ROWS * PANELS * 8; i += THREADS) {
+    for (int i = threadIdx.x; i < ROWS * PANELS * 8; i += NTH) {
       const int c = i & 7, r = (i >> 3) % ROWS, p = (i >> 3) / ROWS;
       const int col = p * 64 + c * 8;
       const bool ok = row0 + r < limit && col < W;
@@ -624,8 +630,7 @@ __global__ void __launch_bounds__(THREADS)
 bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
          const T* __restrict__ dout, const float* __restrict__ lse,
          const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-         float* __restrict__ ws, float* __restrict__ sums, Strides sq, Strides sk, Strides sv,
-         Strides sdo, Strides sdk,
+         float* __restrict__ ws, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
          Strides sdv, int BHK, int H, int HK, KvPlan pl, int n_kt, int slots, float scale,
          float scale_log2) {
   using C = BwdTile<T, D, DV>;
@@ -638,7 +643,6 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
   float* lse_s = reinterpret_cast<float*>(ring + STAGES * C::STAGE);
   float* delta_s = lse_s + STAGES * BN;
   float* dk_s = delta_s + STAGES * BN;     // BM x (DA + 8) f32 sums of dK
-  if constexpr (C::GMEM_SUMS) dk_s = sums + (long long)blockIdx.x * C::SUM_PART;
   float* dv_s = dk_s + BM * (C::DA + 8);   // BM x (DVA + 8) f32 sums of dV
 
   const int bhk = blockIdx.x % BHK;
@@ -787,26 +791,38 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
 }
 
 // dK and dV of the split key tiles: the parts' f32 sums added in part
-// order, dK scaled. One block a split key tile of a (batch row, kv head).
+// order, dK scaled. One block a REDUCE_ROWS-row block of a split key tile of
+// a (batch row, kv head), so that the grid fills the card; each element is
+// added as by one block a tile, so its bits do not depend on the grid.
 template <typename T, int D, int DV>
 __global__ void __launch_bounds__(REDUCE_THREADS)
 bwd_reduce(const float* __restrict__ ws, T* __restrict__ dk, T* __restrict__ dv, Strides sdk,
            Strides sdv, int BHK, int HK, KvPlan pl, int n_kt, int slots, float scale) {
-  constexpr int W = D + DV;
-  const int bhk = blockIdx.x % BHK;
+  constexpr int W = D + DV, RB = BM / REDUCE_ROWS;
+  static_assert(D % 4 == 0 && DV % 4 == 0, "four columns a thread, all of dK or of dV");
+  const int bhk = blockIdx.x % BHK, rb = (blockIdx.x / BHK) % RB;
   int kt, np, slot;
-  if (!find_split(pl, n_kt, blockIdx.x / BHK, kt, np, slot)) return;
+  if (!find_split(pl, n_kt, blockIdx.x / BHK / RB, kt, np, slot)) return;
   const int b = bhk / HK, hk = bhk % HK, k0 = kt * BM;
   const float* w = ws + ((long long)bhk * slots + slot) * (BM * W);
-  for (int e = threadIdx.x; e < BM * W; e += REDUCE_THREADS) {
+  const int e_end = (rb + 1) * REDUCE_ROWS * W;
+  for (int e = rb * REDUCE_ROWS * W + 4 * threadIdx.x; e < e_end; e += 4 * REDUCE_THREADS) {
     const int r = e / W, c = e % W;
     if (k0 + r >= pl.Skv) break;  // e grows with r
-    float acc = w[e];
-    for (int p = 1; p < np; ++p) acc += w[(long long)p * BM * W + e];
-    if (c < D)
-      from_f(acc * scale, dk + b * sdk.b + hk * sdk.h + (long long)(k0 + r) * sdk.s + c);
-    else
-      from_f(acc, dv + b * sdv.b + hk * sdv.h + (long long)(k0 + r) * sdv.s + (c - D));
+    float4 acc = *reinterpret_cast<const float4*>(w + e);
+    for (int p = 1; p < np; ++p) {
+      const float4 x = *reinterpret_cast<const float4*>(w + (long long)p * BM * W + e);
+      acc.x += x.x, acc.y += x.y, acc.z += x.z, acc.w += x.w;
+    }
+    if (c < D) {
+      T* o = dk + b * sdk.b + hk * sdk.h + (long long)(k0 + r) * sdk.s + c;
+      store2(o, acc.x * scale, acc.y * scale);
+      store2(o + 2, acc.z * scale, acc.w * scale);
+    } else {
+      T* o = dv + b * sdv.b + hk * sdv.h + (long long)(k0 + r) * sdv.s + (c - D);
+      store2(o, acc.x, acc.y);
+      store2(o + 2, acc.z, acc.w);
+    }
   }
 }
 
@@ -816,9 +832,8 @@ template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
        const T* __restrict__ dout, const float* __restrict__ lse,
-       const float* __restrict__ delta, T* __restrict__ dq, float* __restrict__ sums, Strides sq,
-       Strides sk, Strides sv, Strides sdo, Strides sdq, int BH, int H, int HK, int Sq, int Skv,
-       int causal, int window,
+       const float* __restrict__ delta, T* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+       Strides sdo, Strides sdq, int BH, int H, int HK, int Sq, int Skv, int causal, int window,
        float scale, float scale_log2, int n_qtiles) {
   using C = BwdTile<T, D, DV>;
   constexpr int BN = C::BN, NT = C::NT, STAGES = C::STAGES;
@@ -830,7 +845,6 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
   float* lse_s = reinterpret_cast<float*>(ring + STAGES * C::STAGE);
   float* delta_s = lse_s + BM;
   float* dq_s = delta_s + BM;  // BM x (DA + 8) f32 sums of dQ
-  if constexpr (C::GMEM_SUMS) dq_s = sums + (long long)blockIdx.x * C::SUM_PART;
 
   // heaviest causal query tiles first: the tile index is the slowest grid index
   const int bh = blockIdx.x % BH, tq = blockIdx.x / BH;
@@ -934,12 +948,345 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v
   else store_sums<C::DA, D>(dq + b * sdq.b + h * sdq.h, sdq.s, dq_s, q0, rl, t, Sq, scale);
 }
 
+// ------------------------------------------------- (256, 256): the pairs
+//
+// A block of 8 warps owns 64 rows; warps w and w + 4 share rows 16 (w % 4)
+// and each takes half of the 256 columns: its half of the score products'
+// reduction, then its half of the gradients' columns. The two score halves
+// meet through shared memory (one f32 add each, so both warps hold the same
+// scores), and each warp keeps the f32 sums of its half of dK and dV (or
+// dQ) in registers: 16 x 128 / 32 = 64 a gradient. In bf16 the two
+// warpgroups (warps 0-3, 4-7) take their halves on wgmma: scores as
+// m64n32k16 over their two 64-column panels, the gradients' tile products
+// as m64n64k16 a panel with P and dS as A fragments from registers.
+
+// the named barrier of the pair that holds rows 16 r4 .. 16 r4 + 15
+__device__ __forceinline__ void pair_sync(int r4) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(r4 + 1) : "memory");
+}
+
+// s and dp (NT groups of 8 columns of this warp's half of the reduction)
+// plus the partner's halves: each warp leaves its fragments in xch, the
+// pair meets at its barrier, and each adds the other's (the block barrier
+// before the next walked tile keeps xch from being written too early)
+template <int NT>
+__device__ __forceinline__ void pair_add(float (*s)[4], float (*dp)[4], float4* xch, int warp,
+                                         int lane) {
+  float4* mine = xch + warp * 2 * NT * 32 + lane;
+  const float4* theirs = xch + (warp ^ 4) * 2 * NT * 32 + lane;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    mine[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+    mine[(NT + n) * 32] = make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+  }
+  pair_sync(warp & 3);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float4 a = theirs[n * 32], c = theirs[(NT + n) * 32];
+    s[n][0] += a.x, s[n][1] += a.y, s[n][2] += a.z, s[n][3] += a.w;
+    dp[n][0] += c.x, dp[n][1] += c.y, dp[n][2] += c.z, dp[n][3] += c.w;
+  }
+}
+
+// d (64 x 32, f32) = (accumulate ? d : 0) + A (64 x 16) B (16 x 32), bf16,
+// both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss32(float (*d)[4], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, "
+      "1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// acc (64 x 32) = A . B^T over KS k steps of 16 columns of two K-major tiles
+// of P panels (A: the block's 64 rows, B: a walked tile of 32 rows), from
+// the panel at A and B on; issue only
+template <int KS, int P>
+__device__ __forceinline__ void wg_scores32(float (*acc)[4], const unsigned char* A,
+                                            const unsigned char* B) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int off = (kk >> 2) * 1024 + (kk & 3) * 32;
+    wgmma_ss32(acc, desc_k<P>(A + off), desc_k<P>(B + off), kk > 0);
+  }
+}
+
+// sum (NPAN x 64 columns) += A (64 x BN, bf16 fragments) . X (the NPAN
+// 64-column panels at X of a walked tile of P panels, BN rows), a panel a
+// wgmma group: the tensor cores' sums cover one walked tile, then rounded
+// f32 adds
+template <int P, int NPAN, int BN>
+__device__ __forceinline__ void wg_pair_accum(float (*sum)[4], uint32_t (*a)[4],
+                                              const unsigned char* X) {
+  float acc[8 * NPAN][4] = {};
+  keep<8 * NPAN>(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NPAN; ++c)
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs_t(acc + 8 * c, a[kk], desc_mn<P>(X + kk * 2 * P * 1024 + c * 1024), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  keep<8 * NPAN>(acc);
+  keep<BN / 16>(a);
+  add_regs<8 * NPAN>(sum, acc);
+}
+
+// f32: sum (NO x 8 columns) += P (the BN walked rows, from the score
+// registers p) . X (the walked tile's columns at X, rows LD apart), 64
+// columns at a time: the tensor cores' sums cover one walked tile, then
+// rounded f32 adds
+template <int BN, int NO, int LD>
+__device__ __forceinline__ void pair_accum(float (*sum)[4], float (*p)[4], const float* X,
+                                           int lane) {
+#pragma unroll
+  for (int c = 0; c < NO / 8; ++c) {
+    float acc[8][4] = {};
+    pv<64, BN, 8, false, LD>(acc, p, nullptr, X + 64 * c, lane >> 2, lane & 3);
+    add_regs<8>(sum + 8 * c, acc);
+  }
+}
+
+// This warp's half of S = A . B^T and dP = A2 . B2^T, the own tiles (A, A2:
+// 64 rows) against the walked ones (B, B2: BN rows), the half's columns from
+// byte offset `half` of each row on (f32) or its two panels (bf16)
+template <typename T, int HW, int NT, int P>
+__device__ __forceinline__ void pair_scores(float (*s)[4], float (*dp)[4], const unsigned char* A,
+                                            const unsigned char* B, const unsigned char* A2,
+                                            const unsigned char* B2, int half, int warp,
+                                            int lane) {
+  if constexpr (IsBf16<T>::value) {
+    keep<NT>(s);
+    keep<NT>(dp);
+    wgmma_fence();
+    wg_scores32<HW / 16, P>(s, A + half, B + half);
+    wg_scores32<HW / 16, P>(dp, A2 + half, B2 + half);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep<NT>(s);
+    keep<NT>(dp);
+  } else {
+    constexpr int LD = Row<T, 2 * HW>::LD;
+    const int r0 = (warp & 3) * 16 * LD;
+    qk<HW, NT, LD>(s, reinterpret_cast<const T*>(A + half) + r0,
+                   reinterpret_cast<const T*>(B + half), lane >> 2, lane & 3);
+    qk<HW, NT, LD>(dp, reinterpret_cast<const T*>(A2 + half) + r0,
+                   reinterpret_cast<const T*>(B2 + half), lane >> 2, lane & 3);
+  }
+}
+
+// This warp's half of the gradient columns: sum += P (the BN walked rows,
+// from the score registers p) . X (the walked tile, its half at byte offset
+// `half`)
+template <typename T, int HW, int NT, int BN, int P>
+__device__ __forceinline__ void pair_grad(float (*sum)[4], float (*p)[4], const unsigned char* X,
+                                          int half, int lane) {
+  if constexpr (IsBf16<T>::value) {
+    uint32_t a[NT / 2][4];
+    pack_a<NT>(a, p);
+    wg_pair_accum<P, HW / 64, BN>(sum, a, X + half);
+  } else {
+    pair_accum<BN, HW / 8, Row<T, 2 * HW>::LD>(sum, p, reinterpret_cast<const T*>(X + half),
+                                               lane);
+  }
+}
+
+// dK and dV of one part of one key tile's walk, as bwd_dkdv, by pairs
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(PAIR_THREADS)
+bwd_dkdv_pair(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+              float* __restrict__ ws, Strides sq, Strides sk, Strides sv, Strides sdo,
+              Strides sdk, Strides sdv, int BHK, int H, int HK, KvPlan pl, int n_kt, int slots,
+              float scale, float scale_log2) {
+  using C = BwdTile<T, D, DV>;
+  static_assert(C::PAIR, "the pairs take (256, 256)");
+  constexpr int HW = D / 2, BN = C::BN, NT = C::NT, P = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* Ks = smem_raw;
+  if constexpr (C::WG) Ks += (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+  unsigned char* Vs = Ks + C::OWN_A;
+  unsigned char* ring = Vs + C::OWN_B;     // stage i: Q, then dO, BN rows each
+  float* lse_s = reinterpret_cast<float*>(ring + 2 * C::STAGE);
+  float* delta_s = lse_s + 2 * BN;
+  float4* xch = reinterpret_cast<float4*>(delta_s + 2 * BN);
+
+  const int bhk = blockIdx.x % BHK;
+  int kt, part, np, slot;
+  if (!find_item(pl, n_kt, blockIdx.x / BHK, kt, part, np, slot)) return;
+  const int b = bhk / HK, hk = bhk % HK;
+  const int Sq = pl.Sq, Skv = pl.Skv, causal = pl.causal, window = pl.window;
+  const int k0 = kt * BM;
+  int t0, TH;  // the first walked query tile, tiles a head
+  pl.tiles(kt, t0, TH);
+  const int L = pl.G * TH;
+  const int s0 = (int)((long long)part * L / np);
+  const int n = (int)((long long)(part + 1) * L / np) - s0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int hc = (warp >> 2) * HW;           // this warp's half of the columns
+  // its byte offset in a row: two 64-column panels in bf16's layout
+  const int half = C::WG ? (warp >> 2) * 2 * 1024 : hc * (int)sizeof(T);
+  const int rl = (warp & 3) * 16 + g;        // this thread's first row in the tile
+  const int kr0 = k0 + rl;
+
+  // step i of this part (walk step s0 + i) into ring stage i % 2
+  auto load_step = [&](int i) {
+    const int s = s0 + i, h = hk + (s / TH) * HK, q0 = (t0 + s % TH) * BN;
+    unsigned char* st = ring + (i & 1) * C::STAGE;
+    load_tile<T, D, BN, PAIR_THREADS>(st, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+    load_tile<T, DV, BN, PAIR_THREADS>(st + C::WALK_A, dout + b * sdo.b + h * sdo.h, sdo.s, q0,
+                                       Sq);
+    const long long row = ((long long)b * H + h) * Sq;
+    load_vec<BN, PAIR_THREADS>(lse_s + (i & 1) * BN, lse + row, q0, Sq);
+    load_vec<BN, PAIR_THREADS>(delta_s + (i & 1) * BN, delta + row, q0, Sq);
+  };
+
+  load_tile<T, D, BM, PAIR_THREADS>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, Skv);
+  load_tile<T, DV, BM, PAIR_THREADS>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, Skv);
+  if (n > 0) load_step(0);
+  cp_async_commit();
+  float dks[HW / 8][4] = {}, dvs[HW / 8][4] = {};  // the f32 sums of this warp's half
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<0>();  // step i (and the own tiles) landed
+    if constexpr (C::WG) fence_async_shared();
+    __syncthreads();     // for every thread; every warp is done with step i - 1's stage
+    if (i + 1 < n) load_step(i + 1);
+    cp_async_commit();
+    const unsigned char* Qs = ring + (i & 1) * C::STAGE;
+    const unsigned char* dOs = Qs + C::WALK_A;
+    const float* ls = lse_s + (i & 1) * BN;
+    const float* ds = delta_s + (i & 1) * BN;
+    const int q0 = (t0 + (s0 + i) % TH) * BN;
+    const bool full = k0 + BM <= Skv && q0 + BN <= Sq && (!causal || k0 + BM - 1 <= q0) &&
+                      (window <= 0 || q0 + BN - 1 - k0 < window);
+
+    float s[NT][4] = {}, dp[NT][4] = {};
+    pair_scores<T, HW, NT, P>(s, dp, Ks, Qs, Vs, dOs, half, warp, lane);  // S^T, dP^T
+    pair_add<NT>(s, dp, xch, warp, lane);
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = nn * 8 + 2 * t + (e & 1);
+        const bool ok = full || visible(q0 + ql, e < 2 ? kr0 : kr0 + 8, Sq, Skv, causal, window);
+        const float p = ok ? exp2f(s[nn][e] * scale_log2 - ls[ql] * LOG2E) : 0.f;
+        s[nn][e] = p;                               // P^T
+        dp[nn][e] = p * (dp[nn][e] - ds[ql]);       // dS^T
+      }
+    }
+    pair_grad<T, HW, NT, BN, P>(dvs, s, dOs, half, lane);   // dV += P^T . dO
+    pair_grad<T, HW, NT, BN, P>(dks, dp, Qs, half, lane);   // dK += dS^T . Q
+  }
+  cp_async_wait<0>();
+  if (np == 1) {
+    store_regs<HW>(dk + b * sdk.b + hk * sdk.h + hc, sdk.s, dks, k0, rl, t, Skv, scale);
+    store_regs<HW>(dv + b * sdv.b + hk * sdv.h + hc, sdv.s, dvs, k0, rl, t, Skv, 1.f);
+  } else {
+    float* w = ws + ((long long)bhk * slots + slot + part) * (BM * (D + DV));
+    store_regs_part<HW>(w + hc, D + DV, dks, rl, t);
+    store_regs_part<HW>(w + D + hc, D + DV, dvs, rl, t);
+  }
+}
+
+// dQ of one query tile of one head, as bwd_dq, by pairs
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(PAIR_THREADS)
+bwd_dq_pair(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            const T* __restrict__ dout, const float* __restrict__ lse,
+            const float* __restrict__ delta, T* __restrict__ dq, Strides sq, Strides sk,
+            Strides sv, Strides sdo, Strides sdq, int BH, int H, int HK, int Sq, int Skv,
+            int causal, int window, float scale, float scale_log2, int n_qtiles) {
+  using C = BwdTile<T, D, DV>;
+  static_assert(C::PAIR, "the pairs take (256, 256)");
+  constexpr int HW = D / 2, BN = C::BN, NT = C::NT, P = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* Qs = smem_raw;
+  if constexpr (C::WG) Qs += (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+  unsigned char* dOs = Qs + C::OWN_A;
+  unsigned char* ring = dOs + C::OWN_B;    // stage i: K, then V, BN rows each
+  float* lse_s = reinterpret_cast<float*>(ring + 2 * C::STAGE);
+  float* delta_s = lse_s + BM;
+  float4* xch = reinterpret_cast<float4*>(delta_s + BM);
+
+  // heaviest causal query tiles first: the tile index is the slowest grid index
+  const int bh = blockIdx.x % BH, tq = blockIdx.x / BH;
+  const int qt = causal ? n_qtiles - 1 - tq : tq;
+  const int b = bh / H, h = bh % H, hk = h % HK;
+  const int q0 = qt * BM;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int hc = (warp >> 2) * HW;           // this warp's half of the columns
+  const int half = C::WG ? (warp >> 2) * 2 * 1024 : hc * (int)sizeof(T);
+  const int rl = (warp & 3) * 16 + g;        // this thread's first row in the tile
+  const T* kb = k + b * sk.b + hk * sk.h;
+  const T* vb = v + b * sv.b + hk * sv.h;
+
+  // the keys that some query of the tile sees
+  const int q_last = min(q0 + BM, Sq) - 1;
+  const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int kv_first = (window > 0 ? max(0, q0 - window + 1) : 0) / BN * BN;
+  const int n = kv_end > kv_first ? (kv_end - kv_first + BN - 1) / BN : 0;
+
+  auto load_step = [&](int i) {
+    unsigned char* st = ring + (i & 1) * C::STAGE;
+    load_tile<T, D, BN, PAIR_THREADS>(st, kb, sk.s, kv_first + i * BN, Skv);
+    load_tile<T, DV, BN, PAIR_THREADS>(st + C::WALK_A, vb, sv.s, kv_first + i * BN, Skv);
+  };
+
+  load_tile<T, D, BM, PAIR_THREADS>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+  load_tile<T, DV, BM, PAIR_THREADS>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0, Sq);
+  load_vec<BM, PAIR_THREADS>(lse_s, lse + (long long)bh * Sq, q0, Sq);
+  load_vec<BM, PAIR_THREADS>(delta_s, delta + (long long)bh * Sq, q0, Sq);
+  if (n > 0) load_step(0);
+  cp_async_commit();
+  float dqs[HW / 8][4] = {};  // the f32 sums of this warp's half
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<0>();
+    if constexpr (C::WG) fence_async_shared();
+    __syncthreads();
+    if (i + 1 < n) load_step(i + 1);
+    cp_async_commit();
+    const unsigned char* Ks = ring + (i & 1) * C::STAGE;
+    const unsigned char* Vs = Ks + C::WALK_A;
+    const int kv0 = kv_first + i * BN;
+    const bool full = q0 + BM <= Sq && kv0 + BN <= Skv && (!causal || kv0 + BN - 1 <= q0) &&
+                      (window <= 0 || q0 + BM - 1 - kv0 < window);
+
+    float s[NT][4] = {}, dp[NT][4] = {};
+    pair_scores<T, HW, NT, P>(s, dp, Qs, Ks, dOs, Vs, half, warp, lane);  // S, dP
+    pair_add<NT>(s, dp, xch, warp, lane);
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e < 2 ? rl : rl + 8;
+        const int kj = kv0 + nn * 8 + 2 * t + (e & 1);
+        const bool ok = full || visible(q0 + r, kj, Sq, Skv, causal, window);
+        const float p = ok ? exp2f(s[nn][e] * scale_log2 - lse_s[r] * LOG2E) : 0.f;
+        dp[nn][e] = p * (dp[nn][e] - delta_s[r]);  // dS
+      }
+    }
+    pair_grad<T, HW, NT, BN, P>(dqs, dp, Ks, half, lane);   // dQ += dS . K
+  }
+  cp_async_wait<0>();
+  store_regs<HW>(dq + b * sdq.b + h * sdq.h + hc, sdq.s, dqs, q0, rl, t, Sq, scale);
+}
+
 template <typename T, int D, int DV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const float* lse, float* delta, void* dq, void* dk, void* dv, float* ws,
-               float* sums, const long long* st, int chunk, int slots, int parts, int B, int H,
-               int HK, int Sq, int Skv, int causal, int window, float scale,
-               void* const* events, cudaStream_t stream) {
+               const long long* st, int chunk, int slots, int B, int H, int HK, int Sq, int Skv,
+               int causal, int window, float scale, void* const* events, cudaStream_t stream) {
   using C = BwdTile<T, D, DV>;
   static size_t allowed_kv[MAX_DEVICES] = {}, allowed_q[MAX_DEVICES] = {};
   if (chunk < 1) return (int)cudaErrorInvalidValue;
@@ -957,12 +1304,18 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   // the workspace the wrapper allocated for the plan: slots f32 parts of 64
   // x (D + Dv) for each (batch row, kv head)
   if (need != slots || (slots > 0 && ws == nullptr)) return (int)cudaErrorInvalidValue;
-  // the sums workspace the wrapper allocated: parts of SUM_PART f32
-  const long long want = sum_parts<T, D, DV>(pl, n_kt, B, H, HK);
-  if (want != parts || (parts > 0 && sums == nullptr)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem((const void*)bwd_dkdv<T, D, DV>, C::SMEM_KV, allowed_kv);
+  const void* kv_kernel;
+  const void* q_kernel;
+  if constexpr (C::PAIR) {
+    kv_kernel = (const void*)bwd_dkdv_pair<T, D, DV>;
+    q_kernel = (const void*)bwd_dq_pair<T, D, DV>;
+  } else {
+    kv_kernel = (const void*)bwd_dkdv<T, D, DV>;
+    q_kernel = (const void*)bwd_dq<T, D, DV>;
+  }
+  cudaError_t err = allow_smem(kv_kernel, C::SMEM_KV, allowed_kv);
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem((const void*)bwd_dq<T, D, DV>, C::SMEM_Q, allowed_q);
+  err = allow_smem(q_kernel, C::SMEM_Q, allowed_q);
   if (err != cudaSuccess) return (int)err;
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]};
   const Strides so{st[9], st[10], st[11]}, sdo{st[12], st[13], st[14]};
@@ -970,10 +1323,12 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   const Strides sdv{st[21], st[22], st[23]};
   const long long rows = (long long)B * H * Sq;
   const long long delta_blocks = (rows * 32 + DELTA_THREADS - 1) / DELTA_THREADS;
-  const long long kv_blocks = items * B * HK, reduce_blocks = split * B * HK;
+  const long long kv_blocks = items * B * HK;
+  const long long reduce_blocks = split * B * HK * (BM / REDUCE_ROWS);
   const int n_qtiles = (Sq + BM - 1) / BM;
   const long long q_blocks = (long long)B * H * n_qtiles;
-  if (delta_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL || q_blocks > 0x7fffffffLL)
+  if (delta_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL || q_blocks > 0x7fffffffLL ||
+      reduce_blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * LOG2E;
   auto mark = [&](int i) {
@@ -985,9 +1340,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mark(1);
-  bwd_dkdv<T, D, DV><<<(unsigned)kv_blocks, THREADS, C::SMEM_KV, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, ws,
-      sums, sq, sk, sv, sdo, sdk, sdv, B * HK, H, HK, pl, n_kt, slots, scale, scale_log2);
+  if constexpr (C::PAIR)
+    bwd_dkdv_pair<T, D, DV><<<(unsigned)kv_blocks, PAIR_THREADS, C::SMEM_KV, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, ws,
+        sq, sk, sv, sdo, sdk, sdv, B * HK, H, HK, pl, n_kt, slots, scale, scale_log2);
+  else
+    bwd_dkdv<T, D, DV><<<(unsigned)kv_blocks, THREADS, C::SMEM_KV, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, ws,
+        sq, sk, sv, sdo, sdk, sdv, B * HK, H, HK, pl, n_kt, slots, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mark(2);
@@ -998,9 +1358,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
     if (err != cudaSuccess) return (int)err;
   }
   mark(3);
-  bwd_dq<T, D, DV><<<(unsigned)q_blocks, THREADS, C::SMEM_Q, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, sums, sq, sk,
-      sv, sdo, sdq, B * H, H, HK, Sq, Skv, causal, window, scale, scale_log2, n_qtiles);
+  if constexpr (C::PAIR)
+    bwd_dq_pair<T, D, DV><<<(unsigned)q_blocks, PAIR_THREADS, C::SMEM_Q, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, sq, sk, sv,
+        sdo, sdq, B * H, H, HK, Sq, Skv, causal, window, scale, scale_log2, n_qtiles);
+  else
+    bwd_dq<T, D, DV><<<(unsigned)q_blocks, THREADS, C::SMEM_Q, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, sq, sk, sv,
+        sdo, sdq, B * H, H, HK, Sq, Skv, causal, window, scale, scale_log2, n_qtiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mark(4);
@@ -1025,10 +1390,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 // The dK/dV pass's split of a call on a card of `sms` SMs (plan_split):
 // out[0] the chunk, the most walked tiles a dK/dV block takes; out[1] the
 // workspace parts of one (batch row, kv head), f32 64 x (D + Dv) each;
-// out[2] the longest block's walk in tiles; out[3] the parts of the sums
-// workspace, f32 64 x (D + Dv + 16) each (0 but at (256, 256)). Returns 0,
-// or the CUDA error code of an invalid shape or a (D, Dv, dtype) without an
-// instance.
+// out[2] the longest block's walk in tiles. Returns 0, or the CUDA error
+// code of an invalid shape or a (D, Dv, dtype) without an instance.
 extern "C" int flash_attention_bwd_plan(int B, int H, int HK, int Sq, int Skv, int D, int Dv,
                                         int dtype, int causal, int window, int sms, int* out) {
   if (B <= 0 || H <= 0 || HK <= 0 || H % HK != 0 || Sq <= 0 || Skv <= 0 || sms <= 0)
@@ -1038,9 +1401,6 @@ extern "C" int flash_attention_bwd_plan(int B, int H, int HK, int Sq, int Skv, i
     const KvPlan pl = plan_split<T, DQK, DVO>(B, H, HK, Sq, Skv, causal, window, sms); \
     out[0] = pl.chunk;                                                                 \
     out[1] = split_slots(pl, (Skv + BM - 1) / BM, &out[2]);                            \
-    const long long parts = sum_parts<T, DQK, DVO>(pl, (Skv + BM - 1) / BM, B, H, HK);  \
-    if (parts > 0x7fffffffLL) return (int)cudaErrorInvalidValue;                       \
-    out[3] = (int)parts;                                                               \
     return (int)cudaSuccess;                                                           \
   }
   FA_BWD_INSTANCES(FA_BWD_PLAN)
@@ -1057,29 +1417,26 @@ extern "C" int flash_attention_bwd_plan(int B, int H, int HK, int Sq, int Skv, i
 // log-sum-exp; delta: a contiguous (B, H, Sq) f32 scratch buffer. chunk and
 // slots: flash_attention_bwd_plan's out[0] and out[1] for this call (slots
 // is checked against the chunk); ws: the workspace of B x HK x slots parts
-// of 64 x (D + Dv) f32 (null when slots is 0). sums and parts: the sums
-// workspace of flash_attention_bwd_plan's out[3] parts of 64 x (D + Dv + 16)
-// f32 (null when parts is 0; checked against the plan). window <= 0 means no
-// window. events: null, or five CUDA events recorded on `stream` before
-// the delta pre-pass and after each of the delta, dK/dV, reduce (when a key
-// tile is split) and dQ kernels' launches, to time each apart. Launches the
-// four kernels on `stream`; returns the CUDA error code of the launches (0
-// = launched).
+// of 64 x (D + Dv) f32 (null when slots is 0). window <= 0 means no window.
+// events: null, or five CUDA events recorded on `stream` before the delta
+// pre-pass and after each of the delta, dK/dV, reduce (when a key tile is
+// split) and dQ kernels' launches, to time each apart. Launches the four
+// kernels on `stream`; returns the CUDA error code of the launches (0 =
+// launched).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
-                                   void* dk, void* dv, float* ws, float* sums,
-                                   const long long* strides, int chunk, int slots, int parts,
-                                   int B, int H, int HK, int Sq, int Skv, int D, int Dv,
-                                   int dtype, int causal, int window, float scale,
+                                   void* dk, void* dv, float* ws, const long long* strides,
+                                   int chunk, int slots, int B, int H, int HK, int Sq, int Skv,
+                                   int D, int Dv, int dtype, int causal, int window, float scale,
                                    void* const* events, void* stream) {
   if (B <= 0 || H <= 0 || HK <= 0 || H % HK != 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define FA_BWD_INSTANCE(DT, T, DQK, DVO)                                                       \
   if (dtype == DT && D == DQK && Dv == DVO)                                                    \
-    return launch_bwd<T, DQK, DVO>(q, k, v, o, dout, lse, delta, dq, dk, dv, ws, sums,         \
-                                   strides, chunk, slots, parts, B, H, HK, Sq, Skv, causal,    \
-                                   window, scale, events, s);
+    return launch_bwd<T, DQK, DVO>(q, k, v, o, dout, lse, delta, dq, dk, dv, ws, strides,      \
+                                   chunk, slots, B, H, HK, Sq, Skv, causal, window, scale,     \
+                                   events, s);
   FA_BWD_INSTANCES(FA_BWD_INSTANCE)
 #undef FA_BWD_INSTANCE
   return (int)cudaErrorInvalidValue;

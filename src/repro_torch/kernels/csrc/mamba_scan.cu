@@ -49,6 +49,7 @@ using repro::from_f;
 using repro::to_f;
 
 constexpr int CH = 32;     // channels a block
+constexpr int BWD_STEPS = 16;  // steps a backward chunk: the forward saves the state every 16
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct RowStrides {
@@ -209,6 +210,17 @@ mamba_scan(const T* __restrict__ u, const float* __restrict__ dt, const float* _
     }
   };
 
+  // the state each backward chunk of BWD_STEPS steps starts from (step k
+  // BWD_STEPS), for the backward
+  const int nstates = (S + BWD_STEPS - 1) / BWD_STEPS;
+  auto save = [&](int k) {
+    if (h_chunks == nullptr || d >= DI) return;
+    float* hc = h_chunks + (((long long)b * nstates + k) * DI + d) * N;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * q + i < N) hc[4 * q + i] = h[i];
+  };
+
   const int nchunks = (S + STEPS - 1) / STEPS;
   stage(0);
   repro::cp_async_commit();
@@ -220,17 +232,19 @@ mamba_scan(const T* __restrict__ u, const float* __restrict__ dt, const float* _
     if (ch + 1 < nchunks) stage(ch + 1);
     repro::cp_async_commit();
     const int buf = ch & 1, steps = min(STEPS, S - ch * STEPS);
-    if (h_chunks != nullptr && d < DI) {  // the state the chunk starts from, for the backward
-      float* hc = h_chunks + (((long long)b * nchunks + ch) * DI + d) * N;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (4 * q + i < N) hc[4 * q + i] = h[i];
-    }
+    constexpr int PER = STEPS / BWD_STEPS;  // backward chunks a chunk
+    save(ch * PER);
     if (steps == STEPS) {
 #pragma unroll
-      for (int t4 = 0; t4 < STEPS; t4 += 4) step4(buf, t4);
+      for (int t4 = 0; t4 < STEPS; t4 += 4) {
+        step4(buf, t4);
+        if (PER == 2 && t4 + 4 == BWD_STEPS) save(ch * PER + 1);
+      }
     } else {
-      for (int tt = 0; tt < steps; ++tt) step(buf, tt);
+      for (int tt = 0; tt < steps; ++tt) {
+        if (PER == 2 && tt == BWD_STEPS) save(ch * PER + 1);
+        step(buf, tt);
+      }
     }
     __syncthreads();  // the chunk's partials are complete
     write_y(ch);
@@ -283,183 +297,380 @@ int launch_n(const void* u, const void* dt, const void* bm, const void* cm, cons
 //   du_t = sum_n g_t dt_t B_t;  ddt_t = sum_n g_t (u_t B_t + A a_t h_{t-1});
 //   dB_t = sum_d g_t dt_t u_t;  dC_t = sum_d dy_t h_t;
 //   dA = sum_{b,t} g_t a_t dt_t h_{t-1}.
-// What bounds it on the H100: bytes. At falcon-mamba-7b's train shape (B =
-// 4, S = 512, DI = 8192, N = 16) it reads u, dt, dy and the forward's
-// chunk-start states and writes du and ddt, ~370 MB, ~0.11 ms at 3.35 TB/s;
-// its 268 M exps take ~0.063 ms on the SFU.
-// The design, simple first: the forward's blocks (32 channels of one batch
-// row, P lanes a channel, four states a lane) walk the chunks from the last
-// to the first. A chunk is staged into shared memory, its states re-run from
-// the saved chunk-start state with the forward's arithmetic (the same
-// ex2.approx of dt A log2 e and FMAs, so the states equal the forward's bit
-// for bit) into shared memory (STEPS x 32 channels x 4P states, 64 KB at N
-// 16), then walked in reverse with g in registers. du and ddt sum a
-// channel's lanes by shuffles; dA stays in registers for the whole walk. dB
-// and dC, sums over the channels, are taken in the block over its 32
-// channels (dC from the re-run states before the walk, dB from the terms
-// g dt u the walk leaves where it has read the states) and written as one
-// partial a tile; a second pass (mamba_scan_bwd_reduce) adds the tiles'
-// partials, and dA's batch rows, in a fixed order. Nothing is summed by
-// atomics: two runs give the same bits.
+// What bounds it on the H100: issue. At falcon-mamba-7b's train shape (B =
+// 4, S = 512, DI = 8192, N = 16) it reads u, dt and dy and writes du and
+// ddt, ~337 MB, 0.101 ms at 3.35 TB/s, and this design also reads the
+// forward's chunk-start states (67 MB at one state every 16 steps);
+// its 268 M (b, t, d, n) elements each take two exps and ~13 f32
+// operations (the re-run, the recurrence of g, four sums) beside the
+// shuffles, selects and shared-memory loads of the sums over channels and
+// states, which a design spends as few of as it can.
+// The first version (0.9931 ms there) kept a chunk's states in shared
+// memory (90 KB a block, 8 warps an SM) and did each chunk in five phases
+// behind barriers: synchronous loads, the re-run, dC's sums, the walk, dB's
+// sums; its per-tile partials of 32 channels were 67 MB each way.
+// This design:
+// - a thread owns two adjacent channels and four states of each (P lanes
+//   a channel pair): B_t and C_t, read from shared memory each step, serve
+//   two channels, and a lane's dB and dC terms are summed over its two
+//   channels before any shuffle;
+// - a chunk is BWD_STEPS = 16 steps (the forward saves the state every 16
+//   steps), walked in two halves of 8, the second first: the state at the
+//   half is re-run once, then each half is re-run into registers (64 of
+//   them) with the forward's arithmetic (the same ex2.approx of dt A log2 e
+//   and FMAs, so the states equal the forward's bit for bit) and walked in
+//   reverse from them. The halves' loops are unrolled; a ragged last chunk
+//   runs whole on zero-filled steps (a = 1, no input: g and h pass
+//   unchanged) whose outputs are not written;
+// - the next chunk's u, dt, dy, B, C and its start state go by cp.async
+//   into a second buffer while the current one runs, and the chunk before's
+//   outputs leave from a second staging buffer meanwhile (du and ddt by
+//   16-byte stores): one barrier a chunk. These copies run in whole rounds
+//   of the block's threads, unrolled, so their offsets fold at compile
+//   time rather than being recomputed each chunk;
+// - the sums are taken in the walk, by shuffles: dB and dC over a warp's
+//   channel pairs (a lane's four states halved twice between lane pairs,
+//   four shuffles a lane, then whole exchanges), then over the block's
+//   warps in order at the chunk's write-out; du and ddt of a lane's two
+//   channels over the pair's P lanes (halved twice, so each of four lanes
+//   ends with one of the four sums);
+// - a block is 256 threads (128 at N <= 4), 128 channels at N 16, one an
+//   SM (250 registers, 135 KB of shared memory), so the per-tile partials of
+//   dB and dC are a quarter of the first version's; a second pass
+//   (mamba_scan_bwd_reduce) adds the tiles' partials, and dA's batch rows,
+//   in a fixed order. Nothing is summed by atomics: two runs give the same
+//   bits.
+// Slower on the card in this design's trials: one channel a thread, its
+// exps kept from the re-run, a whole chunk's states in registers, register
+// orders that spare the shuffles' selects, quarter chunks at two blocks an
+// SM, the first half's states kept in shared memory rather than re-run
+// (register spills). Measured (chip_smoke.py phase 7, scripts/kernel_timing.py; NVIDIA H100
+// 80GB HBM3 at 700 W) in PERF.md.
 constexpr int REDUCE_THREADS = 256;
 
+// P lanes a channel pair, four states of each channel a lane
 template <int P>
 struct BwdMem {
-  static constexpr int STEPS = P == 8 ? 16 : 32, NP = 4 * P;
-  // the states (then the dB terms), u, dt, dy, du, ddt, B and C of a chunk
-  static constexpr int BYTES = 4 * (STEPS * CH * NP + 5 * STEPS * CH + 2 * STEPS * NP);
+  static constexpr int THREADS = P == 1 ? 128 : 256, WARPS = THREADS / 32;
+  static constexpr int L = BWD_STEPS, CHB = 2 * THREADS / P, NP = 4 * P;
+  // a chunk's inputs: u, dt, dy [L][CHB]; B, C [L][NP]; the start state [CHB][NP]
+  static constexpr int IN = 3 * L * CHB + 2 * L * NP + CHB * NP;
+  // a chunk's outputs: du, ddt [L][CHB]; the warps' partials of dB, dC [L][WARPS][NP]
+  static constexpr int OUT = 2 * L * CHB + 2 * L * WARPS * NP;
+  static constexpr int BYTES = 4 * 2 * (IN + OUT);  // two of each
 };
 
+// The sum over a warp's channels of one lane's four values (states 4q + i,
+// already summed over the lane's two channels): two halving exchanges, then
+// whole ones. On lanes < 4P the result is state 4q + 2 (lane & P ? 1 : 0) +
+// (lane & 2P ? 1 : 0); the other lanes hold copies.
 template <int P>
-__global__ void __launch_bounds__(P * CH)
+__device__ __forceinline__ float chan_sum(const float (&v)[4], int lane) {
+  const bool b1 = lane & P, b2 = lane & (2 * P);
+  float k0 = b1 ? v[2] : v[0], k1 = b1 ? v[3] : v[1];
+  const float s0 = b1 ? v[0] : v[2], s1 = b1 ? v[1] : v[3];
+  k0 += __shfl_xor_sync(0xffffffffu, s0, P);
+  k1 += __shfl_xor_sync(0xffffffffu, s1, P);
+  float k = b2 ? k1 : k0;
+  const float s = b2 ? k0 : k1;
+  k += __shfl_xor_sync(0xffffffffu, s, 2 * P);
+#pragma unroll
+  for (int o = 4 * P; o < 32; o <<= 1) k += __shfl_xor_sync(0xffffffffu, k, o);
+  return k;
+}
+
+template <int P>
+__global__ void __launch_bounds__(BwdMem<P>::THREADS, 1)
 mamba_scan_bwd(const float* __restrict__ u, const float* __restrict__ dt,
                const float* __restrict__ bm, const float* __restrict__ cm,
                const float* __restrict__ a, const float* __restrict__ h_chunks,
                const float* __restrict__ dy, const float* __restrict__ dh, float* __restrict__ du,
                float* __restrict__ ddt, float* __restrict__ part_b, float* __restrict__ part_c,
                float* __restrict__ part_a, RowStrides sb, RowStrides sc, int B, int S, int DI,
-               int N) {
-  constexpr int STEPS = BwdMem<P>::STEPS, NP = BwdMem<P>::NP, THREADS = P * CH;
+               int N, int vec) {
+  using M = BwdMem<P>;
+  constexpr int L = M::L, CHB = M::CHB, NP = M::NP, NTH = M::THREADS, WARPS = M::WARPS;
   extern __shared__ __align__(16) float smem[];
-  float* s_h = smem;                       // [STEPS][CH][NP]
-  float* s_u = s_h + STEPS * CH * NP;      // [STEPS][CH] each
-  float* s_dt = s_u + STEPS * CH;
-  float* s_dy = s_dt + STEPS * CH;
-  float* s_du = s_dy + STEPS * CH;
-  float* s_ddt = s_du + STEPS * CH;
-  float* s_b = s_ddt + STEPS * CH;         // [STEPS][NP] each
-  float* s_c = s_b + STEPS * NP;
-
-  const int tid = threadIdx.x;
-  const int q = tid % P, c = tid / P;
-  const int b = blockIdx.y, tile = blockIdx.x, d0 = tile * CH, d = d0 + c;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = tid % P, c = 2 * (tid / P);  // channels c and c + 1 of the block
+  const int b = blockIdx.y, tile = blockIdx.x, d0 = tile * CHB;
   const long long row0 = (long long)b * S;
   const long long BSN = (long long)B * S * N;
-  const int nchunks = (S + STEPS - 1) / STEPS;
+  const int nchunks = (S + L - 1) / L;
   // states n >= N and channels d >= DI see A = B = C = dy = 0: g stays 0
-  float af[4], a2[4], g[4], da[4];
+  float af[2][4], a2[2][4], g[2][4], da[2][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = 4 * q + i;
-    const bool live = d < DI && n < N;
-    af[i] = live ? a[(long long)d * N + n] : 0.f;
-    a2[i] = af[i] * LOG2E;
-    g[i] = live && dh != nullptr ? dh[((long long)b * DI + d) * N + n] : 0.f;
-    da[i] = 0.f;
-  }
-
-  for (int ch = nchunks - 1; ch >= 0; --ch) {
-    const int t0 = ch * STEPS, steps = min(STEPS, S - t0);
-    __syncthreads();  // the chunk before (later in t) is written out
-    for (int i = tid; i < STEPS * CH; i += THREADS) {
-      const int tt = i / CH, e = i % CH;
-      const bool ok = tt < steps && d0 + e < DI;
-      const long long off = (row0 + t0 + tt) * DI + d0 + e;
-      s_u[i] = ok ? u[off] : 0.f;
-      s_dt[i] = ok ? dt[off] : 0.f;
-      s_dy[i] = ok ? dy[off] : 0.f;
-    }
-    for (int i = tid; i < STEPS * NP; i += THREADS) {
-      const int tt = i / NP, n = i % NP;
-      const bool ok = tt < steps && n < N;
-      s_b[i] = ok ? bm[b * sb.b + (long long)(t0 + tt) * sb.s + n] : 0.f;
-      s_c[i] = ok ? cm[b * sc.b + (long long)(t0 + tt) * sc.s + n] : 0.f;
-    }
-    float h0[4], h[4];
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int n = 4 * q + i;
-      h0[i] = (d < DI && n < N) ? h_chunks[(((long long)b * nchunks + ch) * DI + d) * N + n] : 0.f;
-      h[i] = h0[i];
+      const int n = 4 * q + i, d = d0 + c + j;
+      const bool live = d < DI && n < N;
+      af[j][i] = live ? a[(long long)d * N + n] : 0.f;
+      a2[j][i] = af[j][i] * LOG2E;
+      g[j][i] = live && dh != nullptr ? dh[((long long)b * DI + d) * N + n] : 0.f;
+      da[j][i] = 0.f;
     }
+
+  // chunk ch's inputs into buffer buf; steps past S, channels past DI and
+  // states past N are zero
+  auto stage = [&](int ch, int buf) {
+    float* in = smem + buf * M::IN;
+    float *s_b = in + 3 * L * CHB, *s_c = s_b + L * NP, *s_h0 = s_c + L * NP;
+    const int t0 = ch * L;
+    const float* hc = h_chunks + ((long long)b * nchunks + ch) * DI * N;
+    if (vec) {
+      constexpr int RP = CHB / 4;  // 16-byte pieces a row of u, dt, dy
+      static_assert(3 * L * RP % NTH == 0, "whole rounds");
+#pragma unroll
+      for (int k = 0; k < 3 * L * RP / NTH; ++k) {
+        const int i = tid + k * NTH;
+        const int arr = i / (L * RP), tt = (i / RP) % L, e = (i % RP) * 4;
+        const bool ok = t0 + tt < S && d0 + e < DI;
+        const float* src = arr == 0 ? u : arr == 1 ? dt : dy;
+        repro::cp_async16(in + arr * L * CHB + tt * CHB + e,
+                          src + (ok ? (row0 + t0 + tt) * DI + d0 + e : 0), ok ? 16 : 0);
+      }
+      for (int i = tid; i < 2 * L * P; i += NTH) {
+        const bool is_c = i >= L * P;
+        const int j = is_c ? i - L * P : i, tt = j / P, n = (j % P) * 4;
+        const bool ok = t0 + tt < S && n < N;
+        const float* src = is_c ? cm + b * sc.b + (long long)(t0 + tt) * sc.s + n
+                                : bm + b * sb.b + (long long)(t0 + tt) * sb.s + n;
+        repro::cp_async16((is_c ? s_c : s_b) + tt * NP + n, ok ? src : cm, ok ? 16 : 0);
+      }
+      static_assert(CHB * P % NTH == 0, "whole rounds");
+#pragma unroll
+      for (int k = 0; k < CHB * P / NTH; ++k) {
+        const int i = tid + k * NTH;
+        const int e = i / P, n = (i % P) * 4;
+        const bool ok = d0 + e < DI && n < N;
+        repro::cp_async16(s_h0 + e * NP + n, hc + (ok ? (long long)(d0 + e) * N + n : 0),
+                          ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < 3 * L * CHB; i += NTH) {
+        const int arr = i / (L * CHB), tt = (i / CHB) % L, e = i % CHB;
+        const bool ok = t0 + tt < S && d0 + e < DI;
+        const float* src = arr == 0 ? u : arr == 1 ? dt : dy;
+        repro::cp_async4(in + i, src + (ok ? (row0 + t0 + tt) * DI + d0 + e : 0), ok ? 4 : 0);
+      }
+      for (int i = tid; i < 2 * L * NP; i += NTH) {
+        const bool is_c = i >= L * NP;
+        const int j = is_c ? i - L * NP : i, tt = j / NP, n = j % NP;
+        const bool ok = t0 + tt < S && n < N;
+        const float* src = is_c ? cm + b * sc.b + (long long)(t0 + tt) * sc.s + n
+                                : bm + b * sb.b + (long long)(t0 + tt) * sb.s + n;
+        repro::cp_async4(s_b + i, ok ? src : cm, ok ? 4 : 0);
+      }
+      for (int i = tid; i < CHB * NP; i += NTH) {
+        const int e = i / NP, n = i % NP;
+        const bool ok = d0 + e < DI && n < N;
+        repro::cp_async4(s_h0 + i, hc + (ok ? (long long)(d0 + e) * N + n : 0), ok ? 4 : 0);
+      }
+    }
+  };
+
+  // chunk ch's outputs from staging buffer buf: du and ddt; dB's and dC's
+  // tile partials, the warps' partials added in warp order
+  auto write_out = [&](int ch, int buf) {
+    const float* out = smem + 2 * M::IN + buf * M::OUT;
+    const float *s_du = out, *s_ddt = out + L * CHB, *s_pb = out + 2 * L * CHB;
+    const int t0 = ch * L;
+    if (vec) {  // 16-byte stores
+      static_assert(L * CHB % (4 * NTH) == 0, "whole rounds");
+#pragma unroll
+      for (int k = 0; k < L * CHB / (4 * NTH); ++k) {
+        const int i = 4 * (tid + k * NTH);
+        const int tt = i / CHB, e = i % CHB;
+        if (t0 + tt >= S || d0 + e >= DI) continue;
+        const long long off = (row0 + t0 + tt) * DI + d0 + e;
+        *reinterpret_cast<float4*>(du + off) = *reinterpret_cast<const float4*>(s_du + i);
+        *reinterpret_cast<float4*>(ddt + off) = *reinterpret_cast<const float4*>(s_ddt + i);
+      }
+    } else {
+      static_assert(L * CHB % NTH == 0, "whole rounds");
+#pragma unroll
+      for (int k = 0; k < L * CHB / NTH; ++k) {
+        const int i = tid + k * NTH;
+        const int tt = i / CHB, e = i % CHB;
+        if (t0 + tt >= S || d0 + e >= DI) continue;
+        const long long off = (row0 + t0 + tt) * DI + d0 + e;
+        du[off] = s_du[i];
+        ddt[off] = s_ddt[i];
+      }
+    }
+    static_assert(2 * L * NP % NTH == 0 || 2 * L * NP < NTH, "whole rounds");
+#pragma unroll
+    for (int k = 0; k < (2 * L * NP + NTH - 1) / NTH; ++k) {
+      const int i = tid + k * NTH;
+      if (i >= 2 * L * NP) break;
+      const int which = i / (L * NP), tt = (i / NP) % L, n = i % NP;
+      if (t0 + tt >= S || n >= N) continue;
+      const float* p = s_pb + (which * L + tt) * WARPS * NP + n;
+      float acc = p[0];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) acc += p[w * NP];
+      (which ? part_c : part_b)[(long long)tile * BSN + (row0 + t0 + tt) * N + n] = acc;
+    }
+  };
+
+  stage(nchunks - 1, 0);
+  repro::cp_async_commit();
+  for (int it = 0; it < nchunks; ++it) {
+    const int ch = nchunks - 1 - it, buf = it & 1;
+    repro::cp_async_wait<0>();
+    // chunk ch is in buffer buf for every thread; the chunk after it (in t)
+    // is walked, its inputs' buffer free and its outputs staged
     __syncthreads();
+    if (ch > 0) stage(ch - 1, buf ^ 1);
+    repro::cp_async_commit();
+    if (it > 0) write_out(ch + 1, buf ^ 1);
 
-    // the chunk's states, re-run as the forward runs them
-    for (int tt = 0; tt < steps; ++tt) {
-      const float dtv = s_dt[tt * CH + c];
-      const float dtu = dtv * s_u[tt * CH + c];
-      const float4 bv = *reinterpret_cast<const float4*>(&s_b[tt * NP + 4 * q]);
-      h[0] = fmaf(ex2(dtv * a2[0]), h[0], dtu * bv.x);
-      h[1] = fmaf(ex2(dtv * a2[1]), h[1], dtu * bv.y);
-      h[2] = fmaf(ex2(dtv * a2[2]), h[2], dtu * bv.z);
-      h[3] = fmaf(ex2(dtv * a2[3]), h[3], dtu * bv.w);
-      *reinterpret_cast<float4*>(&s_h[(tt * CH + c) * NP + 4 * q]) =
-          make_float4(h[0], h[1], h[2], h[3]);
+    const float* in = smem + buf * M::IN;
+    const float *s_u = in, *s_dt = in + L * CHB, *s_dy = in + 2 * L * CHB;
+    const float *s_b = in + 3 * L * CHB, *s_c = s_b + L * NP, *s_h0 = s_c + L * NP;
+    float* out = smem + 2 * M::IN + buf * M::OUT;
+    float *s_du = out, *s_ddt = out + L * CHB, *s_pb = out + 2 * L * CHB;
+    float* s_pc = s_pb + L * WARPS * NP;
+
+    // the chunk in two halves of H steps, the second first: the state at
+    // the half is re-run once without keeping the states
+    constexpr int H = L / 2;
+    float hmid[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float4 h4 = *reinterpret_cast<const float4*>(&s_h0[(c + j) * NP + 4 * q]);
+      hmid[j][0] = h4.x, hmid[j][1] = h4.y, hmid[j][2] = h4.z, hmid[j][3] = h4.w;
     }
-    __syncthreads();
-
-    // dC_t = sum over the tile's channels of dy_t h_t: this tile's partial
-    for (int i = tid; i < steps * NP; i += THREADS) {
-      const int tt = i / NP, n = i % NP;
-      if (n >= N) continue;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < CH; ++e) acc = fmaf(s_dy[tt * CH + e], s_h[(tt * CH + e) * NP + n], acc);
-      part_c[(long long)tile * BSN + (row0 + t0 + tt) * N + n] = acc;
-    }
-    __syncthreads();  // the states are read; the walk overwrites them
-
-    // the reverse walk: step tt reads h_{t-1} (its own lanes' states) and
-    // leaves its dB terms g dt u in the slot of h_t, read already
-    for (int tt = steps - 1; tt >= 0; --tt) {
-      const float dtv = s_dt[tt * CH + c], uv = s_u[tt * CH + c], dyv = s_dy[tt * CH + c];
+#pragma unroll
+    for (int tt = 0; tt < H; ++tt) {
+      const float2 dt2 = *reinterpret_cast<const float2*>(&s_dt[tt * CHB + c]);
+      const float2 u2 = *reinterpret_cast<const float2*>(&s_u[tt * CHB + c]);
       const float4 bv4 = *reinterpret_cast<const float4*>(&s_b[tt * NP + 4 * q]);
-      const float4 cv4 = *reinterpret_cast<const float4*>(&s_c[tt * NP + 4 * q]);
-      float hp[4];
-      if (tt > 0) {
-        const float4 p4 = *reinterpret_cast<const float4*>(&s_h[((tt - 1) * CH + c) * NP + 4 * q]);
-        hp[0] = p4.x, hp[1] = p4.y, hp[2] = p4.z, hp[3] = p4.w;
-      } else {
+      const float dtv[2] = {dt2.x, dt2.y}, uv[2] = {u2.x, u2.y};
+      const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) hp[i] = h0[i];
-      }
-      const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w}, cv[4] = {cv4.x, cv4.y, cv4.z, cv4.w};
-      const float dtu = dtv * uv;
-      float gb = 0.f, gah = 0.f, w[4];
+      for (int j = 0; j < 2; ++j) {
+        const float dtu = dtv[j] * uv[j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = ex2(dtv * a2[i]);
-        g[i] = fmaf(dyv, cv[i], g[i]);         // g_t
-        gb = fmaf(g[i], bv[i], gb);
-        const float t = g[i] * ai * hp[i];     // the gradient through a_t, over A dt
-        gah = fmaf(t, af[i], gah);
-        da[i] = fmaf(t, dtv, da[i]);
-        w[i] = g[i] * dtu;
-        g[i] *= ai;                            // a_t g_t, for step t - 1
-      }
-      *reinterpret_cast<float4*>(&s_h[(tt * CH + c) * NP + 4 * q]) = make_float4(w[0], w[1], w[2], w[3]);
-#pragma unroll
-      for (int o = P / 2; o >= 1; o >>= 1) {
-        gb += __shfl_xor_sync(0xffffffffu, gb, o, P);
-        gah += __shfl_xor_sync(0xffffffffu, gah, o, P);
-      }
-      if (q == 0) {
-        s_du[tt * CH + c] = dtv * gb;
-        s_ddt[tt * CH + c] = fmaf(uv, gb, gah);
+        for (int i = 0; i < 4; ++i) hmid[j][i] = fmaf(ex2(dtv[j] * a2[j][i]), hmid[j][i], dtu * bv[i]);
       }
     }
-    __syncthreads();
-
-    // dB_t = sum over the tile's channels of g dt u: this tile's partial
-    for (int i = tid; i < steps * NP; i += THREADS) {
-      const int tt = i / NP, n = i % NP;
-      if (n >= N) continue;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < CH; ++e) acc += s_h[(tt * CH + e) * NP + n];
-      part_b[(long long)tile * BSN + (row0 + t0 + tt) * N + n] = acc;
-    }
-    for (int i = tid; i < steps * CH; i += THREADS) {
-      const int tt = i / CH, e = i % CH;
-      if (d0 + e >= DI) continue;
-      const long long off = (row0 + t0 + tt) * DI + d0 + e;
-      du[off] = s_du[i];
-      ddt[off] = s_ddt[i];
+#pragma unroll 1
+    for (int hf = 1; hf >= 0; --hf) {
+      const int tb = hf * H;
+      float h0[2][4], hs[H][2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (hf) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) h0[j][i] = hmid[j][i];
+        } else {
+          const float4 h4 = *reinterpret_cast<const float4*>(&s_h0[(c + j) * NP + 4 * q]);
+          h0[j][0] = h4.x, h0[j][1] = h4.y, h0[j][2] = h4.z, h0[j][3] = h4.w;
+        }
+      }
+      {
+        float h[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) h[j][i] = h0[j][i];
+#pragma unroll
+        for (int t8 = 0; t8 < H; ++t8) {
+          const int tt = tb + t8;
+          const float2 dt2 = *reinterpret_cast<const float2*>(&s_dt[tt * CHB + c]);
+          const float2 u2 = *reinterpret_cast<const float2*>(&s_u[tt * CHB + c]);
+          const float4 bv4 = *reinterpret_cast<const float4*>(&s_b[tt * NP + 4 * q]);
+          const float dtv[2] = {dt2.x, dt2.y}, uv[2] = {u2.x, u2.y};
+          const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float dtu = dtv[j] * uv[j];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              h[j][i] = fmaf(ex2(dtv[j] * a2[j][i]), h[j][i], dtu * bv[i]);
+              hs[t8][j][i] = h[j][i];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int t8 = H - 1; t8 >= 0; --t8) {
+        const int tt = tb + t8;
+        const float2 dt2 = *reinterpret_cast<const float2*>(&s_dt[tt * CHB + c]);
+        const float2 u2 = *reinterpret_cast<const float2*>(&s_u[tt * CHB + c]);
+        const float2 dy2 = *reinterpret_cast<const float2*>(&s_dy[tt * CHB + c]);
+        const float4 bv4 = *reinterpret_cast<const float4*>(&s_b[tt * NP + 4 * q]);
+        const float4 cv4 = *reinterpret_cast<const float4*>(&s_c[tt * NP + 4 * q]);
+        const float dtv[2] = {dt2.x, dt2.y}, uv[2] = {u2.x, u2.y}, dyv[2] = {dy2.x, dy2.y};
+        const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w}, cv[4] = {cv4.x, cv4.y, cv4.z, cv4.w};
+        float x[4], wb[4], wc[4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float dtu = dtv[j] * uv[j];
+          float gb = 0.f, gah = 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float hp = t8 > 0 ? hs[t8 > 0 ? t8 - 1 : 0][j][i] : h0[j][i];
+            const float ai = ex2(dtv[j] * a2[j][i]);
+            g[j][i] = fmaf(dyv[j], cv[i], g[j][i]);
+            gb = fmaf(g[j][i], bv[i], gb);
+            const float tg = g[j][i] * ai * hp;
+            gah = fmaf(tg, af[j][i], gah);
+            da[j][i] = fmaf(tg, dtv[j], da[j][i]);
+            const float w = g[j][i] * dtu, v = dyv[j] * hs[t8][j][i];
+            wb[i] = j ? wb[i] + w : w;
+            wc[i] = j ? wc[i] + v : v;
+            g[j][i] *= ai;
+          }
+          x[2 * j] = gb;
+          x[2 * j + 1] = fmaf(uv[j], gb, gah);
+        }
+        const float sb_ = chan_sum<P>(wb, lane), sc_ = chan_sum<P>(wc, lane);
+        if (lane < 4 * P) {
+          const int n = 4 * q + ((lane & P) ? 2 : 0) + ((lane & (2 * P)) ? 1 : 0);
+          s_pb[(tt * WARPS + warp) * NP + n] = sb_;
+          s_pc[(tt * WARPS + warp) * NP + n] = sc_;
+        }
+        if constexpr (P == 1) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            s_du[tt * CHB + c + j] = dtv[j] * x[2 * j];
+            s_ddt[tt * CHB + c + j] = x[2 * j + 1];
+          }
+        } else {
+          const bool b1 = q & 1;
+          float k0 = b1 ? x[2] : x[0], k1 = b1 ? x[3] : x[1];
+          k0 += __shfl_xor_sync(0xffffffffu, b1 ? x[0] : x[2], 1, P);
+          k1 += __shfl_xor_sync(0xffffffffu, b1 ? x[1] : x[3], 1, P);
+          const float dtj = b1 ? dtv[1] : dtv[0];
+          if constexpr (P == 2) {
+            s_du[tt * CHB + c + b1] = dtj * k0;
+            s_ddt[tt * CHB + c + b1] = k1;
+          } else {
+            const bool b2 = q & 2;
+            float k = b2 ? k1 : k0;
+            k += __shfl_xor_sync(0xffffffffu, b2 ? k0 : k1, 2, P);
+#pragma unroll
+            for (int o = 4; o < P; o <<= 1) k += __shfl_xor_sync(0xffffffffu, k, o, P);
+            if (q < 4) {
+              if (b2) s_ddt[tt * CHB + c + b1] = k;
+              else s_du[tt * CHB + c + b1] = dtj * k;
+            }
+          }
+        }
+      }
     }
   }
+  __syncthreads();
+  write_out(0, (nchunks - 1) & 1);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (d < DI && 4 * q + i < N) part_a[((long long)b * DI + d) * N + 4 * q + i] = da[i];
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (d0 + c + j < DI && 4 * q + i < N)
+        part_a[((long long)b * DI + d0 + c + j) * N + 4 * q + i] = da[j][i];
 }
 
 // dB and dC: the tiles' partials added in tile order; dA: the batch rows'
@@ -487,29 +698,54 @@ mamba_scan_bwd_reduce(const float* __restrict__ part_b, const float* __restrict_
   }
 }
 
+// channel tiles of the backward's grid, whose partials of dB and dC the
+// scratch buffer holds
+template <int P>
+int bwd_tiles(int DI) {
+  return (DI + BwdMem<P>::CHB - 1) / BwdMem<P>::CHB;
+}
+
+// f32 values of the scratch buffer: the tiles' partials of dB and dC, the
+// batch rows' of dA
+template <int P>
+long long bwd_scratch(int B, int S, int DI, int N) {
+  return 2LL * bwd_tiles<P>(DI) * B * S * N + (long long)B * DI * N;
+}
+
 template <int P>
 int launch_bwd(const float* u, const float* dt, const float* bm, const float* cm, const float* a,
                const float* hc, const float* dy, const float* dh, float* du, float* ddt,
                float* db, float* dc, float* da, float* part, const long long* st, int B, int S,
-               int DI, int N, cudaStream_t stream) {
+               int DI, int N, void* const* events, cudaStream_t stream) {
   static size_t allowed[repro::MAX_DEVICES] = {};
   cudaError_t err = repro::allow_smem((const void*)mamba_scan_bwd<P>, BwdMem<P>::BYTES, allowed);
   if (err != cudaSuccess) return (int)err;
   const RowStrides sb{st[0], st[1]}, sc{st[2], st[3]};
-  const int tiles = (DI + CH - 1) / CH;
+  const int tiles = bwd_tiles<P>(DI);
   const long long BSN = (long long)B * S * N, DIN = (long long)DI * N;
+  const int vec = DI % 4 == 0 && N % 4 == 0 && (st[0] | st[1] | st[2] | st[3]) % 4 == 0 &&
+                  (((uintptr_t)u | (uintptr_t)dt | (uintptr_t)dy | (uintptr_t)bm |
+                    (uintptr_t)cm | (uintptr_t)hc | (uintptr_t)du | (uintptr_t)ddt) % 16) == 0;
   float* part_b = part;
   float* part_c = part + tiles * BSN;
   float* part_a = part + 2 * tiles * BSN;
-  mamba_scan_bwd<P><<<dim3(tiles, B), P * CH, BwdMem<P>::BYTES, stream>>>(
-      u, dt, bm, cm, a, hc, dy, dh, du, ddt, part_b, part_c, part_a, sb, sc, B, S, DI, N);
+  auto mark = [&](int i) {
+    if (events != nullptr) cudaEventRecord((cudaEvent_t)events[i], stream);
+  };
+  mark(0);
+  mamba_scan_bwd<P><<<dim3(tiles, B), BwdMem<P>::THREADS, BwdMem<P>::BYTES, stream>>>(
+      u, dt, bm, cm, a, hc, dy, dh, du, ddt, part_b, part_c, part_a, sb, sc, B, S, DI, N, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  mark(1);
   const long long blocks = (BSN + DIN + REDUCE_THREADS - 1) / REDUCE_THREADS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   mamba_scan_bwd_reduce<<<(unsigned)blocks, REDUCE_THREADS, 0, stream>>>(
       part_b, part_c, part_a, db, dc, da, tiles, BSN, B, DIN);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mark(2);
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -518,8 +754,7 @@ int launch_bwd(const float* u, const float* dt, const float* bm, const float* cm
 // float32. strides: (b, s) element strides of Bm, then of Cm. y is a
 // contiguous (B, S, DI) buffer, h a contiguous (B, DI, N) one. h_chunks:
 // null, or a contiguous (B, chunks, DI, N) f32 buffer that takes the state
-// each chunk starts from (chunks of 32 steps, 16 at N > 16), the backward's
-// input. Returns the CUDA error code of the launch (0 = launched).
+// each backward chunk of 16 steps starts from, the backward's input. Returns the CUDA error code of the launch (0 = launched).
 extern "C" int mamba_scan_fwd(const void* u, const void* dt, const void* bm, const void* cm,
                               const void* a, void* y, void* h, void* h_chunks,
                               const long long* strides, int B, int S, int DI, int N, int dtype,
@@ -539,15 +774,16 @@ extern "C" int mamba_scan_fwd(const void* u, const void* dt, const void* bm, con
 // element strides of Bm, then of Cm); A (DI, N); h_chunks the forward's
 // chunk-start states (B, chunks, DI, N); dh null or the (B, DI, N) gradient
 // of h_final. dB and dC are contiguous (B, S, N), dA (DI, N). part: a
-// scratch buffer of 2 x ceil(DI / 32) x B x S x N + B x DI x N f32 (the
-// tiles' partials of dB and dC, the batch rows' of dA). Launches the walk
-// and the reduce pass on `stream`; returns the CUDA error code of the
-// launches (0 = launched).
+// scratch buffer of as many f32 values as mamba_scan_bwd_scratch gives.
+// events: null, or three CUDA events recorded on `stream` before the walk
+// and after the walk's and the reduce pass's launches, to time each apart.
+// Launches the walk and the reduce pass on `stream`; returns the CUDA error
+// code of the launches (0 = launched).
 extern "C" int mamba_scan_bwd(const void* u, const void* dt, const void* bm, const void* cm,
                               const void* a, const void* h_chunks, const void* dy,
                               const void* dh, void* du, void* ddt, void* db, void* dc, void* da,
                               void* part, const long long* strides, int B, int S, int DI, int N,
-                              void* stream) {
+                              void* const* events, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || DI <= 0 || N <= 0 || N > 32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -555,10 +791,20 @@ extern "C" int mamba_scan_bwd(const void* u, const void* dt, const void* bm, con
   return launch_bwd<P>((const float*)u, (const float*)dt, (const float*)bm, (const float*)cm,  \
                        (const float*)a, (const float*)h_chunks, (const float*)dy,              \
                        (const float*)dh, (float*)du, (float*)ddt, (float*)db, (float*)dc,      \
-                       (float*)da, (float*)part, strides, B, S, DI, N, s)
+                       (float*)da, (float*)part, strides, B, S, DI, N, events, s)
   if (N <= 4) MAMBA_BWD(1);
   if (N <= 8) MAMBA_BWD(2);
   if (N <= 16) MAMBA_BWD(4);
   MAMBA_BWD(8);
 #undef MAMBA_BWD
+}
+
+// *floats: the f32 values of the scratch buffer (`part`) that mamba_scan_bwd
+// takes at these sizes. Returns 0, or the CUDA error code of invalid sizes.
+extern "C" int mamba_scan_bwd_scratch(int B, int S, int DI, int N, long long* floats) {
+  if (B <= 0 || B > 65535 || S <= 0 || DI <= 0 || N <= 0 || N > 32)
+    return (int)cudaErrorInvalidValue;
+  *floats = N <= 4 ? bwd_scratch<1>(B, S, DI, N) : N <= 8 ? bwd_scratch<2>(B, S, DI, N)
+            : N <= 16 ? bwd_scratch<4>(B, S, DI, N) : bwd_scratch<8>(B, S, DI, N);
+  return (int)cudaSuccess;
 }

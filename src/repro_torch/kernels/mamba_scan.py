@@ -11,8 +11,9 @@ contract.
 
 The backward kernel (same source) has no TPU counterpart: the JAX package
 differentiates its jnp scan. The forward writes, on request, the f32 state
-each chunk of ``chunk_steps(N)`` steps starts from; ``mamba_scan_bwd`` walks
-the chunks from the last, re-running each from its saved state, and
+each chunk of ``CHUNK_STEPS`` steps starts from; ``mamba_scan_bwd`` walks
+the chunks from the last, re-running each from its saved state in
+registers, and
 ``MambaScanFn`` binds the two into autograd. ``mamba_scan_bwd_ref`` is the
 backward's plain version; ``mamba_scan_bwd_chunked`` runs the kernel's
 chunk plan with torch ops, for the tests (nothing on the path calls it).
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Sequence
 
 import torch
 
@@ -28,22 +30,19 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mamba_scan_bwd_ref, mamba_scan_ref
 
 __all__ = ["mamba_scan", "mamba_scan_ref", "mamba_scan_bwd", "mamba_scan_bwd_ref",
-           "mamba_scan_bwd_chunked", "MambaScanFn", "chunk_steps", "launches",
+           "mamba_scan_bwd_chunked", "MambaScanFn", "CHUNK_STEPS", "launches",
            "bwd_launches"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 32       # N lanes of one warp hold a channel's states
 _MAX_BATCH = 65535   # the grid's y dimension
+# steps of the backward's chunks, whose start states the forward saves
+# (BWD_STEPS in csrc/mamba_scan.cu)
+CHUNK_STEPS = 16
 
-TILE = 32           # channels a block owns (csrc/mamba_scan.cu, CH)
 
 launches = 0       # forward kernel launches since the count was last set to 0
 bwd_launches = 0   # backward calls (the walk and its reduce pass) likewise
-
-
-def chunk_steps(N: int) -> int:
-    """Steps of the kernels' chunks at state size N: 32, 16 at N > 16."""
-    return 16 if N > 16 else 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,10 +55,18 @@ def _entry():
 
 
 @functools.lru_cache(maxsize=None)
+def _scratch_entry():
+    fn = _build.library("mamba_scan").mamba_scan_bwd_scratch
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def _bwd_entry():
     fn = _build.library("mamba_scan").mamba_scan_bwd
     fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -105,7 +112,7 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     (n contiguous), so the slices of the model's x_proj output pass without
     a copy. Returns (y (B, S, DI) in u's dtype, h_final (B, DI, N) f32), and
     with ``chunk_states`` also the f32 state each chunk of
-    ``chunk_steps(N)`` steps starts from, (B, chunks, DI, N): the
+    ``CHUNK_STEPS`` steps starts from, (B, chunks, DI, N): the
     backward's input."""
     global launches
     _check(u, dt, Bm, Cm, A)
@@ -114,7 +121,7 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     N = Bm.shape[-1]
     y = torch.empty((B, S, DI), dtype=u.dtype, device=u.device)
     h = torch.empty((B, DI, N), dtype=torch.float32, device=u.device)
-    hc = (torch.empty((B, -(-S // chunk_steps(N)), DI, N), dtype=torch.float32,
+    hc = (torch.empty((B, -(-S // CHUNK_STEPS), DI, N), dtype=torch.float32,
                       device=u.device) if chunk_states else None)
     strides = (ctypes.c_longlong * 4)(*Bm.stride()[:2], *Cm.stride()[:2])
     stream = torch.cuda.current_stream(u.device).cuda_stream
@@ -128,19 +135,24 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     return (y, h, hc) if chunk_states else (y, h)
 
 
-def mamba_scan_bwd(u, dt, Bm, Cm, A, h_chunks, dy, dh=None):
+def mamba_scan_bwd(u, dt, Bm, Cm, A, h_chunks, dy, dh=None, *,
+                   events: Optional[Sequence[torch.cuda.Event]] = None):
     """The gradient of ``mamba_scan`` (f32 u) at (u, dt, Bm, Cm, A): h_chunks
     the forward's chunk-start states (``mamba_scan(..., chunk_states=True)``),
     dy the gradient of y, dh that of h_final or None. Returns (du, ddt (B,
     S, DI), dBm, dCm (B, S, N), dA (DI, N)), f32, contiguous. Any other dtype
-    raises (there is no plain fallback on the card)."""
+    raises (there is no plain fallback on the card).
+
+    ``events``: three timing events, recorded on the stream before the walk
+    and after the walk and its reduce pass, so that each can be timed
+    apart."""
     global bwd_launches
     _check(u, dt, Bm, Cm, A)
     if u.dtype != torch.float32:
         raise TypeError(f"mamba_scan_bwd: u is {u.dtype}; the backward takes float32")
     B, S, DI = u.shape
     N = Bm.shape[-1]
-    want = {"h_chunks": (h_chunks, (B, -(-S // chunk_steps(N)), DI, N)),
+    want = {"h_chunks": (h_chunks, (B, -(-S // CHUNK_STEPS), DI, N)),
             "dy": (dy, (B, S, DI))}
     if dh is not None:
         want["dh"] = (dh, (B, DI, N))
@@ -150,46 +162,63 @@ def mamba_scan_bwd(u, dt, Bm, Cm, A, h_chunks, dy, dh=None):
                              f"contiguous {shape} float32")
     _on_card("mamba_scan_bwd", u, dt, Bm, Cm, A, h_chunks, dy,
              *(() if dh is None else (dh,)))
-    tiles = -(-DI // TILE)
+    floats = ctypes.c_longlong()   # the scratch the kernel's plan needs
+    err = _scratch_entry()(B, S, DI, N, ctypes.byref(floats))
+    if err != 0:
+        raise RuntimeError(f"mamba_scan_bwd_scratch failed: CUDA error {err}")
     du, ddt = torch.empty_like(u), torch.empty_like(u)
     dB = torch.empty((B, S, N), dtype=torch.float32, device=u.device)
     dC = torch.empty_like(dB)
     dA = torch.empty((DI, N), dtype=torch.float32, device=u.device)
-    part = torch.empty(2 * tiles * B * S * N + B * DI * N, dtype=torch.float32,
-                       device=u.device)
+    part = torch.empty(floats.value, dtype=torch.float32, device=u.device)
     strides = (ctypes.c_longlong * 4)(*Bm.stride()[:2], *Cm.stride()[:2])
-    stream = torch.cuda.current_stream(u.device).cuda_stream
+    stream = torch.cuda.current_stream(u.device)
+    marks = None
+    if events is not None:
+        if len(events) != 3:
+            raise ValueError(f"mamba_scan_bwd: {len(events)} events, wants 3")
+        for e in events:   # a torch event exists from its first record on
+            e.record(stream)
+        marks = (ctypes.c_void_p * 3)(*(e.cuda_event for e in events))
     err = _bwd_entry()(u.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                        A.data_ptr(), h_chunks.data_ptr(), dy.data_ptr(),
                        None if dh is None else dh.data_ptr(), du.data_ptr(), ddt.data_ptr(),
                        dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), part.data_ptr(), strides,
-                       B, S, DI, N, stream)
+                       B, S, DI, N, marks, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"mamba_scan_bwd launch failed: CUDA error {err}")
     bwd_launches += 1
     return du, ddt, dB, dC, dA
 
 
-def mamba_scan_bwd_chunked(u, dt, Bm, Cm, A, dy, dh=None):
+def mamba_scan_bwd_chunked(u, dt, Bm, Cm, A, dy, dh=None, *, tile: int):
     """The backward kernel's plan with torch ops in f32: the forward's
-    chunk-start states (every ``chunk_steps(N)`` steps), then the chunks from
+    chunk-start states (every ``CHUNK_STEPS`` steps), then the chunks from
     the last, each re-run from its saved state and walked in reverse with g
-    carried across chunks; dB and dC summed over tiles of TILE channels, then
-    over the tiles in order, dA over the batch rows in order. Returns what
+    carried across chunks, a ragged last chunk padded with steps that leave
+    g and h as they are; dB and dC summed over tiles of ``tile`` channels
+    (the kernel's block width, which its source sets), then over the tiles
+    in order, dA over the batch rows in order. Returns what
     ``mamba_scan_bwd`` returns."""
     B, S, DI = u.shape
     N = A.shape[1]
-    L = chunk_steps(N)
+    L, TILE = CHUNK_STEPS, tile
     nchunks, tiles = -(-S // L), -(-DI // TILE)
     u, dt, dy = (t.to(torch.float32) for t in (u, dt, dy))
+    # the ragged last chunk's missing steps as zeros: a = exp(0) = 1 and no
+    # input, so g and h pass through them unchanged
+    pad = nchunks * L - S
+    u, dt, dy = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (u, dt, dy))
+    Bm, Cm = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (Bm, Cm))
     ex = lambda t: torch.exp(dt[:, t, :, None] * A)          # noqa: E731
+    step = lambda t, h: ex(t) * h + (dt[:, t] * u[:, t])[..., None] * Bm[:, t, None, :]  # noqa: E731
     h, states = u.new_zeros((B, DI, N)), []
     for t in range(S):
         if t % L == 0:
             states.append(h)
-        h = ex(t) * h + (dt[:, t] * u[:, t])[..., None] * Bm[:, t, None, :]
+        h = step(t, h)
     g = u.new_zeros((B, DI, N)) if dh is None else dh.to(torch.float32).clone()
-    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    du, ddt = u.new_empty((B, S, DI)), u.new_empty((B, S, DI))
     part_b = u.new_zeros((tiles, B, S, N))
     part_c = u.new_zeros((tiles, B, S, N))
     part_a = u.new_zeros((B, DI, N))
@@ -200,21 +229,21 @@ def mamba_scan_bwd_chunked(u, dt, Bm, Cm, A, dy, dh=None):
         return pad.view(B, tiles, TILE, N).sum(2).transpose(0, 1)
 
     for ch in range(nchunks - 1, -1, -1):
-        t0, t1 = ch * L, min(S, (ch + 1) * L)
-        hs = [states[ch]]                                    # h_{t-1} for t = t0 .. t1
-        for t in range(t0, t1):
-            hs.append(ex(t) * hs[-1] + (dt[:, t] * u[:, t])[..., None] * Bm[:, t, None, :])
-        for t in range(t0, t1):
-            part_c[:, :, t] = by_tile(hs[t - t0 + 1] * dy[:, t, :, None])
-        for t in range(t1 - 1, t0 - 1, -1):
+        t0 = ch * L
+        hs = [states[ch]]                                    # h_{t-1} for t = t0 .. t0 + L
+        for t in range(t0, t0 + L):
+            hs.append(step(t, hs[-1]))
+        for t in range(t0 + L - 1, t0 - 1, -1):
             a = ex(t)
             g = g + dy[:, t, :, None] * Cm[:, t, None, :]
             gah = g * a * hs[t - t0]
             gb = (g * Bm[:, t, None, :]).sum(-1)
-            du[:, t] = dt[:, t] * gb
-            ddt[:, t] = u[:, t] * gb + (gah * A).sum(-1)
             part_a += gah * dt[:, t, :, None]
-            part_b[:, :, t] = by_tile(g * (dt[:, t] * u[:, t])[..., None])
+            if t < S:
+                du[:, t] = dt[:, t] * gb
+                ddt[:, t] = u[:, t] * gb + (gah * A).sum(-1)
+                part_b[:, :, t] = by_tile(g * (dt[:, t] * u[:, t])[..., None])
+                part_c[:, :, t] = by_tile(hs[t - t0 + 1] * dy[:, t, :, None])
             g = a * g
     dB, dC, dA = part_b[0].clone(), part_c[0].clone(), part_a[0].clone()
     for i in range(1, tiles):

@@ -116,21 +116,25 @@ def test_mamba_plain_backward_matches_f64_autograd(case, with_dh):
         _close(g.numpy(), w.numpy(), what=name)
 
 
-@pytest.mark.parametrize("case", MAMBA_CASES + [(2, 70, 70, 16)])
+@pytest.mark.parametrize("case", MAMBA_CASES + [(2, 70, 140, 16), (1, 21, 300, 4)])
 def test_mamba_chunk_plan_matches_plain_backward(case):
     """The backward kernel's plan with torch ops (chunk-start states every
-    ``chunk_steps(N)`` steps, each chunk re-run and walked in reverse, g
-    carried across chunks, dB and dC summed by tiles of 32 channels, then the
-    tiles and dA's batch rows in order) gives the plain backward."""
+    ``CHUNK_STEPS`` steps, each chunk re-run and walked in reverse, the
+    ragged last one padded with steps that leave g and h as they are, g
+    carried across chunks, dB and dC summed by tiles of channels, then the
+    tiles and dA's batch rows in order) gives the plain backward, at tiles
+    of 32 channels (several tiles at every case) and of 256, the kernel's
+    widest block (one tile but at DI 300)."""
     B, S, DI, N = case
     u, dt, xdbc, A, dy, dh = (torch.from_numpy(a) for a in
                               _scan_inputs(B, S, DI, N, seed=3 * sum(case)))
     Bm, Cm = _views(xdbc, N)
-    assert S > ms.chunk_steps(N) and ms.chunk_steps(N) == (16 if N > 16 else 32)
-    got = ms.mamba_scan_bwd_chunked(u, dt, Bm, Cm, A, dy, dh)
+    assert S > ms.CHUNK_STEPS
     want = ref.mamba_scan_bwd_ref(u, dt, Bm, Cm, A, dy, dh)
-    for name, g, w in zip(("du", "ddt", "dBm", "dCm", "dA"), got, want):
-        _close(g.numpy(), w.numpy(), what=name)
+    for tile in (32, 256):
+        got = ms.mamba_scan_bwd_chunked(u, dt, Bm, Cm, A, dy, dh, tile=tile)
+        for name, g, w in zip(("du", "ddt", "dBm", "dCm", "dA"), got, want):
+            _close(g.numpy(), w.numpy(), what=f"{name} (tiles of {tile})")
 
 
 def _mixer(cfg, seed):
@@ -211,7 +215,7 @@ def test_mamba_fn_on_the_cpu_is_the_plain_path():
         _close(a.grad.numpy(), b.grad.numpy())
     assert (ms.launches, ms.bwd_launches) == before
     Bm, Cm = _views(xdbc, N)
-    hc = torch.zeros(B, -(-S // ms.chunk_steps(N)), DI, N)
+    hc = torch.zeros(B, -(-S // ms.CHUNK_STEPS), DI, N)
     with pytest.raises(ValueError, match="CUDA"):
         ms.mamba_scan_bwd(u, dt, Bm, Cm, A, hc, dy)
     with pytest.raises(TypeError, match="float32"):
@@ -365,6 +369,7 @@ def _c_argtypes(source, name):
 @pytest.mark.parametrize("module,source,entry,getter", [
     (ms, "mamba_scan", "mamba_scan_fwd", "_entry"),
     (ms, "mamba_scan", "mamba_scan_bwd", "_bwd_entry"),
+    (ms, "mamba_scan", "mamba_scan_bwd_scratch", "_scratch_entry"),
     (rs, "rglru_scan", "rglru_scan_fwd", "_entry"),
     (rs, "rglru_scan", "rglru_scan_bwd", "_bwd_entry")])
 def test_ctypes_signatures_follow_the_scan_sources(monkeypatch, module, source, entry, getter):
