@@ -322,6 +322,25 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    batch from the same weights
    (gradients, metrics, and the parameters after a step where Adam's update
    is well-conditioned).
+11. Shardings and the dry run: (a) a process group of one rank over NCCL
+   and ``make_host_mesh()`` on the card; full-width, full-depth qwen2-0.5b
+   sharded by ``launch.steps.shard_model`` (DTensor parameters, the batch
+   and caches placed by the resolved specs) takes SHARD_STEPS AdamW steps
+   (8 x 512 tokens, remat, f32) against an unsharded copy from the same
+   weights, then prefills 8 x 512 tokens and takes one serve step: the
+   loss, every parameter after each step, the prefill's and the decode
+   step's logits equal bit for bit (else the largest difference relative
+   to each leaf's largest magnitude, within SHARD_TOL), and the launches of
+   flash_attention, flash_attention_bwd and flash_decode equal the
+   unsharded run's (the kernels ran on the local shards). (b) In
+   subprocesses started first and run beside (a), on the card's host and
+   without the card: ``python -m repro_torch.launch.dryrun`` for DRYRUN_COMBOS
+   (qwen2-0.5b x train_4k x single, its prefill_32k for (c), and the JAX
+   package's integration test's three combos), each ``ok`` with FLOPs,
+   collectives and seconds. (c) ``make_dryrun_tpu_env(["qwen2-0.5b",
+   "falcon-mamba-7b"])`` over those records builds its tables on the card
+   equal to the CPU's exactly; an A2C trained briefly on them decides
+   greedily, and a few ``env_step``s give finite rewards.
 7. Timing: each kernel at the main path's shapes beside its plain version,
    one PyTorch library call for the same function where there is one, and
    its bound; flash_attention and flash_decode also at recurrentgemma's
@@ -620,6 +639,19 @@ TRAIN_MLA_BATCH, TRAIN_MLA_SEQ, TRAIN_MLA_STEPS = 4, 512, 4
 TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 2, 64
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_MB_TOL = 1e-4, 1e-4, 1e-5
 TRAIN_MB_WELL, TRAIN_MB_PARAM_TOL = 1e-4, 1e-6
+# the sharded path (phase 11): TRAIN_ARCH sharded at world size 1, SHARD_STEPS
+# AdamW steps of TRAIN_BATCH x TRAIN_SEQ tokens beside the unsharded ones, a
+# prefill and one serve step; a difference that is not bit for bit must stay
+# within SHARD_TOL of each leaf's largest magnitude
+SHARD_STEPS, SHARD_TOL = 2, 1e-6
+# the dry runs of phase 11 (arch, shape, mesh), each in its own process on
+# the card's host: qwen2's train and prefill (the env's calibration shape)
+# on the single mesh, and the JAX package's integration test's three
+DRYRUN_COMBOS = (("qwen2-0.5b", "train_4k", "single"), ("qwen2-0.5b", "prefill_32k", "single"),
+                 ("qwen2-0.5b", "decode_32k", "single"), ("qwen2-0.5b", "long_500k", "multi"),
+                 ("falcon-mamba-7b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT_S = 300
+SHARD_A2C_UPDATES, SHARD_ENV_STEPS = 10, 4
 # H100 SXM dense TF32 tensor-core rate; 3xTF32 runs three TF32 products for
 # each f32 product
 PEAK_3XTF32 = 495e12 / 3
@@ -4205,6 +4237,253 @@ def train_microbatches(dev):
     _free()
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _start_dryruns(out_dir):
+    """DRYRUN_COMBOS' dry runs, one process each, without the card (they
+    count shapes on the CPU), their output in a log beside their records:
+    [(combo, its records file, the process)]."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    out = []
+    for arch, shape, mesh in DRYRUN_COMBOS:
+        path = out_dir / f"dryrun_{arch}_{shape}_{mesh}.jsonl"
+        path.unlink(missing_ok=True)
+        with open(path.with_suffix(".log"), "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                 shape, "--mesh", mesh, "--out", str(path)], cwd=ROOT, env=env,
+                stdout=log, stderr=subprocess.STDOUT)
+        out.append(((arch, shape, mesh), path, proc))
+    return out
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _same(a, b):
+    """(bit for bit, the largest difference relative to b's largest
+    magnitude)."""
+    import torch
+    a, b = _full(a), _full(b)
+    if torch.equal(a, b):
+        return True, 0.0
+    return False, float(((a.double() - b.double()).abs().max()
+                         / b.double().abs().max().clamp_min(1e-30)))
+
+
+def _sharded_steps(dev):
+    """11a: the sharded train and serve steps at world size 1 against the
+    unsharded ones. Returns ({path: launches}, timing)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset, to_device
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import cache_axes, init, param_tree
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    mesh = make_host_mesh()
+    cfg = get_config(TRAIN_ARCH)
+    rules = sh.logical_rules(cfg, mesh)
+    ref = init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    model = st.shard_model(init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+                           mesh)
+    print(f"  {cfg.name}: {len(list(model.parameters()))} DTensor parameters on {mesh}")
+    opt = AdamWConfig(**{**TRAIN_OPT, "total_steps": SHARD_STEPS})
+    step = st.make_train_step(cfg, opt, remat=True)
+    ds = SyntheticLMDataset(cfg, DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    batches = [{k: v for k, v in to_device(ds.batch(i), dev).items() if k in ("tokens", "targets")}
+               for i in range(SHARD_STEPS)]
+    b_sh = sh.tree_shardings(mesh, st.batch_axes(cfg), batches[0], rules)
+    ref_state = adamw_init(param_tree(ref))
+    with st.on_mesh(model):
+        state = adamw_init(param_tree(model))
+    paths, timing = {}, {"train_ms": [], "sharded_train_ms": []}
+    for name, m, s_, key in (("unsharded", ref, ref_state, "train_ms"),
+                             ("sharded", model, state, "sharded_train_ms")):
+        _reset_counts()
+        losses = []
+        for b in batches:
+            b = b if name == "unsharded" else sh.distribute(b, b_sh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m, s_, met = step(m, s_, b)
+            torch.cuda.synchronize()
+            timing[key].append((time.perf_counter() - t0) * 1e3)
+            losses.append(_full(met["loss"]))
+        paths[f"{cfg.name} {name} train"] = _counts()
+        timing[f"{name}_losses"] = losses
+    same, worst = [], 0.0
+    for i in range(SHARD_STEPS):
+        eq, d = _same(timing["sharded_losses"][i], timing["unsharded_losses"][i])
+        same.append(eq)
+        worst = max(worst, d)
+    want, got = param_tree(ref), param_tree(model)
+    leaves_eq = 0
+    for k in want:
+        eq, d = _same(got[k], want[k])
+        leaves_eq += eq
+        worst = max(worst, d)
+    u, s_counts = paths[f"{cfg.name} unsharded train"], paths[f"{cfg.name} sharded train"]
+    kern = ("flash_attention", "flash_attention_bwd")
+    check(worst <= SHARD_TOL and all(u[k] == s_counts[k] > 0 for k in kern),
+          f"sharded train ({SHARD_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}) against "
+          f"unsharded: losses bit for bit {same}, {leaves_eq}/{len(want)} parameter leaves bit "
+          f"for bit, largest relative difference {worst:.3g} (limit {SHARD_TOL}); launches "
+          f"sharded {s_counts} unsharded {u}; ms a step sharded {_fmt(timing['sharded_train_ms'])}"
+          f" unsharded {_fmt(timing['train_ms'])}")
+    timing["train_worst"] = worst
+    timing["train_losses_bit_for_bit"] = all(same)
+    timing["train_leaves_bit_for_bit"] = leaves_eq
+    del timing["sharded_losses"], timing["unsharded_losses"]
+
+    prompt = batches[0]["tokens"]
+    dprompt = sh.distribute({"tokens": prompt}, sh.tree_shardings(
+        mesh, st.prefill_batch_axes(cfg), {"tokens": prompt}, rules))
+    pf, sv = st.make_prefill_step(cfg), st.make_serve_step(cfg)
+    out = {}
+    for name, m, b in (("unsharded", ref, {"tokens": prompt}), ("sharded", model, dprompt)):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = pf(m, b)
+        token = _full(logits).argmax(-1)
+        if name == "sharded":
+            token = sh.distribute(token, sh.tree_shardings(mesh, ("batch",), token, rules))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec, _ = sv(m, cache, token, TRAIN_SEQ)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out[name] = (logits, dec)
+        paths[f"{cfg.name} {name} serve"] = _counts()
+        timing[f"{name}_prefill_ms"] = (t1 - t0) * 1e3
+        timing[f"{name}_serve_ms"] = (t2 - t1) * 1e3
+    u, s_counts = paths[f"{cfg.name} unsharded serve"], paths[f"{cfg.name} sharded serve"]
+    eq_p, d_p = _same(out["sharded"][0], out["unsharded"][0])
+    eq_d, d_d = _same(out["sharded"][1], out["unsharded"][1])
+    check(max(d_p, d_d) <= SHARD_TOL
+          and all(u[k] == s_counts[k] > 0 for k in ("flash_attention", "flash_decode")),
+          f"sharded prefill ({TRAIN_BATCH} x {TRAIN_SEQ}) and serve step against unsharded: "
+          f"logits bit for bit {eq_p} / {eq_d}, largest relative difference {d_p:.3g} / "
+          f"{d_d:.3g} (limit {SHARD_TOL}); launches sharded {s_counts} unsharded {u}; prefill "
+          f"ms {timing['sharded_prefill_ms']:.1f} / {timing['unsharded_prefill_ms']:.1f}, serve "
+          f"step ms {timing['sharded_serve_ms']:.1f} / {timing['unsharded_serve_ms']:.1f} "
+          f"(sharded / unsharded)")
+    timing["serve_worst"] = max(d_p, d_d)
+    timing["cache_placements"] = str(next(iter(cache.values()))["blk"]["k"].placements)
+    return paths, timing
+
+
+def _check_dryruns(runs, results):
+    """11b: each dry run exited 0 with an ok record; their records joined
+    into ``results``. Returns {combo: seconds}."""
+    seconds = {}
+    lines = []
+    for combo, path, proc in runs:
+        try:
+            proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log = path.with_suffix(".log").read_text()
+        recs = [json.loads(x) for x in path.read_text().splitlines()] if path.exists() else []
+        rec = recs[-1] if recs else {}
+        ok = (proc.returncode == 0 and rec.get("status") == "ok" and rec.get("jaxpr_flops", 0) > 0
+              and "collectives" in rec)
+        seconds[" x ".join(combo)] = rec.get("total_s")
+        check(ok, f"dry run {' x '.join(combo)}: exit {proc.returncode}, status "
+                  f"{rec.get('status')}, {rec.get('devices')} devices, "
+                  f"{rec.get('jaxpr_flops', 0):.4g} FLOPs, "
+                  f"collectives {json.dumps(rec.get('collectives'))}, "
+                  f"{rec.get('argument_size_in_bytes')} argument bytes a device, "
+                  f"{rec.get('total_s')} s"
+                  + ("" if ok else f"; {rec.get('error', '')[:300]} {log[-1500:]}"))
+        lines += [json.dumps(r) for r in recs]
+    results.write_text("".join(x + "\n" for x in lines))
+    return seconds
+
+
+def _priced_env(dev, results):
+    """11c: the EdgeRL env priced from the dry run's records, on the card
+    and on the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.core import (A2CConfig, decide, env_reset, env_step, make_dryrun_tpu_env,
+                                  train_agent)
+    from repro_torch.core.roofline_env import _load_records
+    archs = ["qwen2-0.5b", "falcon-mamba-7b"]
+    env_cfg, tables = make_dryrun_tpu_env(archs, results=str(results), device=dev)
+    _, cpu_tables = make_dryrun_tpu_env(archs, results=str(results), device="cpu")
+    arrays = [f.name for f in dataclasses.fields(tables)
+              if isinstance(getattr(tables, f.name), torch.Tensor)]
+    calibrated = sorted(a for a, s in _load_records(str(results)) if s == "prefill_32k")
+    check(tables.device == dev and all(
+        torch.equal(getattr(tables, k).cpu(), getattr(cpu_tables, k)) for k in arrays)
+        and calibrated == ["qwen2-0.5b"],
+        f"make_dryrun_tpu_env({archs}) tables on the card equal the CPU's exactly "
+        f"({tables.n_versions} versions x {tables.n_cuts} cuts; calibrated to the dry run: "
+        f"{calibrated}, analytic: falcon-mamba-7b)")
+    agent, hist = train_agent(env_cfg, tables, A2CConfig(episodes=SHARD_A2C_UPDATES,
+                                                         batch_envs=4), seed=0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    state = env_reset(env_cfg, tables, gen)
+    rewards, chosen = [], []
+    for _ in range(SHARD_ENV_STEPS):
+        actions = decide(agent, env_cfg, tables, state)
+        valid = bool(tables.version_valid[state["model_id"], actions[:, 0]].all())
+        state, reward, _ = env_step(env_cfg, tables, state, actions, gen)
+        rewards.append(float(reward.sum()))
+        chosen.append((actions.cpu().tolist(), valid))
+    check(all(math.isfinite(r) for r in rewards) and all(v for _, v in chosen)
+          and all(math.isfinite(h["loss"]) for h in hist),
+          f"A2C ({SHARD_A2C_UPDATES} updates) decides greedily on the priced env: actions "
+          f"{[a for a, _ in chosen]}, rewards {_fmt(rewards)}")
+    return rewards
+
+
+def phase_sharded(dev, smi):
+    """Phase 11: the sharded steps at world size 1 on the card (11a), the
+    dry runs on its host (11b, started first and run beside 11a), the env
+    priced from their records (11c). Returns ({path: launches}, timing)."""
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    print(f"== 11. shardings and the dry run: full-width {TRAIN_ARCH} sharded at world size 1 "
+          f"(NCCL), {len(DRYRUN_COMBOS)} dry runs on the host, the env priced from them")
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs = _start_dryruns(out_dir)
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                                rank=0, world_size=1, device_id=dev)
+        paths, timing = _sharded_steps(dev)
+        timing["sharded_steps_s"] = time.perf_counter() - t_phase
+        results = out_dir / "dryrun.jsonl"
+        timing["dryrun_s"] = _check_dryruns(runs, results)
+        timing["env_rewards"] = _priced_env(dev, results)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for _, _, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    _free()
+    timing["seconds"] = time.perf_counter() - t_phase
+    timing["card"] = smi
+    print(f"  phase 11: {timing['seconds']:.1f} s")
+    return paths, timing
+
+
 def _bwd_kernel_ms(fa, args, iters=10):
     """Device ms a call of the backward's kernels, by kernel (the delta
     pre-pass, dK/dV, the reduce pass, dQ; the reduce 0 where no key tile is
@@ -4981,6 +5260,7 @@ def main() -> int:
     families.update({arch: phase_family(dev, arch) for arch in FAMILIES if arch != FM_ARCH})
     train_launches, mla_train_launches, scan_train_launches, train_timing = phase_train(dev, smi)
     fm_train, rg_train = (scan_train_launches[arch] for arch, _ in TRAIN_SCAN_ARCHS)
+    shard_paths, shard_timing = phase_sharded(dev, smi)
 
     kernels = phase_timing(dev, qmm_err, ms_err, rs_err, fa_bwd_err, ms_bwd_err, rs_bwd_err, {
         **{k: launches[k] + loop_launches[k] + fleet_launches[k] + drift_launches[k]
@@ -5005,6 +5285,7 @@ def main() -> int:
                 for arch, layers in TRAIN_SCAN_ARCHS}}
     for arch, d in families.items():
         paths.update({f"{arch} split": d["split"], f"{arch} decode": d["decode"]})
+    paths.update(shard_paths)
     for kern in kernels:
         kern["launches_by_path"] = {p: n.get(kern["name"], 0) for p, n in paths.items()}
 
@@ -5024,6 +5305,7 @@ def main() -> int:
     print("simulate CLI: " + json.dumps(cli_timing))
     print("simulate CLI (deepseek-v2-lite-16b): " + json.dumps(cli_mla_timing))
     print(f"{TRAIN_ARCH} training: " + json.dumps(train_timing))
+    print("shardings and the dry run: " + json.dumps(shard_timing))
     for arch, d in families.items():
         B, S = FAMILIES[arch]["split"]
         print(f"{arch} per-infer ms (median of 3), {B} x {S} tokens: " + json.dumps(

@@ -2,8 +2,8 @@
 transformer), the single cost core (pricing: Eqs. 1-5 and 9-11 under torch
 and numpy), the EdgeEnv MDP (Eq. 6-7), reward aggregation (Eq. 8), the
 A2C agent (Sec. II-C, batched over parallel envs) and the PPO ablation,
-the centralized controller (Sec. II-D) and cut-point partitioning of the
-models."""
+the centralized controller (Sec. II-D), cut-point partitioning of the
+models, and the env priced from the dry run's records (roofline_env)."""
 from repro_torch.core import partition
 from repro_torch.core.env import (OBS_FEATURES, EnvConfig, ProfileTables,
                                   action_breakdown, build_tables, env_reset,
@@ -18,6 +18,7 @@ from repro_torch.core.controller import (make_paper_env, make_tpu_env,
                                          make_task_sampler, measured_state,
                                          resolve_selection, train_agent,
                                          evaluate_policy, decide)
+from repro_torch.core.roofline_env import make_dryrun_tpu_env
 
 __all__ = [
     "OBS_FEATURES", "EnvConfig", "ProfileTables", "build_tables",
@@ -27,5 +28,5 @@ __all__ = [
     "train", "init_agent", "make_train_episode", "paper_profiles",
     "transformer_profile", "make_paper_env", "make_tpu_env",
     "make_task_sampler", "measured_state", "resolve_selection",
-    "train_agent", "evaluate_policy", "decide", "partition",
+    "train_agent", "evaluate_policy", "decide", "partition", "make_dryrun_tpu_env",
 ]

@@ -42,10 +42,10 @@ def plan_agent(cfg, tables, ac) -> Dict[str, P]:
     h1, h2, hu = ac.hidden1, ac.hidden2, ac.uav_head
 
     def dense(i, o):
-        return {"w": P((i, o)), "b": P((o,), "zeros")}
+        return {"w": P((i, o), (None, None)), "b": P((o,), (None,), "zeros")}
 
     def per_uav(i, o):
-        return {"w": P((n, i, o)), "b": P((n, o), "zeros")}
+        return {"w": P((n, i, o), (None, None, None)), "b": P((n, o), (None, None), "zeros")}
 
     plan = {
         "actor": {"l1": dense(obs, h1), "l2": dense(h1, h2),

@@ -303,7 +303,8 @@ def build_quant_versions(cfg, per_layer, *, seq_len: int,
                          flops_scale: float = 1.0
                          ) -> Tuple[VersionProfile, ...]:
     """One VersionProfile per quant-registry entry, derived from the real
-    quantized execution path:
+    quantized execution path (shared by transformer_profile and
+    repro_torch.core.roofline_env.dryrun_profile):
 
       accuracy     — baseline degraded by the version's measured
                      quantization error (quant.versions.accuracy_proxy)

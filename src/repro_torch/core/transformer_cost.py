@@ -139,3 +139,26 @@ def block_dense_flops(cfg: ModelConfig) -> List[float]:
                 cfg, cfg.d_ff if cfg.d_ff else 4 * cfg.d_model)
             out.append(_attn_proj_flops(cfg) + mlp)
     return out
+
+
+def active_params(cfg: ModelConfig) -> float:
+    """Parameter count with only the active MoE experts (for 6*N_active*D)."""
+    from repro_torch.models.params import n_params
+    total = float(n_params(cfg))
+    if not cfg.moe:
+        return total
+    n_moe_layers = cfg.n_layers - cfg.first_dense_layers
+    expert_params = 3.0 * cfg.d_model * cfg.moe_d_ff * cfg.n_experts \
+        * n_moe_layers
+    active_frac = cfg.top_k / cfg.n_experts
+    return total - expert_params * (1.0 - active_frac)
+
+
+def model_flops(cfg: ModelConfig, kind: str, batch: int, seq: int) -> float:
+    """MODEL_FLOPS of the roofline: 6*N*D to train, 2*N*D to infer."""
+    n = active_params(cfg)
+    if kind == "train":
+        return 6.0 * n * batch * seq
+    if kind == "prefill":
+        return 2.0 * n * batch * seq
+    return 2.0 * n * batch          # decode: one token per sequence

@@ -3,12 +3,14 @@
 A CUDA tensor goes to the hand-written kernel, always: a kernel that does
 not build or launch raises. A CPU tensor goes to the kernel's plain
 PyTorch version. There is no switch that turns the kernels off on the card.
+A DTensor (a sharded model's) goes to ``kernels.sharded``, which calls back
+here with its local shards.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, sharded
 from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.mamba_scan import MambaScanFn, mamba_scan
@@ -23,7 +25,10 @@ def quantized_dense(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     w8a8 leaves quantize the activations per row and run the int8 x int8
     product; weight-only leaves (w8wo, packed w4) dequantize to f32 and use
     the plain matmul, as the JAX package does (it has no kernel for them).
+    A DTensor x runs on its row shards against the whole weight.
     """
+    if sharded.is_dtensor(x):
+        return sharded.rows_call(x, lambda xl: quantized_dense(xl, w))
     if w.act_bits == 8 and w.bits == 8:
         xq, xs = quantize_act(x)
         lead = x.shape[:-1]
@@ -47,6 +52,9 @@ def attention_bhsd(q, k, v, *, causal=True, window=None, logit_scale=None):
     log-sum-exp and, in the backward, the backward kernel; otherwise the
     forward kernel alone. On the CPU autograd differentiates the plain
     version."""
+    if sharded.is_dtensor(q):
+        return sharded.attention(q, k, v, lambda ql, kl, vl: attention_bhsd(
+            ql, kl, vl, causal=causal, window=window, logit_scale=logit_scale))
     if q.is_cuda:
         if _under_grad(q, k, v):
             return FlashAttentionFn.apply(q, k, v, causal, window, logit_scale)
@@ -61,6 +69,9 @@ def decode_attention(q_bhd, k_cache, v_cache, pos, *, window=None,
     """Single-token ring-cache attention. q: (B,H,Dh); caches (B,HK,C,Dh);
     pos: host int. The flash decode kernel on CUDA, its plain version on
     the CPU."""
+    if sharded.is_dtensor(q_bhd):
+        return sharded.attention(q_bhd, k_cache, v_cache, lambda ql, kl, vl: (
+            decode_attention(ql, kl, vl, pos, window=window, logit_scale=logit_scale)))
     if q_bhd.is_cuda:
         return flash_decode(q_bhd, k_cache, v_cache, pos, window=window,
                             logit_scale=logit_scale)
@@ -75,7 +86,13 @@ def mamba_scan_full(u, dt, Bm, Cm, a_log, d_skip):
     under autograd ``MambaScanFn`` runs the forward kernel with its
     chunk-start states and, in the backward, the backward kernel; otherwise
     the forward kernel alone. On the CPU autograd differentiates the plain
-    version. Returns (y + u * d_skip in u's dtype, h_final (B, DI, N) f32)."""
+    version. Returns (y + u * d_skip in u's dtype, h_final (B, DI, N) f32).
+    DTensor operands run on their batch or channel shards."""
+    if any(sharded.is_dtensor(t) for t in (u, dt, Bm, Cm, a_log, d_skip)):
+        return sharded.channel_scan(
+            (u, dt), (a_log, d_skip), (Bm, Cm),
+            lambda s, c, r: mamba_scan_full(s[0], s[1], r[0], r[1], c[0], c[1]),
+            ({0: 0, 2: 2}, {0: 0, 2: 1}))
     A = -torch.exp(a_log.to(torch.float32))
     uf = u.to(torch.float32)
     if uf.is_cuda:
@@ -93,7 +110,10 @@ def rglru_scan_full(a, gx):
     (B, S, W) f32. The scan kernel on CUDA, its plain version on the CPU. On
     CUDA under autograd ``RglruScanFn`` runs the forward kernel and, in the
     backward, the backward kernel. Returns (h_seq (B, S, W) f32, h_last (B,
-    W) f32)."""
+    W) f32). DTensor operands run on their batch or channel shards."""
+    if sharded.is_dtensor(a) or sharded.is_dtensor(gx):
+        return sharded.channel_scan((a, gx), (), (), lambda s, c, r: rglru_scan_full(*s),
+                                    ({0: 0, 2: 2}, {0: 0, 2: 1}))
     if a.is_cuda:
         if _under_grad(a, gx):
             return RglruScanFn.apply(a, gx)

@@ -7,6 +7,7 @@ package, and ``chip_smoke.py`` holds each kernel against them on the card.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None,
@@ -128,12 +129,23 @@ def mamba_scan_ref(u, dt, Bm, Cm, A, h0=None):
     h <- exp(dt * A) * h + (dt * u) (x) B, then y_t = sum_n h * C_t. No
     D-skip (``ops.mamba_scan_full`` adds it). Returns (y (B, S, DI) in u's
     dtype, h_final (B, DI, N) f32). f64 inputs run in f64 (the backward's
-    oracle)."""
+    oracle).
+
+    Under ``FakeTensorMode`` (shapes only, no values: the dry run) the S
+    steps run as one step over all S positions at once: the loop body's
+    ops on S-fold shapes, so an op count sees the loop's forward op for op
+    (and its backward's products; the per-step reductions of the backward
+    once), where a trace step by step dispatches S times a layer's ops one
+    by one (4096 and 32768 positions at falcon-mamba's shapes)."""
     B, S, DI = u.shape
     f = _acc(u)
     uf, dtf = u.to(f), dt.to(f)
     h = (torch.zeros((B, DI, A.shape[1]), dtype=f, device=u.device)
          if h0 is None else h0.to(f))
+    if isinstance(uf, FakeTensor):
+        dA = torch.exp(dtf[..., None] * A)                          # (B, S, DI, N)
+        hs = dA * h[:, None] + (dtf * uf)[..., None] * Bm[:, :, None, :]
+        return torch.einsum("bsdn,bsn->bsd", hs, Cm).to(u.dtype), hs[:, -1]
     ys = []
     for t in range(S):
         dA = torch.exp(dtf[:, t, :, None] * A)                   # (B, DI, N)

@@ -24,9 +24,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, sharded
 from repro_torch.models import attention_core as ac
-from repro_torch.models.layers import Dense, apply_norm, apply_rope
+from repro_torch.models.layers import Dense, apply_norm, apply_rope, dense
 
 MODES = ("train", "prefill", "decode")
 
@@ -44,7 +44,9 @@ def slot_positions(pos: int, cache_len: int, device=None) -> torch.Tensor:
 
 def ring_write_step(buf: torch.Tensor, val: torch.Tensor, pos: int) -> torch.Tensor:
     """Write one timestep val (B, ...) at slot pos % C of buf (B, C, ...),
-    in place; returns buf."""
+    in place; returns buf. A sharded ring is written shard by shard."""
+    if sharded.is_dtensor(buf):
+        return sharded.ring_write(buf, val, pos % buf.shape[1])
     buf[:, pos % buf.shape[1]] = val
     return buf
 
@@ -52,7 +54,9 @@ def ring_write_step(buf: torch.Tensor, val: torch.Tensor, pos: int) -> torch.Ten
 def ring_from_prefill(seq_vals: torch.Tensor, cache_len: int) -> torch.Tensor:
     """Build a ring buffer from prefill values (B, S, ...): keep the last
     ``cache_len`` positions, placed at their ``p % cache_len`` slots. A new
-    tensor in every case."""
+    tensor in every case. A sharded one is built shard by shard."""
+    if sharded.is_dtensor(seq_vals):
+        return sharded.along_dim1(seq_vals, lambda t: ring_from_prefill(t, cache_len))
     S = seq_vals.shape[1]
     if S <= cache_len:
         pad = [0, 0] * (seq_vals.dim() - 2) + [0, cache_len - S]
@@ -105,7 +109,7 @@ class SelfAttention(nn.Module):
         q, k, v = self.wq(x), self.wk(x), self.wv(x)
         if self.bq is not None:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q, k, v = q.view(B, S, H, Dh), k.view(B, S, HK, Dh), v.view(B, S, HK, Dh)
+        q, k, v = (sharded.split_last(t, n, Dh) for t, n in ((q, H), (k, HK), (v, HK)))
         if self.q_norm is not None:
             q, k = apply_norm(q, self.q_norm), apply_norm(k, self.k_norm)
         positions = pos0 + torch.arange(S, device=x.device)
@@ -171,18 +175,17 @@ class CrossAttention(nn.Module):
         q = self.wq(x)
         if self.bq is not None:
             q = q + self.bq
-        q = q.view(B, S, H, Dh)
+        q = sharded.split_last(q, H, Dh)
         if kv_src is None:
             if cache is None:
                 raise ValueError("cross-attention needs kv_src or a cache of xk, xv")
             k, v = cache["xk"], cache["xv"]
         else:
-            Skv = kv_src.shape[1]
-            k = self.wk(kv_src).view(B, Skv, HK, Dh)
+            k = sharded.split_last(self.wk(kv_src), HK, Dh)
             v = self.wv(kv_src)
             if self.bv is not None:
                 v = v + self.bv
-            v = v.view(B, Skv, HK, Dh)
+            v = sharded.split_last(v, HK, Dh)
             cache = {"xk": k, "xv": v}
         Skv = k.shape[1]
         if mode == "decode":
@@ -236,8 +239,8 @@ class MLAttention(nn.Module):
         """Per-head k (..., H, nope + rope) and v (..., H, vd) from the latent
         ckv (..., R) and the shared key krope (..., 1, rope)."""
         H, lead = self.n_heads, ckv.shape[:-1]
-        k_nope = (ckv @ self.w_uk).view(*lead, H, self.nope)
-        v = (ckv @ self.w_uv).view(*lead, H, self.v_dim)
+        k_nope = sharded.split_last(dense(ckv, self.w_uk), H, self.nope)
+        v = sharded.split_last(dense(ckv, self.w_uv), H, self.v_dim)
         k = torch.cat([k_nope, krope.expand(*lead, H, self.rope)], dim=-1)
         return k, v
 
@@ -257,12 +260,12 @@ class MLAttention(nn.Module):
         H, nope, rope, vd, R = self.n_heads, self.nope, self.rope, self.v_dim, self.rank
         positions = pos0 + torch.arange(S, device=x.device)
 
-        q = self.wq(x).view(B, S, H, nope + rope)
+        q = sharded.split_last(self.wq(x), H, nope + rope)
         q_nope = q[..., :nope]
         q_rope = apply_rope(q[..., nope:], positions, self.rope_theta)
         q = torch.cat([q_nope, q_rope], dim=-1)
 
-        dkv = x @ self.w_dkv                                     # (B, S, R + rope)
+        dkv = dense(x, self.w_dkv)                               # (B, S, R + rope)
         ckv = apply_norm(dkv[..., :R], self.kv_norm)
         krope = apply_rope(dkv[..., R:][:, :, None, :], positions,
                            self.rope_theta)                      # (B, S, 1, rope)
@@ -275,14 +278,15 @@ class MLAttention(nn.Module):
             new_cache = {"ckv": ckv_c, "krope": kr_c}
             kv_pos = slot_positions(pos0, ckv_c.shape[1], device=x.device)
             if self.absorb:
-                q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, self.w_uk.view(R, H, nope))
+                q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope,
+                                     sharded.split_last(self.w_uk, H, nope))
                 q_cat = torch.cat([q_lat, q_rope], dim=-1)          # (B, 1, H, R + rope)
                 k_cat = torch.cat([ckv_c, kr_c], dim=-1)[:, :, None, :]   # (B, C, 1, R + rope)
                 out_lat = ac.plain_attention(
                     q_cat, k_cat, ckv_c[:, :, None, :], q_positions=positions,
                     kv_positions=kv_pos, causal=True, window=self.window,
                     logit_scale=scale)                              # (B, 1, H, R)
-                out = torch.einsum("bqhr,rhv->bqhv", out_lat, self.w_uv.view(R, H, vd))
+                out = torch.einsum("bqhr,rhv->bqhv", out_lat, sharded.split_last(self.w_uv, H, vd))
             else:
                 k, v = self._expand(ckv_c, kr_c[:, :, None, :])
                 out = ac.plain_attention(q, k, v, q_positions=positions,

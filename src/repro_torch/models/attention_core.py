@@ -11,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, sharded
 
 NEG_INF = -1e30
 
@@ -28,6 +28,16 @@ def _mask(qp, kp, *, causal: bool, window: Optional[int]):
 
 def plain_attention(q, k, v, *, q_positions, kv_positions, causal=True,
                     window=None, logit_scale=None):
+    if sharded.is_dtensor(q):
+        # on local shards, heads on dim 1 as the kernels take them
+        qp, kp = (p.full_tensor() if sharded.is_dtensor(p) else p
+                  for p in (q_positions, kv_positions))
+        return sharded.attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            lambda ql, kl, vl: plain_attention(
+                ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2), q_positions=qp,
+                kv_positions=kp, causal=causal, window=window,
+                logit_scale=logit_scale).transpose(1, 2)).transpose(1, 2)
     B, Sq, H, Dh = q.shape
     HK = k.shape[2]
     G = H // HK

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, sharded
 from repro_torch.quant.quantize import QTensor
 
 
@@ -20,6 +20,8 @@ def dense(x: torch.Tensor, w: Union[torch.Tensor, QTensor]) -> torch.Tensor:
     ``ops.quantized_dense``."""
     if isinstance(w, QTensor):
         return ops.quantized_dense(x, w)
+    if sharded.is_dtensor(w):
+        return sharded.dense(x, w)
     return x @ w
 
 

@@ -50,8 +50,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import sharded
 from repro_torch.models.blocks import build_block
-from repro_torch.models.layers import Dense, build_norm, sinusoidal_positions
+from repro_torch.models.layers import Dense, build_norm, dense, sinusoidal_positions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,7 +269,11 @@ class CausalLM(nn.Module):
         the hybrid family); an audio model adds the sinusoidal positions of
         ``pos0 .. pos0 + S - 1`` (no RoPE)."""
         cfg = self.cfg
-        x = F.embedding(tokens, self.tok_embed).to(cfg.cdtype)
+        if sharded.is_dtensor(self.tok_embed):
+            x = sharded.embedding(tokens, self.tok_embed)
+        else:
+            x = F.embedding(tokens, self.tok_embed)
+        x = x.to(cfg.cdtype)
         if self.embed_scale is not None:
             x = x * self.embed_scale
         if cfg.enc_dec:
@@ -304,7 +309,7 @@ class CausalLM(nn.Module):
         ``Dense`` leaf that w8/w4 quantize (w8 runs it through
         ``quant_matmul``)."""
         if self.lm_head is None:
-            return h @ self.tok_embed.to(h.dtype).T
+            return dense(h, self.tok_embed.to(h.dtype).T)
         return self.lm_head(h)
 
     def _trunk(self, x: torch.Tensor, *, mode: str, pos0: int = 0,
@@ -400,7 +405,10 @@ def lm_loss(cfg: ModelConfig, model: CausalLM, h: torch.Tensor,
         tc = targets[:, c0:c0 + chunk].long()
         logits = model.head(h[:, c0:c0 + chunk]).to(torch.float32)
         lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, tc.clamp_min(0)[..., None])[..., 0]
+        if sharded.is_dtensor(logits):
+            tgt = sharded.pick_last(logits, tc.clamp_min(0))
+        else:
+            tgt = logits.gather(-1, tc.clamp_min(0)[..., None])[..., 0]
         mask = (tc >= 0).to(torch.float32)
         loss_sum = loss_sum + ((lse - tgt) * mask).sum()
         count = count + mask.sum()

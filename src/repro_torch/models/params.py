@@ -28,10 +28,15 @@ from repro_torch.models.rglru import LRU_C
 @dataclasses.dataclass(frozen=True)
 class P:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # one logical axis name (or None) a dim
     init: str = "fan_in"  # fan_in | zeros | ones | normal | constant | s4d_real | lru_lam
     scale: Optional[float] = None    # stddev: required by "normal", overrides fan-in
     value: float = 0.0               # the fill of "constant"
     dtype: Optional[str] = None      # overrides cfg.param_dtype
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
 
 
 def _ssm_block_plan(cfg: ModelConfig) -> Dict[str, P]:
@@ -40,15 +45,15 @@ def _ssm_block_plan(cfg: ModelConfig) -> Dict[str, P]:
     n, r, k = cfg.ssm_state, cfg.resolved_dt_rank, cfg.ssm_conv
     return {
         **_norm_plan(cfg, "norm"),
-        "ssm/in_proj": P((d, 2 * di)),
-        "ssm/conv_w": P((k, di), "normal", 0.1),
-        "ssm/conv_b": P((di,), "zeros"),
-        "ssm/x_proj": P((di, r + 2 * n)),
-        "ssm/dt_proj": P((r, di), scale=r ** -0.5),
-        "ssm/dt_bias": P((di,), "constant", value=-4.6),
-        "ssm/a_log": P((di, n), "s4d_real", dtype="float32"),
-        "ssm/d_skip": P((di,), "ones", dtype="float32"),
-        "ssm/out_proj": P((di, d)),
+        "ssm/in_proj": P((d, 2 * di), ("embed", "inner")),
+        "ssm/conv_w": P((k, di), (None, "inner"), "normal", 0.1),
+        "ssm/conv_b": P((di,), ("inner",), "zeros"),
+        "ssm/x_proj": P((di, r + 2 * n), ("inner", None)),
+        "ssm/dt_proj": P((r, di), (None, "inner"), scale=r ** -0.5),
+        "ssm/dt_bias": P((di,), ("inner",), "constant", value=-4.6),
+        "ssm/a_log": P((di, n), ("inner", None), "s4d_real", dtype="float32"),
+        "ssm/d_skip": P((di,), ("inner",), "ones", dtype="float32"),
+        "ssm/out_proj": P((di, d), ("inner", "embed")),
     }
 
 
@@ -57,16 +62,16 @@ def _rec_block_plan(cfg: ModelConfig) -> Dict[str, P]:
     d, w, k = cfg.d_model, cfg.resolved_lru_width, cfg.ssm_conv
     return {
         **_norm_plan(cfg, "norm1"),
-        "rec/w_gate_branch": P((d, w)),
-        "rec/w_rec_branch": P((d, w)),
-        "rec/conv_w": P((k, w), "normal", 0.1),
-        "rec/conv_b": P((w,), "zeros"),
-        "rec/w_a": P((w, w), scale=w ** -0.5),
-        "rec/b_a": P((w,), "zeros"),
-        "rec/w_x": P((w, w), scale=w ** -0.5),
-        "rec/b_x": P((w,), "zeros"),
-        "rec/lam": P((w,), "lru_lam", dtype="float32"),
-        "rec/w_out": P((w, d)),
+        "rec/w_gate_branch": P((d, w), ("embed", "lru")),
+        "rec/w_rec_branch": P((d, w), ("embed", "lru")),
+        "rec/conv_w": P((k, w), (None, "lru"), "normal", 0.1),
+        "rec/conv_b": P((w,), ("lru",), "zeros"),
+        "rec/w_a": P((w, w), ("lru", None), scale=w ** -0.5),
+        "rec/b_a": P((w,), (None,), "zeros"),
+        "rec/w_x": P((w, w), ("lru", None), scale=w ** -0.5),
+        "rec/b_x": P((w,), (None,), "zeros"),
+        "rec/lam": P((w,), (None,), "lru_lam", dtype="float32"),
+        "rec/w_out": P((w, d), ("lru", "embed")),
         **_norm_plan(cfg, "norm2"),
         **_mlp_plan(cfg),
     }
@@ -74,9 +79,9 @@ def _rec_block_plan(cfg: ModelConfig) -> Dict[str, P]:
 
 def _norm_plan(cfg: ModelConfig, name: str) -> Dict[str, P]:
     """A norm's leaves (``plan_norm``): scale, and a bias for a layernorm."""
-    plan = {f"{name}/scale": P((cfg.d_model,), "ones")}
+    plan = {f"{name}/scale": P((cfg.d_model,), (None,), "ones")}
     if cfg.norm == "layernorm":
-        plan[f"{name}/bias"] = P((cfg.d_model,), "zeros")
+        plan[f"{name}/bias"] = P((cfg.d_model,), (None,), "zeros")
     return plan
 
 
@@ -86,11 +91,13 @@ def _mlp_plan(cfg: ModelConfig, bias: bool = False, prefix: str = "mlp",
     SwiGLU and GeGLU, w_up alone for the plain gelu MLP; b_up and b_down
     with ``bias``; hidden width ``d_ff`` (default ``cfg.d_ff``)."""
     d, f = cfg.d_model, d_ff if d_ff is not None else cfg.d_ff
-    plan = {f"{prefix}/w_up": P((d, f)), f"{prefix}/w_down": P((f, d))}
+    plan = {f"{prefix}/w_up": P((d, f), ("embed", "ff")),
+            f"{prefix}/w_down": P((f, d), ("ff", "embed"))}
     if cfg.mlp_act in ("swiglu", "geglu"):
-        plan[f"{prefix}/w_gate"] = P((d, f))
+        plan[f"{prefix}/w_gate"] = P((d, f), ("embed", "ff"))
     if bias:
-        plan.update({f"{prefix}/b_up": P((f,), "zeros"), f"{prefix}/b_down": P((d,), "zeros")})
+        plan.update({f"{prefix}/b_up": P((f,), ("ff",), "zeros"),
+                     f"{prefix}/b_down": P((d,), (None,), "zeros")})
     return plan
 
 
@@ -99,8 +106,10 @@ def _moe_plan(cfg: ModelConfig) -> Dict[str, P]:
     SwiGLU weights and, with ``n_shared_experts``, the shared experts' MLP
     of ``moe_d_ff * n_shared_experts``."""
     d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
-    plan = {"moe/router": P((d, E), scale=d ** -0.5),
-            "moe/w_gate": P((E, d, f)), "moe/w_up": P((E, d, f)), "moe/w_down": P((E, f, d))}
+    plan = {"moe/router": P((d, E), ("embed", "experts"), scale=d ** -0.5),
+            "moe/w_gate": P((E, d, f), ("experts", "embed", "ff")),
+            "moe/w_up": P((E, d, f), ("experts", "embed", "ff")),
+            "moe/w_down": P((E, f, d), ("experts", "ff", "embed"))}
     if cfg.n_shared_experts:
         plan.update(_mlp_plan(cfg, prefix="moe/shared", d_ff=f * cfg.n_shared_experts))
     return plan
@@ -113,12 +122,12 @@ def _mla_plan(cfg: ModelConfig) -> Dict[str, P]:
     d, H = cfg.d_model, cfg.n_heads
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     vd, R = cfg.v_head_dim, cfg.kv_lora_rank
-    return {"attn/wq": P((d, H * (nope + rope))),
-            "attn/w_dkv": P((d, R + rope)),
-            "attn/kv_norm": P((R,), "ones"),
-            "attn/w_uk": P((R, H * nope)),
-            "attn/w_uv": P((R, H * vd)),
-            "attn/wo": P((H * vd, d))}
+    return {"attn/wq": P((d, H * (nope + rope)), ("embed", "heads")),
+            "attn/w_dkv": P((d, R + rope), ("embed", None)),
+            "attn/kv_norm": P((R,), (None,), "ones"),
+            "attn/w_uk": P((R, H * nope), (None, "heads")),
+            "attn/w_uv": P((R, H * vd), (None, "heads")),
+            "attn/wo": P((H * vd, d), ("heads", "embed"))}
 
 
 def _self_attn_plan(cfg: ModelConfig) -> Dict[str, P]:
@@ -127,16 +136,19 @@ def _self_attn_plan(cfg: ModelConfig) -> Dict[str, P]:
     norms under ``qk_norm``."""
     d, Dh = cfg.d_model, cfg.resolved_head_dim
     H, HK = cfg.n_heads, cfg.n_kv_heads
-    plan = {"attn/wq": P((d, H * Dh)), "attn/wk": P((d, HK * Dh)),
-            "attn/wv": P((d, HK * Dh)), "attn/wo": P((H * Dh, d))}
+    plan = {"attn/wq": P((d, H * Dh), ("embed", "heads")),
+            "attn/wk": P((d, HK * Dh), ("embed", "kv_heads")),
+            "attn/wv": P((d, HK * Dh), ("embed", "kv_heads")),
+            "attn/wo": P((H * Dh, d), ("heads", "embed"))}
     if cfg.qkv_bias:
-        plan.update({"attn/bq": P((H * Dh,), "zeros"),
-                     "attn/bk": P((HK * Dh,), "zeros"),
-                     "attn/bv": P((HK * Dh,), "zeros")})
+        plan.update({"attn/bq": P((H * Dh,), ("heads",), "zeros"),
+                     "attn/bk": P((HK * Dh,), ("kv_heads",), "zeros"),
+                     "attn/bv": P((HK * Dh,), ("kv_heads",), "zeros")})
     if cfg.attn_bias:
-        plan["attn/bo"] = P((d,), "zeros")
+        plan["attn/bo"] = P((d,), (None,), "zeros")
     if cfg.qk_norm:
-        plan.update({"attn/q_norm": P((Dh,), "ones"), "attn/k_norm": P((Dh,), "ones")})
+        plan.update({"attn/q_norm": P((Dh,), (None,), "ones"),
+                     "attn/k_norm": P((Dh,), (None,), "ones")})
     return plan
 
 
@@ -146,11 +158,14 @@ def _cross_attn_plan(cfg: ModelConfig) -> Dict[str, P]:
     none)."""
     d, Dh = cfg.d_model, cfg.resolved_head_dim
     H, HK = cfg.n_heads, cfg.n_kv_heads
-    plan = {"xattn/wq": P((d, H * Dh)), "xattn/wk": P((d, HK * Dh)),
-            "xattn/wv": P((d, HK * Dh)), "xattn/wo": P((H * Dh, d))}
+    plan = {"xattn/wq": P((d, H * Dh), ("embed", "heads")),
+            "xattn/wk": P((d, HK * Dh), ("embed", "kv_heads")),
+            "xattn/wv": P((d, HK * Dh), ("embed", "kv_heads")),
+            "xattn/wo": P((H * Dh, d), ("heads", "embed"))}
     if cfg.attn_bias:
-        plan.update({"xattn/bq": P((H * Dh,), "zeros"), "xattn/bv": P((HK * Dh,), "zeros"),
-                     "xattn/bo": P((d,), "zeros")})
+        plan.update({"xattn/bq": P((H * Dh,), ("heads",), "zeros"),
+                     "xattn/bv": P((HK * Dh,), ("kv_heads",), "zeros"),
+                     "xattn/bo": P((d,), (None,), "zeros")})
     return plan
 
 
@@ -163,7 +178,7 @@ def _block_plan(cfg: ModelConfig, kind: str, moe: bool = False) -> Dict[str, P]:
     if kind == "xattn":
         # the gates start at zero, f32 whatever param_dtype is; the MLP has
         # no biases whatever attn_bias says
-        gate = P((1,), "zeros", dtype="float32")
+        gate = P((1,), (None,), "zeros", dtype="float32")
         return {**_norm_plan(cfg, "norm1"), **_cross_attn_plan(cfg), "gate_attn": gate,
                 **_norm_plan(cfg, "norm2"), **_mlp_plan(cfg), "gate_mlp": gate}
     plan = {
@@ -182,27 +197,46 @@ def _block_plan(cfg: ModelConfig, kind: str, moe: bool = False) -> Dict[str, P]:
 
 def _stack_plans(cfg: ModelConfig, defs, prefix: str) -> Dict[str, P]:
     """The leaves of the stacks ``defs`` under ``<prefix>/<stack>/<sub>/``,
-    each with the stack's steps, and a repeated sub's repeat, in front."""
+    each with the stack's steps, and a repeated sub's repeat, in front, on
+    "layers" axes."""
     plan = {}
     for s in defs:
         for sub in s.subs:
             lead = (s.length,) if sub.repeat == 1 else (s.length, sub.repeat)
             for path, p in _block_plan(cfg, sub.kind, sub.moe).items():
                 plan[f"{prefix}/{s.name}/{sub.name}/{path}"] = dataclasses.replace(
-                    p, shape=lead + p.shape)
+                    p, shape=lead + p.shape, axes=("layers",) * len(lead) + p.axes)
     return plan
 
 
 def plan_model(cfg: ModelConfig) -> Dict[str, P]:
     """{leaf path: P}, in the JAX package's (sorted) flattening order."""
-    plan = {"tok_embed": P((cfg.vocab_size, cfg.d_model), "normal", 0.01),
+    plan = {"tok_embed": P((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), "normal", 0.01),
             **_norm_plan(cfg, "final_norm"), **_stack_plans(cfg, stack_defs(cfg), "stacks")}
     if not cfg.tie_embeddings:
-        plan["lm_head"] = P((cfg.d_model, cfg.vocab_size))
+        plan["lm_head"] = P((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     if cfg.enc_dec:
         plan.update({**_norm_plan(cfg, "enc_norm"),
                      **_stack_plans(cfg, enc_stack_defs(cfg), "enc_stacks")})
     return dict(sorted(plan.items()))
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """{leaf path: logical axes}: the reference's ``param_axes`` flattened
+    to its leaf paths."""
+    return {path: p.axes for path, p in plan_model(cfg).items()}
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """{leaf path: tensor on the meta device}: each leaf's shape and dtype,
+    nothing allocated (the reference's ``abstract_params``)."""
+    return {path: torch.empty(p.shape, dtype=_leaf_dtype(cfg, p), device="meta")
+            for path, p in plan_model(cfg).items()}
+
+
+def n_params(cfg: ModelConfig) -> int:
+    """The number of parameters of ``cfg``'s plan."""
+    return sum(int(np.prod(p.shape)) for p in plan_model(cfg).values())
 
 
 def _leaf_dtype(cfg: ModelConfig, p: P) -> torch.dtype:

@@ -28,7 +28,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import causal_conv1d, causal_conv1d_step, gelu
+from repro_torch.models.layers import causal_conv1d, causal_conv1d_step, dense, gelu
 from repro_torch.models.ssm import softplus
 
 MODES = ("train", "prefill", "decode")
@@ -48,8 +48,8 @@ class RecMixer(nn.Module):
 
     def gates(self, u: torch.Tensor):
         """u: (B, T, w) post-conv activations -> (a, gx), f32."""
-        r = torch.sigmoid(u @ self.w_a + self.b_a).to(torch.float32)
-        i = torch.sigmoid(u @ self.w_x + self.b_x).to(torch.float32)
+        r = torch.sigmoid(dense(u, self.w_a) + self.b_a).to(torch.float32)
+        i = torch.sigmoid(dense(u, self.w_x) + self.b_x).to(torch.float32)
         a = torch.exp(-LRU_C * softplus(self.lam.to(torch.float32)) * r)
         gx = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * u.to(torch.float32))
         return a, gx
@@ -64,8 +64,8 @@ class RecMixer(nn.Module):
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
         B, S, _ = x.shape
-        gate = gelu(x @ self.w_gate_branch)
-        u = x @ self.w_rec_branch
+        gate = gelu(dense(x, self.w_gate_branch))
+        u = dense(x, self.w_rec_branch)
         new_cache = None
         if mode == "decode":
             u_t, conv_state = causal_conv1d_step(u[:, 0], cache["conv"],
@@ -85,4 +85,4 @@ class RecMixer(nn.Module):
                 pad = u.new_zeros((B, max(0, (K - 1) - S), u.shape[-1]))
                 new_cache = {"conv": torch.cat([pad, u[:, -(K - 1):]], dim=1),
                              "lru": h_last.to(x.dtype)}
-        return (y * gate) @ self.w_out, new_cache
+        return dense(y * gate, self.w_out), new_cache

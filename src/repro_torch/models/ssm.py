@@ -18,7 +18,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
-from repro_torch.models.layers import causal_conv1d, causal_conv1d_step
+from repro_torch.models.layers import causal_conv1d, causal_conv1d_step, dense
 
 MODES = ("train", "prefill", "decode")
 LEAVES = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
@@ -51,8 +51,8 @@ class SSMMixer(nn.Module):
         """u: (B, T, di) post-conv activations -> (dt, Bm, Cm), f32. Bm and
         Cm are slices of the x_proj output (strided views)."""
         r, n = self.dt_rank, self.n_state
-        xdbc = u @ self.x_proj                                    # (B, T, r + 2n)
-        dt = softplus(xdbc[..., :r] @ self.dt_proj + self.dt_bias).to(torch.float32)
+        xdbc = dense(u, self.x_proj)                                   # (B, T, r + 2n)
+        dt = softplus(dense(xdbc[..., :r], self.dt_proj) + self.dt_bias).to(torch.float32)
         return dt, xdbc[..., r:r + n].to(torch.float32), xdbc[..., r + n:].to(torch.float32)
 
     def ssm_scan_chunked(self, u: torch.Tensor, h0: Optional[torch.Tensor] = None):
@@ -77,7 +77,7 @@ class SSMMixer(nn.Module):
             raise ValueError(f"mode {mode!r} not in {MODES}")
         B, S, _ = x.shape
         di = self.d_inner
-        xz = x @ self.in_proj
+        xz = dense(x, self.in_proj)
         xin, z = xz[..., :di], xz[..., di:]
         new_cache = None
         if mode == "decode":
@@ -97,4 +97,4 @@ class SSMMixer(nn.Module):
                 pad = xin.new_zeros((B, max(0, (K - 1) - S), di))
                 new_cache = {"conv": torch.cat([pad, xin[:, -(K - 1):]], dim=1),
                              "ssm": h.to(x.dtype)}
-        return (y * silu(z)) @ self.out_proj, new_cache
+        return dense(y * silu(z), self.out_proj), new_cache

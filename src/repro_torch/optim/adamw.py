@@ -32,8 +32,8 @@ class AdamWConfig:
 
 
 def adamw_init(params: Tensors) -> Dict:
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for k, p in params.items()}
+    # zeros_like keeps a sharded parameter's placements (DTensor)
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
     dev = next(iter(params.values())).device
     return {"m": zeros, "v": {k: z.clone() for k, z in zeros.items()},
             "step": torch.zeros((), dtype=torch.int32, device=dev)}

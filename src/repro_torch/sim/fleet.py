@@ -109,8 +109,9 @@ class FleetConfig:
     slo_target: float = 0.95
     # scan engine only: the reference shards the device axis over every
     # visible accelerator; here one visible card (or the CPU) runs the
-    # same program as shard=False, and several cards raise (ROADMAP
-    # section 1, item 5)
+    # same program as shard=False. The port has its mesh now
+    # (launch.mesh, launch.shardings), but sharding this axis over several
+    # cards stays open (ROADMAP section 1, item 5), and several cards raise
     shard: bool = False
 
 

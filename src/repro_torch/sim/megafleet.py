@@ -190,8 +190,9 @@ def simulate_scan(env_cfg: EnvConfig, tables: ProfileTables, policy,
 
     ``fleet.shard=True`` runs the same program on the one visible device,
     so it equals ``shard=False`` bit for bit (the reference's 1-device
-    mesh); sharding the device axis over several cards waits for
-    ``torch.distributed`` (ROADMAP section 1, item 5). It requires a
+    mesh); the port's mesh exists (``launch.mesh``, ``launch.shardings``),
+    but sharding the device axis over several cards stays open (ROADMAP
+    section 1, item 5) and raises. It requires a
     per-device-decomposable policy (any static registry policy);
     trainable nets read the whole fleet's observation and are rejected.
 
@@ -220,7 +221,7 @@ def simulate_scan(env_cfg: EnvConfig, tables: ProfileTables, policy,
     if fleet.shard and dev.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             "engine='scan' with shard=True over several cards is not ported "
-            "yet (ROADMAP section 1, item 5, torch.distributed)")
+            "yet (ROADMAP section 1, item 5)")
 
     if model_ids is None:
         model_ids = np.arange(n, dtype=np.int32) % tables.n_models

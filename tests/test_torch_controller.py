@@ -331,7 +331,7 @@ def test_controller_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypa
 
 
 def test_core_exports_the_reference_names():
-    want = set(R.__all__) - {"PPOConfig", "make_dryrun_tpu_env"}
+    want = set(R.__all__) - {"PPOConfig"}
     assert want <= set(T.__all__)
     for name in T.__all__:
         assert getattr(T, name) is not None

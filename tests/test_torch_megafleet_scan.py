@@ -285,8 +285,9 @@ def test_scan_rejects_unsupported_modes_with_the_reference_words():
 
 
 def test_scan_refuses_several_cards_for_shard(monkeypatch):
-    """shard=True over more than one visible card waits for
-    torch.distributed; on the CPU the card count does not matter."""
+    """shard=True over more than one visible card stays open (the port's
+    mesh exists, the scan's sharding over cards does not); on the CPU the
+    card count does not matter."""
     sc, env_cfg, tables, mids, _ = _world("diurnal-fleet")
     pol = build_policy("device_only", env_cfg, tables)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
