@@ -340,7 +340,16 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    collectives and seconds. (c) ``make_dryrun_tpu_env(["qwen2-0.5b",
    "falcon-mamba-7b"])`` over those records builds its tables on the card
    equal to the CPU's exactly; an A2C trained briefly on them decides
-   greedily, and a few ``env_step``s give finite rewards.
+   greedily, and a few ``env_step``s give finite rewards. (d) The scan
+   engine sharded over that group: the megafleet world at its full 100,000
+   devices and 5,000,000 requests through ``FleetConfig(engine="scan",
+   shard=True)`` and ``shard=False`` on the card, equal bit for bit
+   (summary, selection histogram, epoch log, timeline) for device_only,
+   full_offload and greedy_oracle, the sharded run making one all-reduce an
+   epoch and three after its loop; for full_offload no host
+   synchronization inside the sharded loop (sync debug mode, as phase 3f),
+   and launches and NCCL kernels an epoch, device busy time, epochs/s and
+   wall of both.
 7. Timing: each kernel at the main path's shapes beside its plain version,
    one PyTorch library call for the same function where there is one, and
    its bound; flash_attention and flash_decode also at recurrentgemma's
@@ -651,6 +660,9 @@ DRYRUN_COMBOS = (("qwen2-0.5b", "train_4k", "single"), ("qwen2-0.5b", "prefill_3
                  ("qwen2-0.5b", "decode_32k", "single"), ("qwen2-0.5b", "long_500k", "multi"),
                  ("falcon-mamba-7b", "decode_32k", "multi"))
 DRYRUN_TIMEOUT_S = 300
+# phase 11d: the policy whose sharded scan is profiled and checked for host
+# synchronizations (its offloaded tail work goes through the all-reduce)
+SHARD_SCAN_PROFILED = "full_offload"
 SHARD_A2C_UPDATES, SHARD_ENV_STEPS = 10, 4
 # H100 SXM dense TF32 tensor-core rate; 3xTF32 runs three TF32 products for
 # each f32 product
@@ -2346,6 +2358,33 @@ def _same_workload(a, b) -> bool:
             and a.selection_hist.sum() == b.selection_hist.sum())
 
 
+def _loop_syncs(pol, run):
+    """``run()`` under torch's sync debug mode, ``pol.act`` marking each
+    epoch's decide: (its result, the host synchronizations from one decide
+    to the next, their messages)."""
+    import warnings
+    import torch
+    marks, act = [], pol.act
+
+    def marked_act(state, generator=None):
+        marks.append(len(caught))
+        return act(state, generator)
+    pol.act = marked_act
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        pol.act = act
+    syncs = [b - a for a, b in zip(marks, marks[1:])]
+    msgs = sorted({str(w.message)[:120] for w in caught[marks[0]:marks[-1]]}) if marks else []
+    return out, syncs, msgs
+
+
 def _scan_profile(run, epochs: int) -> dict:
     """One scan run under torch.profiler and the obs recorder: kernel
     launches an epoch, the device busy time (kernels and copies, one
@@ -2369,14 +2408,16 @@ def _scan_profile(run, epochs: int) -> dict:
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
     busy = sum(dev_us(e) for e in events if e.device_type == DeviceType.CUDA) / 1e6
     launches = sum(e.count for e in events if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    nccl = sum(e.count for e in events
+               if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower())
     top = sorted((e for e in events if e.device_type == DeviceType.CUDA), key=dev_us,
                  reverse=True)[:6]
     return {"profiled_wall_s": wall, "device_busy_s": busy,
             "presample_s": spans["fleet.scan.presample"]["total_s"],
             "loop_s": spans["fleet.scan"]["total_s"],
             "idle_share": 1 - busy / wall if wall > 0 else None,
-            "launches_per_epoch": launches / epochs,
+            "launches_per_epoch": launches / epochs, "nccl_kernels_per_epoch": nccl / epochs,
             "top_kernels_ms_per_epoch": [(e.key[:60], dev_us(e) / 1e3 / epochs) for e in top]}
 
 
@@ -2392,7 +2433,6 @@ def phase_scan_engine(dev, smi):
     file read back; cluster-brownout with the timeline on. No kernel lies
     on this path: the reference runs it as jnp inside jit."""
     import tempfile
-    import warnings
     import numpy as np
     import torch
     from repro_torch.obs import read_timeline, write_timeline
@@ -2437,24 +2477,8 @@ def phase_scan_engine(dev, smi):
         peak = torch.cuda.max_memory_allocated(dev) - resident
         h, wh = run(cpu_env, cpu_tables, cpu_pol, "scan")
         v, wv = run(env_cfg, tables, pol, "vectorized")
-        # host synchronizations inside the loop: from one decide to the next
-        marks, act = [], pol.act
-
-        def marked_act(state, generator=None):
-            marks.append(len(caught))
-            return act(state, generator)
-        pol.act = marked_act
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                s3, _ = run(env_cfg, tables, pol, "scan", timeline=True)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        pol.act = act
-        syncs = [b - a for a, b in zip(marks, marks[1:])]
-        sync_msgs = sorted({str(w.message)[:120] for w in caught[marks[0]:marks[-1]]}) \
-            if marks else []
+        (s3, _), syncs, sync_msgs = _loop_syncs(
+            pol, lambda: run(env_cfg, tables, pol, "scan", timeline=True))
         prof = _scan_profile(lambda: run(env_cfg, tables, pol, "scan"), s1.epochs)
         static = name != "greedy_oracle"
         same = s1.summary == s2.summary and np.array_equal(s1.selection_hist, s2.selection_hist)
@@ -4451,10 +4475,90 @@ def _priced_env(dev, results):
     return rewards
 
 
+def _sharded_scan(dev, smi):
+    """11d: the scan engine's device axis sharded over the group of one: the
+    megafleet world at its full size through the scan with shard=True and
+    with shard=False on the card, equal bit for bit (summary, selection
+    histogram, epoch log, timeline) for SCAN_POLICIES; all-reduces a
+    sharded run (one an epoch, three after the loop); for
+    SHARD_SCAN_PROFILED host synchronizations inside the sharded loop (0),
+    launches and NCCL kernels an epoch and device busy time of both. Returns
+    timing."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.policies import build_policy
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.sim import FleetConfig, simulate
+    sc = get_scenario("megafleet")
+    env_cfg, tables, mids, _ = sc.build_env(device=dev)
+    print(f"  11d. {sc.name} ({sc.devices} devices, {sc.n_requests} requests) through the "
+          f"scan, shard=True over the group of {dist.get_world_size()} against shard=False; "
+          f"card {smi}")
+    calls, all_reduce = [0], dist.all_reduce
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return all_reduce(*a, **kw)
+
+    def run(pol, shard):
+        calls[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simulate(env_cfg, tables, pol, sc.build_trace(), n_requests=sc.n_requests,
+                       seed=sc.seeds[0], model_ids=mids,
+                       fleet=FleetConfig(slo_s=sc.slo_s, engine="scan", shard=shard,
+                                         timeline=True))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, calls[0]
+
+    timing = {"card": smi}
+    dist.all_reduce = counted
+    try:
+        for name in SCAN_POLICIES:
+            pol = build_policy(name, env_cfg, tables)
+            u, wu, cu = run(pol, False)
+            s, ws, cs = run(pol, True)
+            same = (same_sim_result(s, u) and (s.epochs, s.served) == (u.epochs, u.served)
+                    and s.timeline.to_json() == u.timeline.to_json())
+            t = {"epochs": s.epochs, "requests": s.served, "all_reduce": cs,
+                 "sharded": {"wall_s": ws, "epochs_per_s": s.epochs / ws},
+                 "unsharded": {"wall_s": wu, "epochs_per_s": u.epochs / wu}}
+            syncs, msgs = [0] * (s.epochs - 1), []
+            if name == SHARD_SCAN_PROFILED:
+                (s2, _, _), syncs, msgs = _loop_syncs(pol, lambda: run(pol, True))
+                same = same and same_sim_result(s2, u)
+                for label, shard in (("unsharded", False), ("sharded", True)):
+                    prof = _scan_profile(lambda: run(pol, shard), s.epochs)
+                    t[label].update({k: prof[k] for k in (
+                        "launches_per_epoch", "nccl_kernels_per_epoch", "device_busy_s",
+                        "profiled_wall_s", "idle_share")})
+                t["syncs_per_epoch"] = syncs
+            timing[name] = t
+            check(same and cu == 0 and cs == s.epochs + 3 and sum(syncs) == 0
+                  and len(syncs) == s.epochs - 1,
+                  f"{sc.name} {name}: scan shard=True (group of {dist.get_world_size()}) = "
+                  f"shard=False bit for bit (summary, selection histogram, epoch log, "
+                  f"timeline); {s.epochs} epochs, {s.served} requests; all-reduces {cs} "
+                  f"(one an epoch and 3 after the loop; shard=False {cu})"
+                  + (f"; host synchronizations in the sharded loop {syncs}"
+                     + (f" ({msgs})" if msgs else "") if name == SHARD_SCAN_PROFILED else ""))
+            print(f"    {name}: sharded {ws:.3f} s ({s.epochs / ws:.1f} epochs/s), unsharded "
+                  f"{wu:.3f} s ({u.epochs / wu:.1f} epochs/s)" + "".join(
+                      f"; {k} {t[k]['launches_per_epoch']:.1f} launches and "
+                      f"{t[k]['nccl_kernels_per_epoch']:.1f} NCCL kernels an epoch, device busy "
+                      f"{t[k]['device_busy_s']:.4f} s of {t[k]['profiled_wall_s']:.4f} s"
+                      for k in ("unsharded", "sharded") if "launches_per_epoch" in t[k])
+                  + f"; card {smi}")
+    finally:
+        dist.all_reduce = all_reduce
+    return timing
+
+
 def phase_sharded(dev, smi):
     """Phase 11: the sharded steps at world size 1 on the card (11a), the
     dry runs on its host (11b, started first and run beside 11a), the env
-    priced from their records (11c). Returns ({path: launches}, timing)."""
+    priced from their records (11c), the sharded scan engine (11d). Returns
+    ({path: launches}, timing)."""
     import torch.distributed as dist
     t_phase = time.perf_counter()
     print(f"== 11. shardings and the dry run: full-width {TRAIN_ARCH} sharded at world size 1 "
@@ -4470,6 +4574,9 @@ def phase_sharded(dev, smi):
         results = out_dir / "dryrun.jsonl"
         timing["dryrun_s"] = _check_dryruns(runs, results)
         timing["env_rewards"] = _priced_env(dev, results)
+        t_scan = time.perf_counter()
+        timing["scan"] = _sharded_scan(dev, smi)
+        timing["scan"]["seconds"] = time.perf_counter() - t_scan
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -5,7 +5,10 @@ against: device-only, full-offload, random, and a per-step greedy oracle
 The greedy oracle prices every (version, cut) pair per UAV under the
 current state in one batched call of the pricing core (the grid is a
 leading axis of the actions) and picks the per-UAV reward argmax. Actions
-are int64 tensors on the tables' device.
+are int64 tensors on the tables' device. Every policy sizes its actions by
+the state it is given (``state["model_id"]``), not by ``cfg.n_uavs``, so
+a device shard of the fleet gets the rows the whole fleet's call gives
+those devices (the sharded scan engine acts on shards).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ def _with_server(cfg: EnvConfig, actions, srv=None):
 
 def device_only(cfg: EnvConfig, tables: ProfileTables, state, generator=None):
     """Lightweight version, run everything locally (last cut)."""
-    n, dev = cfg.n_uavs, tables.device
+    n, dev = state["model_id"].shape[0], tables.device
     a = torch.stack([torch.zeros(n, dtype=torch.long, device=dev),
                      torch.full((n,), tables.n_cuts - 1, dtype=torch.long, device=dev)], -1)
     return _with_server(cfg, a)
@@ -43,7 +46,7 @@ def random_policy(cfg: EnvConfig, tables: ProfileTables, state,
                   generator: torch.Generator):
     """Uniform over each device's valid versions and all cuts (and, in
     cluster mode, servers); drawn on the generator's device."""
-    n, dev = cfg.n_uavs, tables.device
+    n, dev = state["model_id"].shape[0], tables.device
     nv = tables.version_valid[state["model_id"]].sum(-1)
 
     def uniform_int(high):
@@ -59,7 +62,7 @@ def random_policy(cfg: EnvConfig, tables: ProfileTables, state,
 def greedy_oracle(cfg: EnvConfig, tables: ProfileTables, state, generator=None):
     """Per-step per-UAV reward argmax over all (j, k), and over the server
     axis too in cluster mode."""
-    n, dev = cfg.n_uavs, tables.device
+    n, dev = state["model_id"].shape[0], tables.device
     V, K = tables.n_versions, tables.n_cuts
     axes = [torch.arange(V, device=dev), torch.arange(K, device=dev)]
     if cfg.cluster is not None:

@@ -86,6 +86,9 @@ class SelfAttention(nn.Module):
         self.rope_theta = cfg.rope_theta if cfg.use_rope else None
         self.window = window
         self.causal = causal
+        # the CPU path's chunked attention (the reference's perf knobs)
+        self.chunks = dict(q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
+                           causal_skip=cfg.attn_causal_skip)
         self.wq, self.wk, self.wv, self.wo = (Dense(p[n]) for n in ("wq", "wk", "wv", "wo"))
         for names, on in ((("bq", "bk", "bv"), cfg.qkv_bias), (("bo",), cfg.attn_bias),
                           (("q_norm", "k_norm"), cfg.qk_norm)):
@@ -128,7 +131,7 @@ class SelfAttention(nn.Module):
         else:
             out = ac.attention(q, k, v, q_positions=positions,
                                kv_positions=positions, causal=self.causal,
-                               window=self.window)
+                               window=self.window, **self.chunks)
             if mode == "prefill":
                 C = cache_len if cache_len is not None else S
                 new_cache = {"k": ring_from_prefill(k, C),
@@ -148,7 +151,8 @@ class CrossAttention(nn.Module):
     With ``kv_src`` the layer projects k and v and returns them as the cache
     {"xk", "xv"}; without it (decode) it reads them from ``cache``. Train
     and prefill attend through ``ac.attention``: the flash kernel on CUDA
-    (non-causal, Sq != Skv), the plain path on the CPU. A decode step (one
+    (non-causal, Sq != Skv), on the CPU the plain path (chunked past the
+    reference's threshold). A decode step (one
     query) attends through ``ops.decode_attention`` with the cache read as a
     full ring: ``pos = Skv - 1`` over C = Skv slots puts position s in slot
     s and leaves every slot visible, so the flash decode kernel computes
@@ -231,6 +235,9 @@ class MLAttention(nn.Module):
         self.rope_theta = cfg.rope_theta
         self.window = window
         self.absorb = cfg.mla_absorb
+        # the CPU path's chunked attention; the reference's MLA takes no
+        # causal_skip
+        self.chunks = dict(q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
         self.wq, self.wo = Dense(p["wq"]), Dense(p["wo"])
         for n in ("w_dkv", "kv_norm", "w_uk", "w_uv"):
             setattr(self, n, nn.Parameter(p[n], requires_grad=False))
@@ -295,7 +302,8 @@ class MLAttention(nn.Module):
         else:
             k, v = self._expand(ckv, krope)
             out = ac.attention(q, k, v, q_positions=positions, kv_positions=positions,
-                               causal=True, window=self.window, logit_scale=scale)
+                               causal=True, window=self.window, logit_scale=scale,
+                               **self.chunks)
             if mode == "prefill":
                 C = cache_len if cache_len is not None else S
                 new_cache = {"ckv": ring_from_prefill(ckv, C),

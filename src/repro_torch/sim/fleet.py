@@ -107,11 +107,12 @@ class FleetConfig:
     # SLO attainment objective the error-budget report (repro_torch.obs.
     # slo) burns against; scenarios override it per preset
     slo_target: float = 0.95
-    # scan engine only: the reference shards the device axis over every
-    # visible accelerator; here one visible card (or the CPU) runs the
-    # same program as shard=False. The port has its mesh now
-    # (launch.mesh, launch.shardings), but sharding this axis over several
-    # cards stays open (ROADMAP section 1, item 5), and several cards raise
+    # scan engine only: split the device axis over the ranks of the default
+    # torch.distributed group, one process per card (NCCL) or gloo
+    # processes on the CPU (sim.megafleet.simulate_scan). Without a group
+    # it runs at world size 1, equal to shard=False bit for bit; several
+    # visible cards and no group raise. The reference shards over every
+    # device one process sees
     shard: bool = False
 
 

@@ -30,7 +30,14 @@ of every row is bit-equal to what the loop computes.
   bitwise; the CUDA and CPU generators draw different streams, so the
   card and the CPU agree statistically too. Latency percentiles come
   from a fixed log-spaced histogram (512 bins over 1e-4..1e4 s: ~3.7%
-  relative resolution); count/SLO/energy accumulators are exact.
+  relative resolution); count/SLO/energy accumulators are exact. With
+  ``FleetConfig.shard`` the device axis is split over the ranks of a
+  ``torch.distributed`` group (``simulate_scan``): the count table and
+  the initial world state are replicated (every rank draws them from the
+  same numpy streams), the per-device draws (policy, arrival offsets,
+  bandwidth, transmit power, activity) come from each rank's own
+  generator, and the server's background arrivals are one replicated
+  draw, made on rank 0 and shared through the epoch's one all-reduce.
 
 f32 time safety: the scan carries ``free_rel`` (each device's FIFO
 drain time *relative to the epoch start*) instead of absolute time, so a
@@ -42,6 +49,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.core.env import EnvConfig, ProfileTables
@@ -150,6 +158,36 @@ def numpy_queues(counts, alive, free_at, pr, srv_wait, t_now,
 # scan engine
 # --------------------------------------------------------------------------
 
+def shard_seed(seed: int, rank: int) -> int:
+    """The seed of shard ``rank``'s generator in a sharded scan: ``seed``
+    itself on rank 0 (so world size 1 draws the unsharded stream), else the
+    first 64-bit word of ``numpy.random.SeedSequence((seed, rank))``."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence((seed, rank)).generate_state(1, np.uint64)[0])
+
+
+def _shard_axis(dev: torch.device):
+    """(rank, world size, process group) of a sharded scan: a 1-D mesh
+    ("d",) over every rank of the default ``torch.distributed`` group (the
+    reference's ``Mesh(jax.devices(), ("d",))``), or (0, 1, None) when no
+    group is initialized. Several visible cards and no group raise: one
+    process would leave all but one card unused."""
+    if dist.is_available() and dist.is_initialized():
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh((dist.get_world_size(),), ("d",), dev)
+        return mesh.get_local_rank("d"), mesh.size(), mesh.get_group("d")
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        raise ValueError(
+            f"engine='scan' with shard=True shards over the ranks of a torch.distributed "
+            f"group, and {torch.cuda.device_count()} cards are visible to a process without "
+            "one: start one process per card (torchrun --nproc-per-node=N, or "
+            "launch.distributed's REPRO_COORDINATOR / REPRO_NUM_PROCESSES / "
+            "REPRO_PROCESS_ID contract) and initialize the group first, or make one card "
+            "visible (CUDA_VISIBLE_DEVICES)")
+    return 0, 1, None
+
+
 def _hist_percentile(hist, edges, count, q):
     """Latency quantile from the log-binned histogram: the geometric
     midpoint of the first bin whose cumulative count reaches q."""
@@ -188,13 +226,33 @@ def simulate_scan(env_cfg: EnvConfig, tables: ProfileTables, policy,
     drift ``schedule``, ``online`` adaptation and the ExecuteBackend need
     host round-trips and raise upstream in ``fleet.simulate``.
 
-    ``fleet.shard=True`` runs the same program on the one visible device,
-    so it equals ``shard=False`` bit for bit (the reference's 1-device
-    mesh); the port's mesh exists (``launch.mesh``, ``launch.shardings``),
-    but sharding the device axis over several cards stays open (ROADMAP
-    section 1, item 5) and raises. It requires a
-    per-device-decomposable policy (any static registry policy);
-    trainable nets read the whole fleet's observation and are rejected.
+    ``fleet.shard=True`` splits the device axis over a 1-D mesh ("d",)
+    of every rank of the default ``torch.distributed`` group
+    (``launch.mesh.make_mesh``): one process per card over NCCL, or
+    gloo processes when the tables live on the CPU. The reference shards
+    over every device one process sees; the port shards over the ranks of
+    the group, so several visible cards and no group raise rather than
+    leave cards unused. Without a group, shard=True runs at world size 1
+    on the tables' device. As in the reference, the fleet axis is padded
+    to a multiple of the world size with dead devices (battery 0, zero
+    arrivals, the lowest bandwidth and transmit power, model 0) and rank r
+    takes the r-th contiguous block; every rank presamples the whole
+    count table and draws the same initial state. Per-shard draws: rank
+    0's generator is seeded with ``seed`` (so world size 1 draws the
+    unsharded stream), rank r > 0's with ``shard_seed(seed, r)`` (the
+    reference folds the shard index into its epoch key). Replicated
+    draws: the server's background arrivals, drawn on rank 0 where the
+    unsharded loop draws them. Each epoch makes one collective, a sum
+    all-reduce of [offloaded tail work, background arrivals] (the only
+    reductions the next epoch reads); the other per-epoch values stay on
+    their rank and are reduced once after the loop (sums, and the largest
+    latency by max), so every rank returns the same ``SimResult``. On the
+    card the all-reduce is enqueued on the stream: the loop still makes no
+    host synchronization. At world size 1 the result equals
+    ``shard=False`` bit for bit (the reference's 1-device mesh). It
+    requires a per-device-decomposable policy (any static registry
+    policy); trainable nets read the whole fleet's observation and are
+    rejected.
 
     Returns a ``fleet.SimResult`` whose ``metrics`` holds only the drop
     counter (per-request arrays never leave the device); ``summary`` is
@@ -218,10 +276,7 @@ def simulate_scan(env_cfg: EnvConfig, tables: ProfileTables, policy,
             "engine='scan' with shard=True needs a per-device-"
             "decomposable policy; trainable nets read the whole fleet's "
             "observation and cannot act on a device shard")
-    if fleet.shard and dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "engine='scan' with shard=True over several cards is not ported "
-            "yet (ROADMAP section 1, item 5)")
+    rank, world, group = _shard_axis(dev) if fleet.shard else (0, 1, None)
 
     if model_ids is None:
         model_ids = np.arange(n, dtype=np.int32) % tables.n_models
@@ -251,27 +306,39 @@ def simulate_scan(env_cfg: EnvConfig, tables: ProfileTables, policy,
     M, V, K = tables.n_models, tables.n_versions, tables.n_cuts
     edges = np.geomspace(_LAT_LO, _LAT_HI, _NBINS - 1)
 
+    # this rank's block of the fleet axis, padded to a multiple of the world
+    # size with dead devices (battery 0, zero arrivals: they price, but
+    # serve, drop and drain nothing)
+    pad_n = (-n) % world
+    nloc = (n + pad_n) // world
+    blk = slice(rank * nloc, (rank + 1) * nloc)
+    counts_loc = np.pad(counts, ((0, 0), (0, pad_n)))[:, blk]
+    mids_loc = np.pad(model_ids, (0, pad_n))[blk]
+    bw0 = np.pad(bw0, (0, pad_n), constant_values=lp.bw_min_bps)[blk]
+    ptx0 = np.pad(ptx0, (0, pad_n), constant_values=pw.p_tx_min)[blk]
+    battery0 = np.where(np.arange(n + pad_n) < n, pw.battery_j, 0.0)[blk]
+
     f32, i32 = torch.float32, torch.int32
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    with obs.span("fleet.scan", epochs=T, devices=n, shard=fleet.shard):
+    gen = torch.Generator(device=dev).manual_seed(shard_seed(seed, rank))
+    with obs.span("fleet.scan", epochs=T, devices=n, shard=fleet.shard, world=world):
         # inputs, copied to the device once
-        counts_all = torch.as_tensor(counts, dtype=i32).to(dev)     # (T, n)
+        counts_all = torch.as_tensor(counts_loc, dtype=i32).to(dev)  # (T, nloc)
         epochs_all = torch.arange(T, dtype=i32, device=dev)
-        mids = torch.as_tensor(model_ids, dtype=torch.long).to(dev)
+        mids = torch.as_tensor(mids_loc, dtype=torch.long).to(dev)
         edges_t = torch.as_tensor(edges, dtype=f32).to(dev)
         col = torch.arange(C, device=dev)
         zero = torch.zeros((), dtype=f32, device=dev)
         lam = torch.full((), cfg.queue_arrival_rate, dtype=f32, device=dev)
         # the carry
-        battery = torch.full((n,), pw.battery_j, dtype=f32, device=dev)
+        battery = torch.as_tensor(battery0, dtype=f32).to(dev)
         bw = torch.as_tensor(bw0, dtype=f32).to(dev)
         p_tx = torch.as_tensor(ptx0, dtype=f32).to(dev)
         activity = torch.as_tensor(cfg.activity, dtype=f32).to(dev)[None] \
-            .repeat(n, 1)
+            .repeat(nloc, 1)
         side_q = zero.clone()
         backlog_s = zero.clone()
-        free_rel = torch.zeros(n, dtype=f32, device=dev)
-        obs_rate = torch.full((n,), trace.mean_rps, dtype=f32, device=dev)
+        free_rel = torch.zeros(nloc, dtype=f32, device=dev)
+        obs_rate = torch.full((nloc,), trace.mean_rps, dtype=f32, device=dev)
         # the accumulators
         acc_i = torch.zeros(3, dtype=i32, device=dev)   # count, dropped, slo_hits
         acc_f = torch.zeros(2, dtype=f32, device=dev)   # lat_sum, e_sum
@@ -308,7 +375,7 @@ def simulate_scan(env_cfg: EnvConfig, tables: ProfileTables, policy,
             pr = pricing.price_actions(cfg, tables, view, actions, xp=torch)
 
             # 3) padded-ragged Lindley in epoch-relative time
-            u = torch.rand((n, C), generator=gen, device=dev) * slot
+            u = torch.rand((nloc, C), generator=gen, device=dev) * slot
             validm = col[None, :] < counts_t[:, None]
             offs = torch.sort(torch.where(validm, u, 2.0 * slot), dim=1).values
             lat, done = lindley_core(offs, free_rel, pr.head_s + pr.tx_s,
@@ -340,15 +407,21 @@ def simulate_scan(env_cfg: EnvConfig, tables: ProfileTables, policy,
                                    activity[:, 2])
             drain = torch.where(alive, kin * slot + cf * pr.energy_j, 0.0)
             battery = torch.clamp(battery - drain, min=0.0)
-            bw = torch.clamp(bw * torch.exp(torch.randn(n, generator=gen, device=dev)
+            bw = torch.clamp(bw * torch.exp(torch.randn(nloc, generator=gen, device=dev)
                                             * 0.15), lp.bw_min_bps, lp.bw_max_bps)
-            p_tx = torch.clamp(p_tx + torch.randn(n, generator=gen, device=dev) * 0.05,
+            p_tx = torch.clamp(p_tx + torch.randn(nloc, generator=gen, device=dev) * 0.05,
                                pw.p_tx_min, pw.p_tx_max)
-            activity = torch.clamp(activity + torch.randn((n, 3), generator=gen, device=dev)
+            activity = torch.clamp(activity + torch.randn((nloc, 3), generator=gen, device=dev)
                                    * cfg.activity_jitter, 0.0, 1.0)
             activity = activity / torch.clamp(activity.sum(-1, keepdim=True), min=1.0)
-            side_q = torch.clamp(side_q + torch.poisson(lam, generator=gen)
-                                 - cfg.queue_service_per_slot, min=0.0)
+            arrivals_q = torch.poisson(lam, generator=gen) if rank == 0 else zero
+            if group is not None:
+                # the epoch's one collective: the fleet's offloaded tail work
+                # and rank 0's background arrivals (the other ranks add 0)
+                red = torch.stack([tail_in, arrivals_q])
+                dist.all_reduce(red, group=group)
+                tail_in, arrivals_q = red[0], red[1]
+            side_q = torch.clamp(side_q + arrivals_q - cfg.queue_service_per_slot, min=0.0)
             backlog_s = torch.clamp(backlog_s + tail_in - slot, min=0.0)
             obs_rate = (1.0 - fleet.ewma) * obs_rate + fleet.ewma * cf / slot
 
@@ -360,6 +433,21 @@ def simulate_scan(env_cfg: EnvConfig, tables: ProfileTables, policy,
             ys_i[:, t] = torch.stack([dropped_t, slo_hits, alive.sum(dtype=i32),
                                       count_t])
 
+        if group is not None:
+            # the fleet's totals, once: sums of counts, histograms and f32
+            # sums, the largest latency by max (queue and backlog are
+            # replicated)
+            ints = torch.cat([acc_i, hist_lat, hist_sel, ys_i.reshape(-1)])
+            floats = torch.cat([acc_f, ys_f[2], ys_f[4]])
+            maxes = torch.cat([lat_max_acc[None], ys_f[3]])
+            dist.all_reduce(ints, group=group)
+            dist.all_reduce(floats, group=group)
+            dist.all_reduce(maxes, op=dist.ReduceOp.MAX, group=group)
+            acc_i, ints = ints[:3], ints[3:]
+            hist_lat, hist_sel = ints[:_NBINS], ints[_NBINS:_NBINS + M * V * K]
+            ys_i = ints[_NBINS + M * V * K:].reshape(4, T)
+            acc_f, ys_f[2], ys_f[4] = floats[:2], floats[2:2 + T], floats[2 + T:]
+            lat_max_acc, ys_f[3] = maxes[0], maxes[1:]
         acc_i, acc_f = acc_i.cpu().numpy(), acc_f.cpu().numpy()
         lat_max_all = np.float32(lat_max_acc.cpu().numpy())
         hist = hist_lat.cpu().numpy()

@@ -285,19 +285,24 @@ def test_scan_rejects_unsupported_modes_with_the_reference_words():
 
 
 def test_scan_refuses_several_cards_for_shard(monkeypatch):
-    """shard=True over more than one visible card stays open (the port's
-    mesh exists, the scan's sharding over cards does not); on the CPU the
-    card count does not matter."""
+    """shard=True shards over the ranks of a torch.distributed group: with
+    several visible cards and no group it raises (one process would leave
+    all but one card unused) and says to start one process per card; on
+    the CPU the card count does not matter and it runs at world size 1,
+    equal to shard=False."""
     sc, env_cfg, tables, mids, _ = _world("diurnal-fleet")
     pol = build_policy("device_only", env_cfg, tables)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     res = _run(sc, env_cfg, tables, mids, pol, "scan", n_requests=2000, shard=True)
-    assert res.epochs > 0
+    base = _run(sc, env_cfg, tables, mids, pol, "scan", n_requests=2000)
+    assert res.epochs > 0 and res.summary == base.summary
+    assert not torch.distributed.is_initialized()
     monkeypatch.setattr(type(tables), "device", property(lambda self: torch.device("cuda", 0)),
                         raising=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1, item 5"):
+    with pytest.raises(ValueError, match="one process per card") as e:
         simulate_scan(env_cfg, tables, pol, sc.build_trace(), n_requests=2000,
                       fleet=FleetConfig(engine="scan", shard=True))
+    assert "4 cards" in str(e.value) and "torchrun" in str(e.value)
 
 
 def test_scan_raises_without_cuda_unless_cpu_is_named(monkeypatch):
