@@ -395,6 +395,26 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    rglru_scan's at 4 x 512 x 2560), eager and as a CUDA graph, beside the
    plain backward and the bound (bytes: the inputs, the forward's states
    and the gradients moved once).
+12. The perf harness (``repro_torch.bench``), after phase 7 and reading its
+   rows: a ``Matrix`` of three cases run by ``bench.runner.run``, each timed
+   by ``bench.stats.timeit`` (BENCH_REPS repetitions) and emitted through
+   ``runner.emit``: qwen2-0.5b's w8 layer through ``ops.quantized_dense`` at
+   M = 4096; flash_attention through ``ops.attention_bhsd`` at qwen2's split
+   shape, CUDA inputs, the timed function returning None; ``simulate``
+   through the scan on the megafleet world cut to BENCH_SCAN_REQUESTS (at
+   most 4 epochs). Checked: BENCH_REPS samples a record, a median inside its
+   CI, no error field; flash_attention's median within [0.9x, 3x] phase 7's
+   time of the same call; the w8 layer's at least 0.9x phase 7's kernel
+   device time and within [0.9x, 3x] of the same layer's own device and
+   eager times (so the harness waits for the card); no ``nvcc`` build in a
+   timed case (``tracemon.track_compiles``); the scan case's phases
+   ``fleet.scan`` and ``fleet.scan.presample`` folded, ``bench`` not among
+   them; the fingerprint naming the card and the power limit phase 1 read.
+   In a temporary directory: the gate on the run's own history (every case
+   ok; ``launch.benchgate.main`` exits 0), on a copy whose scan samples and
+   spans are doubled (regression naming a ``fleet.scan*`` phase; the CLI
+   exits 1), and against rows under the reference's fingerprint keys
+   (fingerprint_mismatch, refused).
 
 TF32 is switched off for matmuls and cuDNN, so float32 stays float32.
 The second-to-last line of output is the ``{"kernels": [...]}`` record; the
@@ -664,6 +684,12 @@ DRYRUN_TIMEOUT_S = 300
 # synchronizations (its offloaded tail work goes through the all-reduce)
 SHARD_SCAN_PROFILED = "full_offload"
 SHARD_A2C_UPDATES, SHARD_ENV_STEPS = 10, 4
+# phase 12, the perf harness (repro_torch.bench): repetitions a case, calls a
+# repetition for each case, and the scan case's megafleet world cut to
+# BENCH_SCAN_REQUESTS requests (at most BENCH_SCAN_EPOCHS epochs)
+BENCH_REPS = 7
+BENCH_CALLS = {"quant_matmul": 20, "flash_attention": 50, "scan": 1}
+BENCH_SCAN_REQUESTS, BENCH_SCAN_EPOCHS = 2_000_000, 4
 # H100 SXM dense TF32 tensor-core rate; 3xTF32 runs three TF32 products for
 # each f32 product
 PEAK_3XTF32 = 495e12 / 3
@@ -5318,6 +5344,156 @@ def time_rglru_scan_bwd(dev, g, err, launches):
                      f"magnitude"}
 
 
+def phase_bench(dev, smi, kernels):
+    """12. The perf harness (``repro_torch.bench``) on the card: a matrix of
+    three cases run by ``bench.runner.run``, each timed by
+    ``bench.stats.timeit`` and emitted through ``runner.emit``: qwen2-0.5b's
+    w8 layer through ``ops.quantized_dense`` at M = 4096, flash_attention
+    through ``ops.attention_bhsd`` at qwen2's split shape (CUDA inputs, the
+    timed function returns None), and ``simulate`` through the scan on the
+    megafleet world cut to at most BENCH_SCAN_EPOCHS epochs. The harness's
+    medians are held against phase 7's times of the same kernels (``kernels``,
+    its rows); the gate and its CLI run on the records in a temporary
+    directory."""
+    import copy
+    import tempfile
+    import torch
+    from repro_torch.bench import Matrix, gate_records, history, runner, stats
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import benchgate
+    from repro_torch.models.layers import Dense
+    from repro_torch.obs import tracemon
+    from repro_torch.policies import build_policy
+    from repro_torch.quant.quantize import quantize
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.sim import FleetConfig, simulate
+    t_phase = time.perf_counter()
+    print(f"== 12. the perf harness on the card: {BENCH_REPS} repetitions a case, calls a "
+          f"repetition {json.dumps(BENCH_CALLS)}; card {smi}")
+    rows = {kern["name"]: kern for kern in kernels}
+    g = torch.Generator(device=dev).manual_seed(12)
+    dense = [(torch.randn(BATCH * SEQ, K, generator=g, device=dev),
+              Dense(quantize(torch.randn(K, N, generator=g, device=dev) * 0.02, "w8a8")).w)
+             for K, N in QMM_LAYER]
+    B, H, HK, S, D, window = FA_PATHS[0]
+    q = torch.randn(B, S, H, D, generator=g, device=dev).transpose(1, 2)
+    k, v = (torch.randn(B, S, HK, D, generator=g, device=dev).transpose(1, 2) for _ in range(2))
+    sc = get_scenario("megafleet")
+    env_cfg, tables, mids, _ = sc.build_env(device=dev)
+    policy = build_policy("device_only", env_cfg, tables)
+    builds, epochs = {}, []
+
+    def timed(name, fn):
+        with tracemon.track_compiles() as delta:
+            t = stats.timeit(fn, n=BENCH_CALLS[name], reps=BENCH_REPS)
+        builds[name] = delta.get("nvcc_build_n", 0)
+        runner.emit(name, t, f"n={BENCH_CALLS[name]}")
+
+    def qmm_layer():
+        return [kops.quantized_dense(x, w) for x, w in dense]
+
+    def attention():
+        kops.attention_bhsd(q, k, v, causal=True, window=window)
+
+    def scan():
+        res = simulate(env_cfg, tables, policy, sc.build_trace(),
+                       n_requests=BENCH_SCAN_REQUESTS, seed=sc.seeds[0], model_ids=mids,
+                       fleet=FleetConfig(slo_s=sc.slo_s, engine="scan"))
+        epochs.append(res.epochs)
+
+    m = Matrix()
+    m.add(lambda: timed("quant_matmul", qmm_layer), name="quant_matmul")
+    m.add(lambda: timed("flash_attention", attention), name="flash_attention")
+    m.add(lambda: timed("scan", scan), name="scan")
+    run = runner.run(m.cases(), echo=False)
+    recs = {r["name"]: r for r in run.records}
+    check(run.errors == 0 and list(recs) == ["quant_matmul", "flash_attention", "scan"]
+          and all(len(r.get("samples", ())) == BENCH_REPS and 0 < r["n"] <= BENCH_REPS
+                  and r["ci_lo"] <= r["median"] <= r["ci_hi"] and "error" not in r
+                  and r["case"] == r["name"] for r in run.records),
+          f"harness records: {BENCH_REPS} samples each (kept after outlier rejection "
+          f"{ {n: r.get('n') for n, r in recs.items()} }), a median inside its bootstrap CI, "
+          f"no error field, the case named")
+    # the wait: a harness that timed launches would fall below the device
+    # time. Phase 7 times flash_attention's call as the case makes it, and
+    # quant_matmul's kernels alone; the case's layer also quantizes its
+    # activations (most of its device time), so phase 12 times that layer
+    # itself, as a CUDA graph and eager, and phase 7's kernel time bounds
+    # it from below only
+    qmm, fa = rows["quant_matmul"], rows["flash_attention"]
+    layer_device_ms, layer_ms = graph_ms(qmm_layer, 20), cuda_ms(qmm_layer, 20)
+    med = recs["quant_matmul"]["median"]
+    check(max(0.9 * qmm["device_ms"], 0.9 * layer_device_ms) * 1e3 <= med <= 3 * layer_ms * 1e3,
+          f"quant_matmul: harness median {med} us a call, at least 0.9 x phase 7's kernels "
+          f"({qmm['device_ms'] * 1e3:.4g} us device) and within [0.9 x "
+          f"{layer_device_ms * 1e3:.4g}, 3 x {layer_ms * 1e3:.4g}] us of the same "
+          f"ops.quantized_dense layer (a CUDA graph; eager by CUDA events)")
+    med = recs["flash_attention"]["median"]
+    check(0.9 * fa["ms"] * 1e3 <= med <= 3 * fa["ms"] * 1e3,
+          f"flash_attention: harness median {med} us a call, within [0.9 x, 3 x] phase 7's "
+          f"{fa['ms'] * 1e3:.4g} us (CUDA events over 50 calls of the same call)")
+    check(all(n == 0 for n in builds.values()),
+          f"no nvcc build inside a timed case: {builds}")
+    phases = recs["scan"].get("phases", {})
+    check(all(phases.get(n, {}).get("count", 0) >= 1
+              for n in ("fleet.scan", "fleet.scan.presample"))
+          and "bench" not in phases and epochs and max(epochs) <= BENCH_SCAN_EPOCHS,
+          f"scan case: {sc.name} cut to {BENCH_SCAN_REQUESTS} requests, {max(epochs or [0])} "
+          f"epochs a run; phases folded {json.dumps(phases)}")
+    fp = history.fingerprint()
+    check(fp["device"] == torch.cuda.get_device_name()
+          and fp["power_limit"] == smi.rsplit(", ", 1)[-1],
+          f"fingerprint names the card ({fp['device']}) and its power limit "
+          f"({fp['power_limit']}), as nvidia-smi printed them in phase 1")
+
+    slow = copy.deepcopy(run.records)
+    for r in slow:     # the scan case twice as slow: its samples and its spans
+        if r["name"] == "scan":
+            r["samples"] = [2 * x for x in r["samples"]]
+            r["phases"] = {n: dict(p, total_s=2 * p["total_s"]) for n, p in r["phases"].items()}
+    ref_fp = {**{key: fp[key] for key in ("host", "machine", "cpu_count", "python")},
+              "jax": "none", "backend": "none", "pallas": "0"}
+    with tempfile.TemporaryDirectory() as d:
+
+        def results(name, records):
+            path = os.path.join(d, name)
+            with open(path, "w") as f:
+                json.dump({"schema": 2, "unix_time": time.time(), "git_sha": history.git_sha(),
+                           "fingerprint": fp, "rows": records}, f)
+            return path
+
+        hist = os.path.join(d, "history.jsonl")
+        history.append(hist, history.stamp(run.records, run_id="phase12", t_unix=time.time(),
+                                           fp=fp))
+        same = gate_records(run.records, history.load(hist), fp)
+        worse = gate_records(slow, history.load(hist), fp)
+        foreign = gate_records(run.records, history.stamp(
+            run.records, run_id="reference", t_unix=0.0, sha="reference", fp=ref_fp), fp)
+        cli_same = benchgate.main([results("same.json", run.records), "--history", hist])
+        cli_slow = benchgate.main([results("slow.json", slow), "--history", hist])
+    status = {v.name: v.status for v in worse.verdicts}
+    scan_v = next(v for v in worse.verdicts if v.name == "scan")
+    check(not same.failed and {v.status for v in same.verdicts} == {"ok"} and cli_same == 0,
+          f"the gate on the run's own history: {same.counts()}; the CLI exits {cli_same}")
+    check(worse.failed and status == {"quant_matmul": "ok", "flash_attention": "ok",
+                                      "scan": "regression"}
+          and (scan_v.phase or "").startswith("fleet.scan") and cli_slow == 1,
+          f"the scan case's samples and spans x 2: {status}, dominant phase {scan_v.phase} "
+          f"{scan_v.phase_detail}; the CLI exits {cli_slow}")
+    check(foreign.refused and {v.status for v in foreign.verdicts} == {"fingerprint_mismatch"},
+          f"a history under the reference's fingerprint keys: {foreign.counts()}, refused")
+    medians = {n: r["median"] for n, r in recs.items()}
+    timing = {"card": smi, "medians_us": medians, "quant_matmul_layer_device_ms": layer_device_ms,
+              "quant_matmul_layer_ms": layer_ms, "fingerprint": fp,
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"  phase 12 medians (us a call): {json.dumps(medians)}; phase 7: quant_matmul "
+          f"kernels {qmm['device_ms'] * 1e3:.4g} us device, {qmm['ms'] * 1e3:.4g} eager; the "
+          f"quantized_dense layer {layer_device_ms * 1e3:.4g} device, {layer_ms * 1e3:.4g} eager; "
+          f"flash_attention {fa['ms'] * 1e3:.4g}; fingerprint {json.dumps(fp)}; card {smi}")
+    print(f"  phase 12 took {timing['phase_s']:.1f} s")
+    return timing
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5395,6 +5571,7 @@ def main() -> int:
     paths.update(shard_paths)
     for kern in kernels:
         kern["launches_by_path"] = {p: n.get(kern["name"], 0) for p, n in paths.items()}
+    bench_timing = phase_bench(dev, smi, kernels)
 
     print(f"{cfg.name} per-infer ms (median of 3), {BATCH} x {SEQ} tokens: " + json.dumps(
         {k: statistics.median(v) for k, v in times.items()}))
@@ -5413,6 +5590,7 @@ def main() -> int:
     print("simulate CLI (deepseek-v2-lite-16b): " + json.dumps(cli_mla_timing))
     print(f"{TRAIN_ARCH} training: " + json.dumps(train_timing))
     print("shardings and the dry run: " + json.dumps(shard_timing))
+    print("perf harness: " + json.dumps(bench_timing))
     for arch, d in families.items():
         B, S = FAMILIES[arch]["split"]
         print(f"{arch} per-infer ms (median of 3), {B} x {S} tokens: " + json.dumps(

@@ -2,4 +2,5 @@
 (``serve_batch``), the dev loop over every arch (``dev_smoke``), the closed
 loop of controller and split serving, the fleet simulation CLI and its
 markdown renderer, the quickstart and fleet-simulation examples, the
-obs-trace and flight-recorder viewers, and the decode profile."""
+obs-trace and flight-recorder viewers, the decode profile, and the perf
+gate over a benchmark history (``benchgate``)."""
