@@ -16,12 +16,22 @@ Design rules:
   never synchronize the card; the build counter
   (``repro_torch.obs.tracemon``) counts specialized-step builds on the
   host.
+- **One clock with the profiler, on request.** ``Recorder(clock=
+  time.time_ns)`` stamps spans in Unix nanoseconds, the scale on which
+  ``torch.profiler`` stamps its host ops and runtime calls: a span then
+  starts at ``recorder.t0 + t`` on the profiler's scale, so a kernel can
+  be credited, through the runtime call that launched it, to the span
+  open at that call. (The profiler's device timestamps can drift against
+  its host ones; the launch is the reliable link.) Its ``t`` and ``dur``
+  are then integer nanoseconds, and the file's header names the clock.
 
 JSONL schema (``SCHEMA_VERSION``, the reference's, so either package
 reads the other's files): the first line is a meta record
-``{"type": "meta", "schema": 1, "clock": "perf_counter", "meta": {...}}``;
-every following line is one event with a ``type`` in {span, event, log,
-metric, jax}, a monotonic ``t`` (seconds since the recorder started)
+``{"type": "meta", "schema": 1, "clock": "perf_counter", "meta": {...}}``
+(``clock``: the name of the recorder's clock function, ``perf_counter``
+by default); every following line is one event with a ``type`` in {span,
+event, log, metric, jax}, a monotonic ``t`` (seconds since the recorder
+started, in the default clock)
 and a total-order ``seq``. Spans are emitted at *exit* (so a parent
 follows its children in the file) and carry ``dur`` (seconds),
 ``depth`` and ``parent``; ``read_events`` round-trips the file and
@@ -181,15 +191,18 @@ class Recorder:
                 len(self.events) - self._written >= self._flush_every:
             self._flush()
 
+    def _header(self) -> str:
+        """The file's meta line, naming the clock the spans ran on."""
+        return json.dumps({"type": "meta", "schema": SCHEMA_VERSION,
+                           "clock": getattr(self.clock, "__name__", "perf_counter"),
+                           "meta": self.meta}, default=_json_default) + "\n"
+
     def _flush(self):
         """Append the unwritten event tail to the file (opens it — and
         writes the meta header — on first use)."""
         if self._fh is None:
             self._fh = open(self.path, "w")
-            self._fh.write(json.dumps(
-                {"type": "meta", "schema": SCHEMA_VERSION,
-                 "clock": "perf_counter", "meta": self.meta},
-                default=_json_default) + "\n")
+            self._fh.write(self._header())
         for ev in self.events[self._written:]:
             self._fh.write(json.dumps(ev, default=_json_default) + "\n")
         self._written = len(self.events)
@@ -236,10 +249,7 @@ class Recorder:
             self._fh = None
         elif self.path:
             with open(self.path, "w") as f:
-                f.write(json.dumps(
-                    {"type": "meta", "schema": SCHEMA_VERSION,
-                     "clock": "perf_counter", "meta": self.meta},
-                    default=_json_default) + "\n")
+                f.write(self._header())
                 for ev in self.events:
                     f.write(json.dumps(ev, default=_json_default) + "\n")
 

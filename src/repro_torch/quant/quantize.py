@@ -21,6 +21,8 @@ from typing import Dict, FrozenSet, Tuple
 import torch
 from torch import nn
 
+from repro_torch import obs
+
 MODES = ("w8wo", "w4", "w8a8")
 _QMAX = {8: 127, 4: 7}
 W4_GROUP = 32   # contraction-axis scale-group size for int4
@@ -47,12 +49,14 @@ class QTensor:
                 + self.scale.numel() * self.scale.element_size())
 
     def dequantize(self) -> torch.Tensor:
-        q = _unpack_int4(self.q) if self.bits == 4 else self.q
-        d, n = q.shape[-2], q.shape[-1]
-        groups = self.scale.shape[-2]
-        qg = q.to(torch.float32).reshape(*q.shape[:-2], groups, d // groups, n)
-        out = qg * self.scale[..., :, None, :]
-        return out.reshape(*q.shape[:-2], d, n)
+        """The f32 weight, under the span ``quant.dequant``."""
+        with obs.span("quant.dequant"):
+            q = _unpack_int4(self.q) if self.bits == 4 else self.q
+            d, n = q.shape[-2], q.shape[-1]
+            groups = self.scale.shape[-2]
+            qg = q.to(torch.float32).reshape(*q.shape[:-2], groups, d // groups, n)
+            out = qg * self.scale[..., :, None, :]
+            return out.reshape(*q.shape[:-2], d, n)
 
 
 # the divisors of _true_div, one device scalar per (device, dtype, value):
@@ -117,12 +121,14 @@ def quantize(w: torch.Tensor, mode: str) -> QTensor:
 
 def quantize_act(x: torch.Tensor):
     """Dynamic per-row int8 activation quantization (contraction = last
-    axis). Returns (q int8, scale f32 with the last axis reduced to 1)."""
-    xf = x.to(torch.float32)
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = _true_div(amax.clamp_min(1e-8), 127.0)
-    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-    return q, scale
+    axis). Returns (q int8, scale f32 with the last axis reduced to 1),
+    under the span ``quant.act``."""
+    with obs.span("quant.act"):
+        xf = x.to(torch.float32)
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        scale = _true_div(amax.clamp_min(1e-8), 127.0)
+        q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+        return q, scale
 
 
 def quantize_tree(model: nn.Module, mode: str,

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import partition
 from repro_torch.device import DeviceLike, resolve_device
@@ -107,8 +108,9 @@ class SplitServingEngine:
             raise KeyError(f"version {version!r} not enabled; have "
                            f"{sorted(self.versions)}")
         if version not in self._vmodels:
-            self._vmodels[version] = build_version_params(
-                self.cfg, self.model, (version,))[version]
+            with obs.span("serving.build_version", version=version):
+                self._vmodels[version] = build_version_params(
+                    self.cfg, self.model, (version,))[version]
         return self._vmodels[version]
 
     @torch.inference_mode()
@@ -116,17 +118,26 @@ class SplitServingEngine:
         """batch: {"tokens": (B, S) ints, and "media" or "enc_frames" for
         the cross-attention families, which both sides read}. Returns
         (logits, act_bytes): act_bytes is the size of what crosses the
-        device -> server link."""
-        model = self._model_for(version)
-        batch = M.batch_on(batch, self.device)
-        act = partition.run_head(self.cfg, model, batch, cut)
-        if get_version(version).act_bits == 8:
-            # the link carries int8 codes + per-row scales, like the w8a8
-            # matmuls inside the trunk
-            q, s = quantize_act(act)
-            act_bytes = q.numel() * q.element_size() + s.numel() * s.element_size()
-            act = (q.to(torch.float32) * s).to(act.dtype)
-        else:
-            act_bytes = act.numel() * act.element_size()
-        logits = partition.run_tail(self.cfg, model, act, batch, cut)
+        device -> server link.
+
+        Spans (``repro_torch.obs``, no-ops unless a recorder is installed):
+        ``serving.infer`` around the whole call, with ``split.head``,
+        ``split.link`` and ``split.tail`` inside it."""
+        B, S = batch["tokens"].shape[:2]
+        with obs.span("serving.infer", version=version, B=B, S=S, cut=cut):
+            model = self._model_for(version)
+            batch = M.batch_on(batch, self.device)
+            with obs.span("split.head"):
+                act = partition.run_head(self.cfg, model, batch, cut)
+            with obs.span("split.link"):
+                if get_version(version).act_bits == 8:
+                    # the link carries int8 codes + per-row scales, like the
+                    # w8a8 matmuls inside the trunk
+                    q, s = quantize_act(act)
+                    act_bytes = q.numel() * q.element_size() + s.numel() * s.element_size()
+                    act = (q.to(torch.float32) * s).to(act.dtype)
+                else:
+                    act_bytes = act.numel() * act.element_size()
+            with obs.span("split.tail"):
+                logits = partition.run_tail(self.cfg, model, act, batch, cut)
         return logits, act_bytes
